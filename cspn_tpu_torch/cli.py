@@ -1,10 +1,13 @@
-"""Command-line interface (counterpart of cspn_tpu/cli.py:88-233,451-485).
+"""Command-line interface (counterpart of cspn_tpu/cli.py:18-233,451-485).
 
+    python -m cspn_tpu_torch train --preset nyu_train --dataset synthetic --crop-hw 228,304
     python -m cspn_tpu_torch eval  --preset nyu_eval --dataset synthetic --runs 5
     python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8
 
-Both run on `--device` (default cuda).  The NYU/KITTI file datasets, train,
-export and the other subcommands wait for later slices (ROADMAP.md Queue 1).
+All run on `--device` (default cuda).  The NYU/KITTI file datasets, export
+and the other subcommands wait for later slices (ROADMAP.md Queue 1), as do
+the train flags that raise: --dtype other than float32 (Queue 1 item 12),
+--grad-reduce-dtype and a --mesh-* larger than 1 (items 8-9).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--dataset", "--data-set", dest="dataset", default=None,
                    choices=["nyudepth", "kitti", "synthetic"])
     p.add_argument("--n-sample", type=int, default=None)
+    p.add_argument("--crop-hw", default=None, type=lambda v: tuple(int(x) for x in v.split(",")),
+                   help="H,W of the frames (e.g. 228,304, the NYU crop, for synthetic data)")
     p.add_argument("--batch-size-eval", type=int, default=None)
     p.add_argument("--model", default=None, help="resnet18|34|50|101|152")
     p.add_argument("--no-cspn", action="store_true", help="baseline model")
@@ -31,30 +36,102 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
+def _add_train_overrides(p: argparse.ArgumentParser):
+    p.add_argument("--batch-size-train", type=int, default=None)
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16", "int8"],
+                   help="only float32 is ported (the others raise)")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--weight-decay", dest="weight_decay", type=float, default=None)
+    p.add_argument("--dampening", type=float, default=None,
+                   help="SGD dampening (torch semantics; requires --no-nesterov)")
+    p.add_argument("--nesterov", "-n", dest="nesterov", action="store_true",
+                   default=None, help="enable Nesterov momentum (preset default)")
+    p.add_argument("--no-nesterov", dest="nesterov", action="store_false",
+                   help="plain momentum SGD")
+    p.add_argument("--num-epoch", type=int, default=None)
+    p.add_argument("--loss", default=None, choices=["l1", "berhu"])
+    p.add_argument("--save-dir", default=None)
+    p.add_argument("--resume", "-r", action="store_true",
+                   help="continue from <save-dir>/best_model.pt (full train state)")
+    p.add_argument("--pretrain-path", default=None,
+                   help="torchvision-format .pth with pretrained encoder weights")
+    p.add_argument("--momentum-dtype", dest="momentum_dtype", default=None,
+                   choices=["bfloat16"],
+                   help="store the SGD momentum in this dtype (update math stays f32)")
+    p.add_argument("--grad-reduce-dtype", dest="grad_reduce_dtype", default=None,
+                   choices=["bfloat16"], help="not ported (raises)")
+    p.add_argument("--mesh-data", type=int, default=None, help="only 1 is ported")
+    p.add_argument("--mesh-spatial", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the run to this dir")
+
+
 def _build_config(args):
     from cspn_tpu_torch.config import PRESETS, RunConfig
 
     cfg = PRESETS[args.preset] if args.preset else RunConfig()
     model = dataclasses.replace(cfg.model)
     data = dataclasses.replace(cfg.data)
+    optim = dataclasses.replace(cfg.optim)
     for src, obj, dst in [
         ("dataset", data, "dataset"),
         ("n_sample", data, "n_sample"),
+        ("crop_hw", data, "crop_hw"),
         ("batch_size_eval", data, "batch_size_eval"),
+        ("batch_size_train", data, "batch_size_train"),
         ("model", model, "arch"),
         ("cspn_step", model, "cspn_steps"),
         ("cspn_norm_type", model, "cspn_norm_type"),
         ("cspn_backend", model, "cspn_backend"),
+        ("dtype", model, "dtype"),
+        ("lr", optim, "lr"),
+        ("momentum", optim, "momentum"),
+        ("weight_decay", optim, "weight_decay"),
+        ("dampening", optim, "dampening"),
+        ("nesterov", optim, "nesterov"),
+        ("num_epoch", optim, "num_epochs"),
+        ("loss", optim, "loss"),
+        ("grad_reduce_dtype", optim, "grad_reduce_dtype"),
+        ("momentum_dtype", optim, "momentum_dtype"),
     ]:
         v = getattr(args, src, None)
         if v is not None:
             setattr(obj, dst, v)
     if args.no_cspn:
         model.use_cspn = False
-    cfg = dataclasses.replace(cfg, model=model, data=data)
-    if args.best_model_dir:
-        cfg = dataclasses.replace(cfg, best_model_dir=args.best_model_dir)
+    cfg = dataclasses.replace(cfg, model=model, data=data, optim=optim)
+    for src, dst in [("save_dir", "save_dir"), ("best_model_dir", "best_model_dir"),
+                     ("pretrain_path", "pretrained_path"), ("mesh_data", "mesh_data"),
+                     ("mesh_spatial", "mesh_spatial")]:
+        v = getattr(args, src, None)
+        if v is not None:
+            cfg = dataclasses.replace(cfg, **{dst: v})
+    if getattr(args, "resume", False):
+        cfg = dataclasses.replace(cfg, resume=True)
     return cfg
+
+
+def cmd_train(args):
+    import contextlib
+
+    from cspn_tpu_torch.train.factory import build_loaders
+    from cspn_tpu_torch.train.loop import Trainer
+    from cspn_tpu_torch.utils.profiling import trace
+
+    cfg = _build_config(args)
+    train_loader, val_loader = build_loaders(cfg)
+    pretrained = None
+    if cfg.pretrained_path:
+        from cspn_tpu_torch.models.torch_import import load_torch_encoder_params
+
+        pretrained = load_torch_encoder_params(cfg.pretrained_path)
+    trainer = Trainer(cfg, train_loader, val_loader, pretrained_params=pretrained,
+                      device=args.device)
+    if cfg.resume:
+        trainer.resume("best_model")
+    with trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext():
+        return trainer.fit()
 
 
 def cmd_eval(args):
@@ -99,6 +176,11 @@ def cmd_infer(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="cspn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_train = sub.add_parser("train", help="train (synthetic data; one device)")
+    _add_common_overrides(p_train)
+    _add_train_overrides(p_train)
+    p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("eval", help="evaluate best_model on the val set")
     _add_common_overrides(p_eval)

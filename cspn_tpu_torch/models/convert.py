@@ -63,6 +63,16 @@ def port_key(collection: str, path: tuple[str, ...]) -> str:
     return ".".join(out + [_LEAF[(collection, leaf)]])
 
 
+def convert_jax_tree(collection: str, tree: Mapping) -> dict[str, np.ndarray]:
+    """A JAX tree of the `collection` ('params' or 'batch_stats') layout --
+    the variables themselves, or a gradient tree of the params -- as port
+    state-dict keys, with conv kernels in OIHW."""
+    out = {}
+    for path, arr in _flatten(tree):
+        out[port_key(collection, path)] = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+    return out
+
+
 def convert_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """Map JAX `variables` onto `model`'s state dict; raises on any key the
     mapping does not place, any model key it leaves unset (BN
@@ -74,13 +84,10 @@ def convert_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, tor
     target = model.state_dict()
     sd: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, arr in _flatten(variables.get(collection, {})):
-            key = port_key(collection, path)
+        for key, arr in convert_jax_tree(collection, variables.get(collection, {})).items():
             if key not in target:
-                raise KeyError(f"JAX leaf {collection}/{'/'.join(path)} maps to {key!r}, "
+                raise KeyError(f"JAX leaf of {collection} maps to {key!r}, "
                                "which the model does not have")
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             if tuple(arr.shape) != tuple(target[key].shape):
                 raise ValueError(f"{key}: JAX shape {arr.shape} != model shape "
                                  f"{tuple(target[key].shape)}")

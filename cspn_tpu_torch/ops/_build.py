@@ -3,8 +3,8 @@
 Each source in `csrc/` is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface and loaded with ctypes.  Libraries go into
 `cspn_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
-source and the flags, so an edited source is rebuilt at its next use and an
-unchanged one is reused.  `build()` starts one `nvcc` per missing library,
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+is rebuilt at its next use and an unchanged one is reused.  `build()` starts one `nvcc` per missing library,
 all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module, on
@@ -39,6 +39,10 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "cspn2d_fwd.cu",
         {"cspn2d_fwd_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p]},
     ),
+    "cspn2d_bwd": (
+        "cspn2d_bwd.cu",
+        {"cspn2d_bwd_f32": [_c_void_p] * 12 + [_c_int] * 5 + [_c_void_p]},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -56,7 +60,7 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / KERNELS[name][0]).read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -86,8 +86,9 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
     package's {'params', 'batch_stats'} as numpy, converted by
     models/convert.py) when given, else the `torch.save`d state dict
     `<cfg.best_model_dir>/<checkpoint>.pt` when it exists, else random
-    weights (seed 0) with a warning.  The JAX package's Orbax checkpoints
-    need JAX to read and are not read here."""
+    weights (seed 0) with a warning.  `<checkpoint>.pt` may be a bare state
+    dict or a training checkpoint of train/checkpoint.py.  The JAX
+    package's Orbax checkpoints need JAX to read and are not read here."""
     model = build_model(cfg, train=False, device=device)
     if jax_variables is not None:
         load_jax_variables(model, jax_variables)
@@ -95,8 +96,9 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
         return model
     path = os.path.join(cfg.best_model_dir, f"{checkpoint}.pt")
     if os.path.exists(path):
-        model.load_state_dict(torch.load(path, map_location=next(model.parameters()).device,
-                                         weights_only=True))
+        sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
+        # a training checkpoint (train/checkpoint.py) holds the state dict under "model"
+        model.load_state_dict(sd["model"] if "model" in sd else sd)
         print(f"==> loaded {path}")
     else:
         print(f"==> WARNING: no {path}; random params")

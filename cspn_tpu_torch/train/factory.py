@@ -1,9 +1,9 @@
-"""Config -> dataset (counterpart of cspn_tpu/train/factory.py:build_dataset)."""
+"""Config -> datasets and loaders (counterpart of cspn_tpu/train/factory.py)."""
 
 from __future__ import annotations
 
 from cspn_tpu_torch.config import RunConfig
-from cspn_tpu_torch.data import SyntheticDepthDataset
+from cspn_tpu_torch.data import DataLoader, SyntheticDepthDataset
 
 _SYNTH_HW = (64, 96)
 
@@ -26,3 +26,28 @@ def build_dataset(cfg: RunConfig, split: str, seed=None, return_raw_rgb=False):
         f"dataset {d.dataset!r} is not ported yet (ROADMAP.md Queue 1: NYU/KITTI "
         "file datasets); use dataset='synthetic'"
     )
+
+
+def build_loaders(cfg: RunConfig, shard=(0, 1)):
+    """The train loader (shuffled, last short batch dropped, sharded) and the
+    val loader (in order), as the JAX package builds them."""
+    train_ds = build_dataset(cfg, "train")
+    val_ds = build_dataset(cfg, "val", seed=0)
+    mode = cfg.data.worker_mode
+    train_loader = DataLoader(
+        train_ds,
+        cfg.data.batch_size_train,
+        shuffle=True,
+        drop_last=True,
+        num_workers=cfg.data.num_workers,
+        shard=shard,
+        worker_mode=mode,
+    )
+    val_loader = DataLoader(
+        val_ds,
+        cfg.data.batch_size_eval,
+        shuffle=False,
+        num_workers=cfg.data.num_workers,
+        worker_mode=mode,
+    )
+    return train_loader, val_loader

@@ -1,18 +1,26 @@
-"""Where a nyu_eval forward spends its device time (counterpart of
-cspn_tpu/utils/profiling.py, on CUDA events and torch.profiler).
+"""Step timing, tracing, and where a nyu_eval forward spends its device time
+(counterpart of cspn_tpu/utils/profiling.py, on CUDA events and
+torch.profiler).
 
     python -m cspn_tpu_torch.utils.profiling [--batch 8] [--reps 5] [--out FILE.json]
 
-Builds the nyu_eval ResNet-50 CSPN-UNet (228x304, 24 steps) with seeded
-random weights and BN statistics calibrated on one synthetic batch, then,
-on the card:
+  - `StepTimer`: per-step time (CUDA events on the card, the wall clock on
+    the CPU) with a warm-up skip, median and frames/s;
+  - `trace(logdir)`: a torch.profiler trace of the block, written to
+    `logdir/trace.json` (chrome://tracing, Perfetto);
+  - `train_step_split_ms`: a train step's forward, backward and optimizer
+    time by CUDA events.
+
+The module's main builds the nyu_eval ResNet-50 CSPN-UNet (228x304, 24
+steps) with seeded random weights and BN statistics calibrated on one
+synthetic batch, then, on the card:
   - times each top-level module of a forward with CUDA events recorded in
     forward hooks (median over `reps` forwards); the rest of the forward
     (input relayout, the fused head conv and the CSPN) is the total minus
     their sum;
   - traces `reps` forwards with torch.profiler and sums the device time of
     every kernel, grouped by kind (conv/matmul, batch norm, the CSPN
-    kernel, other).
+    kernels, other).
 Prints both tables with the card's name and power limit and writes them to
 `--out` as JSON.
 """
@@ -20,10 +28,14 @@ Prints both tables with the card's name and power limit and writes them to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
+import time
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -52,11 +64,121 @@ def calibrated_model(cfg: RunConfig, device="cuda", seed: int = 0, calib_batch: 
     return calibrate_bn_stats(model, x.to(next(model.parameters()).device))
 
 
+class StepTimer:
+    """Step timer with warm-up; reports median step time and frames/s.
+    On a CUDA device each step is timed by CUDA events (read, and so
+    synchronized, only when the times are asked for); on the CPU by the
+    wall clock.  Usage:
+
+        timer = StepTimer(warmup=2, device=dev)
+        for batch in loader:
+            with timer.step(batch_size):
+                run_step(...)
+        print(timer.summary())
+    """
+
+    def __init__(self, warmup: int = 2, device=None):
+        self.warmup = warmup
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._marks: list = []  # (start, end) events or seconds per timed step
+        self.samples: list[int] = []
+        self._n = 0
+
+    @contextlib.contextmanager
+    def step(self, batch_size: int = 1) -> Iterator[None]:
+        self._n += 1
+        timed = self._n > self.warmup
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            if timed:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self._marks.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            if timed:
+                self._marks.append(time.perf_counter() - t0)
+        if timed:
+            self.samples.append(batch_size)
+
+    @property
+    def times(self) -> list[float]:
+        """Seconds per timed step."""
+        if self.cuda and self._marks:
+            self._marks[-1][1].synchronize()
+            return [a.elapsed_time(b) / 1e3 for a, b in self._marks]
+        return list(self._marks)
+
+    @property
+    def median_step_s(self) -> float:
+        return statistics.median(self.times) if self._marks else float("nan")
+
+    @property
+    def frames_per_s(self) -> float:
+        total = sum(self.times)
+        return sum(self.samples) / total if total > 0 else float("nan")
+
+    def summary(self) -> str:
+        if not self._marks:
+            return "StepTimer: no timed steps"
+        times = self.times
+        return (
+            f"steps={len(times)} mean={sum(times) / len(times) * 1e3:.1f}ms "
+            f"median={self.median_step_s * 1e3:.1f}ms throughput={self.frames_per_s:.1f} frames/s"
+        )
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block with torch.profiler (the card too, when there is
+    one) and write `logdir/trace.json`; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def train_step_split_ms(model, optimizer, loss_fn, rgbd, depth, reps: int = 5) -> dict[str, float]:
+    """Median device ms of a train step's forward (with the loss), backward
+    and optimizer step, CUDA events between them, after one warm-up step."""
+    marks = []
+    model.train()
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = loss_fn(model(rgbd), depth)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        if r:
+            marks.append(ev)
+    torch.cuda.synchronize()
+    out = {}
+    for name, i in (("forward", 0), ("backward", 1), ("optimizer", 2)):
+        out[name] = statistics.median(e[i].elapsed_time(e[i + 1]) for e in marks)
+    out["step"] = statistics.median(e[0].elapsed_time(e[3]) for e in marks)
+    return out
+
+
 def _kind(kernel: str) -> str:
     k = kernel.lower()
-    if "prep_kernel" in k or "step_kernel" in k:
+    if "reverse_step_kernel" in k or "epilogue_kernel" in k or "unshift_kernel" in k:
+        return "cspn2d_bwd"
+    if "prep_kernel" in k or "step_kernel" in k:  # in a train step also the backward's replay
         return "cspn2d_fwd"
-    if any(s in k for s in ("conv", "gemm", "xmma", "implicit", "cutlass", "fprop", "winograd", "fft")):
+    if any(s in k for s in ("conv", "gemm", "xmma", "implicit", "cutlass", "fprop", "dgrad",
+                            "wgrad", "winograd", "fft")):
         return "conv/matmul"
     if "norm" in k or "bn_" in k:
         return "batch norm"
@@ -103,22 +225,23 @@ def module_times_ms(model, x, reps: int = 5) -> dict[str, float]:
     return out
 
 
-def kernel_kinds_ms(model, x, reps: int = 5) -> tuple[dict[str, float], list]:
-    """Device ms per forward by kernel kind, and the ten longest kernels."""
+def kernel_kinds_ms(fn, reps: int = 5) -> tuple[dict[str, float], list]:
+    """Device ms per call of `fn()` by kernel kind, and the ten longest
+    kernels, from a torch.profiler trace of `reps` calls after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                model(x)
-            torch.cuda.synchronize()
     by_kind: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation (e.g. Optimizer.step) spans kernels counted on their own
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = e.time_range.elapsed_us()
         by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + us / 1e3 / reps
@@ -127,10 +250,22 @@ def kernel_kinds_ms(model, x, reps: int = 5) -> tuple[dict[str, float], list]:
     return by_kind, top
 
 
+def _print_kinds(what: str, kinds: dict, top: list) -> None:
+    traced = sum(kinds.values())
+    print(f"device ms per {what} by kernel kind (torch.profiler, {traced:.3f} ms traced):")
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:52s} {ms:9.3f}  {100 * ms / max(traced, 1e-9):5.1f}%")
+    print(f"ten longest kernels (ms per {what}):")
+    for name, ms in top:
+        print(f"  {ms:9.3f}  {name[:110]}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m cspn_tpu_torch.utils.profiling")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--train", action="store_true",
+                   help="profile a nyu_train train step (forward, backward, SGD) instead")
     p.add_argument("--out", default=None, help="write the tables here as JSON")
     args = p.parse_args(argv)
 
@@ -141,27 +276,46 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cfg = nyu_eval_synthetic()
-    model = calibrated_model(cfg)
     ds = SyntheticDepthDataset(length=args.batch, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(args.batch)])).cuda()
+    result = {"card": card, "batch": args.batch, "hw": NYU_HW}
+    if args.train:
+        from cspn_tpu_torch.train.loop import make_train_step
+        from cspn_tpu_torch.train.loss import masked_l1_loss
+        from cspn_tpu_torch.train.state import make_optimizer
 
-    modules = module_times_ms(model, x, args.reps)
-    kinds, top = kernel_kinds_ms(model, x, args.reps)
-    print(f"nyu_eval forward, batch {args.batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 (TF32 off) on {card}")
-    print("device ms per forward by module (CUDA events, median of reps):")
-    for name, ms in modules.items():
-        print(f"  {name:34s} {ms:9.3f}  {100 * ms / modules['forward']:5.1f}%")
-    traced = sum(kinds.values())
-    print(f"device ms per forward by kernel kind (torch.profiler, {traced:.3f} ms traced):")
-    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"  {kind:34s} {ms:9.3f}  {100 * ms / max(traced, 1e-9):5.1f}%")
-    print("ten longest kernels (ms per forward):")
-    for name, ms in top:
-        print(f"  {ms:9.3f}  {name[:110]}")
+        depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(args.batch)])).cuda()
+        model = build_model(PRESETS["nyu_train"], train=True, device="cuda", seed=0)
+        optimizer = make_optimizer(model.parameters())
+        split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
+        step = make_train_step(model, optimizer)
+        kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
+        print(f"nyu_train train step, batch {args.batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
+              f"(TF32 off) on {card}")
+        print("device ms per train step by phase (CUDA events, median of reps):")
+        for name, ms in split.items():
+            print(f"  {name:34s} {ms:9.3f}  {100 * ms / split['step']:5.1f}%")
+        _print_kinds("train step", kinds, top)
+        result.update(phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    else:
+        model = calibrated_model(cfg)
+        modules = module_times_ms(model, x, args.reps)
+
+        def forward():
+            with torch.inference_mode():
+                model(x)
+
+        kinds, top = kernel_kinds_ms(forward, args.reps)
+        print(f"nyu_eval forward, batch {args.batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
+              f"(TF32 off) on {card}")
+        print("device ms per forward by module (CUDA events, median of reps):")
+        for name, ms in modules.items():
+            print(f"  {name:34s} {ms:9.3f}  {100 * ms / modules['forward']:5.1f}%")
+        _print_kinds("forward", kinds, top)
+        result.update(modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "batch": args.batch, "hw": NYU_HW, "modules_ms": modules,
-                       "kernel_kinds_ms": kinds, "top_kernels_ms": top}, f, indent=1)
+            json.dump(result, f, indent=1)
     return 0
 
 
