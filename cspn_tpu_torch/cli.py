@@ -3,8 +3,13 @@
     python -m cspn_tpu_torch train --preset nyu_train --dataset synthetic --crop-hw 228,304
     python -m cspn_tpu_torch eval  --preset nyu_eval --dataset synthetic --runs 5
     python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8
+    python -m cspn_tpu_torch train-stereo --max-disp 192 --features 32 --prop-step 24 \
+        --batch-size 4 --height 256 --width 512 [--train-list scene_flow.csv]
+    python -m cspn_tpu_torch eval-stereo ... [--checkpoint best_model] [--dump-images]
 
-All run on `--device` (default cuda).  The NYU/KITTI file datasets, export
+All run on `--device` (default cuda).  The stereo subcommands train on the
+synthetic stereo pairs unless --train-list names a Scene Flow manifest.
+The NYU/KITTI file datasets, export
 and the other subcommands wait for later slices (ROADMAP.md Queue 1), as do
 the train flags that raise: --dtype other than float32 (Queue 1 item 12),
 --grad-reduce-dtype and a --mesh-* larger than 1 (items 8-9).
@@ -173,6 +178,79 @@ def cmd_infer(args):
     return preds
 
 
+def _build_stereo(args):
+    """Shared stereo config and loaders for train-stereo / eval-stereo."""
+    from cspn_tpu_torch.data import DataLoader, SceneFlowStereoDataset, SyntheticStereoDataset
+    from cspn_tpu_torch.train.stereo_loop import StereoConfig
+
+    cfg = StereoConfig(
+        max_disp=args.max_disp,
+        features=args.features,
+        cspn_steps=args.prop_step,
+        use_cspn=not args.no_cspn,
+        dtype=args.stereo_dtype or "float32",
+        lr=args.lr,
+        num_epochs=args.num_epoch,
+        batch_size=args.batch_size,
+        save_dir=args.save_dir,
+    )
+    if args.train_list:
+        crop = (args.height, args.width)
+        train_ds = SceneFlowStereoDataset(args.train_list, root_dir=args.root_dir, split="train",
+                                          crop_hw=crop)
+        val_ds = SceneFlowStereoDataset(args.eval_list or args.train_list, root_dir=args.root_dir,
+                                        split="val", crop_hw=crop, seed=0)
+    else:
+        train_ds = SyntheticStereoDataset(length=args.train_size, hw=(args.height, args.width),
+                                          max_disp=cfg.max_disp, seed=0)
+        val_ds = SyntheticStereoDataset(length=max(args.train_size // 4, 2),
+                                        hw=(args.height, args.width), max_disp=cfg.max_disp, seed=1)
+    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True)
+    val_loader = DataLoader(val_ds, cfg.batch_size)
+    return cfg, train_loader, val_loader
+
+
+def cmd_train_stereo(args):
+    """Train the PSMNet + 3D-CSPN stereo model on Scene Flow manifests
+    (--train-list/--eval-list CSVs with left,right,disp columns; disparity
+    as PFM) or on the synthetic stereo pairs."""
+    from cspn_tpu_torch.train.stereo_loop import StereoTrainer
+
+    cfg, train_loader, val_loader = _build_stereo(args)
+    return StereoTrainer(cfg, train_loader, val_loader, device=args.device).fit()
+
+
+def cmd_eval_stereo(args):
+    """Evaluate the stereo model: EPE / >3px / D1 on the val set, optional
+    uint16 disparity*256 PNG dumps."""
+    from cspn_tpu_torch.train.stereo_loop import StereoTrainer
+
+    cfg, _, val_loader = _build_stereo(args)
+    trainer = StereoTrainer(cfg, val_loader, val_loader, device=args.device)
+    return trainer.run_eval(checkpoint=args.checkpoint, dump_images=args.dump_images)
+
+
+def _add_stereo_args(p: argparse.ArgumentParser):
+    p.add_argument("--max-disp", type=int, default=64)
+    p.add_argument("--features", type=int, default=16)
+    p.add_argument("--prop-step", type=int, default=12)
+    p.add_argument("--no-cspn", action="store_true")
+    p.add_argument("--dtype", dest="stereo_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="only float32 is ported (bfloat16 raises)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--num-epoch", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--height", type=int, default=64)
+    p.add_argument("--width", type=int, default=96)
+    p.add_argument("--train-size", type=int, default=32)
+    p.add_argument("--train-list", default=None,
+                   help="Scene Flow CSV manifest (left,right,disp columns)")
+    p.add_argument("--eval-list", default=None)
+    p.add_argument("--root-dir", default=".")
+    p.add_argument("--save-dir", default="result/stereo_cspn")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="cspn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -197,6 +275,18 @@ def main(argv=None):
     p_inf.add_argument("--seed", type=int, default=0)
     p_inf.add_argument("--out", default=None, help="save predictions to this .npy")
     p_inf.set_defaults(fn=cmd_infer)
+
+    p_st = sub.add_parser("train-stereo", help="train the PSMNet + 3D-CSPN stereo model")
+    _add_stereo_args(p_st)
+    p_st.set_defaults(fn=cmd_train_stereo)
+
+    p_se = sub.add_parser("eval-stereo",
+                          help="evaluate the stereo model (EPE / >3px / D1, disparity dumps)")
+    _add_stereo_args(p_se)
+    p_se.add_argument("--checkpoint", default="best_model")
+    p_se.add_argument("--dump-images", action="store_true",
+                      help="write %%05d_{disp,gt}.png (uint16 disp*256)")
+    p_se.set_defaults(fn=cmd_eval_stereo)
 
     args = parser.parse_args(argv)
     args.fn(args)

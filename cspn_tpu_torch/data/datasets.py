@@ -1,8 +1,10 @@
 """Datasets: the port's numpy-only copy of cspn_tpu/data/datasets.py's
-Bernoulli sparse sampler and procedural `SyntheticDepthDataset`.
+Bernoulli sparse sampler, procedural `SyntheticDepthDataset` and
+`SyntheticStereoDataset`.
 
 Samples are channels-last, as in the JAX package:
     {'rgbd': [H, W, 4] float32, 'depth': [H, W] float32[, 'raw_rgb']}
+    {'left': [H, W, 3], 'right': [H, W, 3], 'disp': [H, W]} (stereo)
 and equal to the JAX package's for the same seed and index.  The NYU/KITTI
 file datasets are not ported yet (ROADMAP.md Queue 1).
 """
@@ -155,3 +157,68 @@ def batches(dataset, batch_size: int, max_batches: int | None = None) -> Iterato
     for b in range(n_batches):
         items = [dataset[i] for i in range(b * batch_size, min((b + 1) * batch_size, len(dataset)))]
         yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class SyntheticStereoDataset:
+    """Procedural stereo fixture: left/right views of a random smooth
+    disparity field (right = left warped by disparity along W), used by the
+    stereo trainer's tests and smoke runs.  Samples:
+        {'left': [H,W,3], 'right': [H,W,3], 'disp': [H,W]}
+    style 'smooth': Gaussian-bump disparity; 'edges': adds sharp-edged,
+    nearly textureless constant-disparity rectangles (the structure CSPN's
+    edge-aware refinement exploits).
+    """
+
+    def __init__(
+        self,
+        length: int = 32,
+        hw: tuple[int, int] = (64, 96),
+        max_disp: int = 16,
+        seed: int = 0,
+        style: str = "smooth",
+    ):
+        if style not in ("smooth", "edges"):
+            raise ValueError(f"style must be smooth|edges: {style!r}")
+        self.length = length
+        self.hw = hw
+        self.max_disp = max_disp
+        self.seed = seed
+        self.style = style
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        h, w = self.hw
+        rng = np.random.default_rng((self.seed, idx))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        disp = np.full((h, w), self.max_disp / 4.0, np.float32)
+        for _ in range(4):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            sy, sx = rng.uniform(h / 6, h / 2), rng.uniform(w / 6, w / 2)
+            amp = rng.uniform(0, self.max_disp / 3.0)
+            disp += amp * np.exp(-(((yy - cy) / sy) ** 2 + ((xx - cx) / sx) ** 2)).astype(np.float32)
+        disp = np.clip(disp, 1.0, self.max_disp - 1.0)
+        left = rng.random((h, w, 3)).astype(np.float32)
+        if self.style == "edges":
+            for _ in range(3):
+                y0 = int(rng.uniform(0, h * 0.7))
+                x0 = int(rng.uniform(0, w * 0.7))
+                y1 = y0 + int(rng.uniform(h * 0.15, h * 0.4))
+                x1 = x0 + int(rng.uniform(w * 0.15, w * 0.4))
+                d_obj = rng.uniform(self.max_disp * 0.5, self.max_disp - 1.0)
+                disp[y0:y1, x0:x1] = d_obj
+                flat = rng.uniform(0.2, 0.8)
+                left[y0:y1, x0:x1] = flat + 0.08 * (left[y0:y1, x0:x1] - left[y0:y1, x0:x1].mean())
+            disp = np.clip(disp, 1.0, self.max_disp - 1.0)
+            left = np.clip(left, 0.0, 1.0)
+        # smooth the texture a bit so matching is learnable
+        left = 0.25 * (left + np.roll(left, 1, 0) + np.roll(left, 1, 1) + np.roll(left, -1, 1))
+        # left pixel x appears at x - d in the right view
+        src = np.clip(xx + disp, 0, w - 1).astype(np.int64)
+        right = left[np.arange(h)[:, None], src]
+        return {
+            "left": left.astype(np.float32),
+            "right": right.astype(np.float32),
+            "disp": disp,
+        }

@@ -1,9 +1,10 @@
 """JAX package parameters -> the port's state dict (the inverse of
 cspn_tpu/models/torch_import.py's mapping).
 
-Takes `{'params': ..., 'batch_stats': ...}` of `cspn_tpu`'s CSPNUNet as
-nested dicts of numpy arrays (what `jax.tree.map(np.asarray, variables)`
-gives) and returns a state dict for `cspn_tpu_torch.models.CSPNUNet`:
+Takes `{'params': ..., 'batch_stats': ...}` of `cspn_tpu`'s CSPNUNet or
+PSMNetCSPN as nested dicts of numpy arrays (what
+`jax.tree.map(np.asarray, variables)` gives) and returns a state dict for
+`cspn_tpu_torch.models.CSPNUNet` or `models.stereo.PSMNetCSPN`:
 
     encoder/<m>/...                -> <m>...        (encoder at top level)
     layer{s}_{b}                   -> layer{s}.{b}
@@ -11,6 +12,8 @@ gives) and returns a state dict for `cspn_tpu_torch.models.CSPNUNet`:
     <bn>/BatchNorm_0/scale, bias   -> <bn>.weight, <bn>.bias
     batch_stats <bn>/BatchNorm_0/mean, var -> <bn>.running_mean, running_var
     <conv>/kernel (HWIO)           -> <conv>.weight (OIHW, transpose (3,2,0,1))
+    <conv3d>/kernel (kd,kh,kw,I,O) -> <conv3d>.weight (O,I,kd,kh,kw)
+    Conv_0 (an unnamed flax conv)  -> conv
 
 The fused head's `gud_up_proj_layer5/conv1/kernel` (1 out) and
 `gud_up_proj_layer6/conv1/kernel` (8 out) keep their own names.  An
@@ -58,6 +61,8 @@ def port_key(collection: str, path: tuple[str, ...]) -> str:
             out += [f"layer{stage.group(1)}", stage.group(2)]
         elif m in ("ds_conv", "ds_bn"):
             out += ["downsample", "0" if m == "ds_conv" else "1"]
+        elif m == "Conv_0":
+            out.append("conv")
         elif m != "BatchNorm_0":
             out.append(m)
     return ".".join(out + [_LEAF[(collection, leaf)]])
@@ -66,10 +71,12 @@ def port_key(collection: str, path: tuple[str, ...]) -> str:
 def convert_jax_tree(collection: str, tree: Mapping) -> dict[str, np.ndarray]:
     """A JAX tree of the `collection` ('params' or 'batch_stats') layout --
     the variables themselves, or a gradient tree of the params -- as port
-    state-dict keys, with conv kernels in OIHW."""
+    state-dict keys, with conv kernels in OIHW (3D: O, I, kd, kh, kw)."""
     out = {}
     for path, arr in _flatten(tree):
-        out[port_key(collection, path)] = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+        if arr.ndim >= 4:  # HWIO / DHWIO -> OIHW / OIDHW
+            arr = arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
+        out[port_key(collection, path)] = arr
     return out
 
 

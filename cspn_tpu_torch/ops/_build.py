@@ -43,6 +43,14 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "cspn2d_bwd.cu",
         {"cspn2d_bwd_f32": [_c_void_p] * 12 + [_c_int] * 5 + [_c_void_p]},
     ),
+    "cspn3d_fwd": (
+        "cspn3d_fwd.cu",
+        {"cspn3d_fwd_f32": [_c_void_p] * 4 + [_c_int] * 5 + [_c_void_p]},
+    ),
+    "cspn3d_bwd": (
+        "cspn3d_bwd.cu",
+        {"cspn3d_bwd_f32": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

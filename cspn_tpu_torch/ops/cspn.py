@@ -1,12 +1,19 @@
 """Public CSPN op API with backend dispatch (counterpart of
-cspn_tpu/ops/cspn.py:34-104).
+cspn_tpu/ops/cspn.py).
 
 Backends:
-    'kernel'    -- the hand-written CUDA kernel (ops/cspn_cuda.py); CUDA
+    'kernel'    -- the hand-written CUDA kernels (ops/cspn_cuda.py for the
+                   2D op, ops/cspn3d_cuda.py for the 3D `cspn_nd`); CUDA
                    tensors only.
     'reference' -- the plain PyTorch version (ops/cspn_ref.py), any device,
                    autograd-native.
     'auto'      -- the kernel for CUDA tensors, the reference otherwise.
+
+`cspn_nd` on CUDA: 3D with kernel_size 3 runs the 3D kernels at every size
+(no fallback to the reference by size, unlike cspn_pallas.py:1494); 2D
+raises until the paddle-semantics 2D kernel is ported (ROADMAP.md Queue 2
+item 6, `_paddle2d_kernel`); other kernel sizes, for which the JAX package
+has no kernel either, run the reference under 'auto'.
 """
 
 from __future__ import annotations
@@ -76,3 +83,59 @@ def cspn2d(
         guidance, blur_depth, sparse_depth, steps=steps, norm_type=norm_type,
         channel_first=channel_first, io_dtype=io_dtype,
     )
+
+
+def affinity_propagate(
+    feat: torch.Tensor,
+    gate_weight: torch.Tensor,
+    kernel_size: int = 3,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """One propagation step (paddle native-op semantics), 2D or 3D; see
+    cspn_ref.affinity_propagate_reference.  One step is plain PyTorch on
+    every backend, as the JAX package leaves it to XLA."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    return cspn_ref.affinity_propagate_reference(feat, gate_weight, kernel_size)
+
+
+def cspn_nd(
+    guide: torch.Tensor,
+    feat: torch.Tensor,
+    *,
+    kernel_size: int = 3,
+    steps: int = 24,
+    backend: str = "auto",
+    channel_first: bool = False,
+) -> torch.Tensor:
+    """Multi-step 2D/3D CSPN module (paddle demo semantics); see
+    cspn_ref.cspn_nd_reference.  guide is [N, *spatial, C*(k^n-1)] and feat
+    [N, *spatial, C], or [N, C*(k^n-1), *spatial] and [N, C, *spatial] with
+    channel_first=True."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    on_cuda = feat.device.type == "cuda"
+    if backend == "kernel" and not on_cuda:
+        raise ValueError(
+            f"backend='kernel' needs CUDA tensors, got {feat.device}; "
+            "use 'reference' (or 'auto') on the CPU"
+        )
+    ndim = feat.ndim - 2
+    if on_cuda and backend != "reference":
+        if ndim == 3 and kernel_size == 3:
+            from cspn_tpu_torch.ops.cspn3d_cuda import cspn3d_cuda
+
+            return cspn3d_cuda(guide, feat, steps=steps, channel_first=channel_first)
+        if ndim == 2 and kernel_size == 3:
+            raise NotImplementedError(
+                "the 2D paddle-semantics CSPN kernel is not ported yet (ROADMAP.md Queue 2 "
+                "item 6, cspn_pallas.py:_paddle2d_kernel); pass backend='reference' to run "
+                "the plain version on the card"
+            )
+        if backend == "kernel":
+            raise NotImplementedError(f"no CSPN kernel for {ndim}D with kernel_size {kernel_size}")
+    g = guide.movedim(1, -1) if channel_first else guide
+    f = feat.movedim(1, -1) if channel_first else feat
+    out = cspn_ref.cspn_nd_reference(g, f, kernel_size=kernel_size, steps=steps)
+    return out.movedim(-1, 1) if channel_first else out

@@ -51,18 +51,18 @@ def build_model(cfg: RunConfig, train: bool = False, device=None, seed: int | No
     return model.train(train)
 
 
-def calibrate_bn_stats(model: torch.nn.Module, rgbd: torch.Tensor) -> torch.nn.Module:
-    """Set every BN's running statistics to those of the batch `rgbd`
-    (one train-mode forward at momentum 1), then switch to eval mode: real
-    statistics for a randomly initialized model, where eval-mode BN at the
-    init statistics is numerically meaningless."""
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+def calibrate_bn_stats(model: torch.nn.Module, *inputs: torch.Tensor) -> torch.nn.Module:
+    """Set every BN's running statistics to those of the batch `inputs`
+    (one train-mode forward `model(*inputs)` at momentum 1), then switch to
+    eval mode: real statistics for a randomly initialized model, where
+    eval-mode BN at the init statistics is numerically meaningless."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     momenta = [m.momentum for m in bns]
     for m in bns:
         m.momentum = 1.0
     model.train()
     with torch.no_grad():
-        model(rgbd)
+        model(*inputs)
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
     return model.eval()

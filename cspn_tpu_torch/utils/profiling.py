@@ -2,7 +2,7 @@
 (counterpart of cspn_tpu/utils/profiling.py, on CUDA events and
 torch.profiler).
 
-    python -m cspn_tpu_torch.utils.profiling [--batch 8] [--reps 5] [--out FILE.json]
+    python -m cspn_tpu_torch.utils.profiling [--stereo] [--train] [--batch N] [--reps 5] [--out FILE.json]
 
   - `StepTimer`: per-step time (CUDA events on the card, the wall clock on
     the CPU) with a warm-up skip, median and frames/s;
@@ -21,7 +21,15 @@ synthetic batch, then, on the card:
   - traces `reps` forwards with torch.profiler and sums the device time of
     every kernel, grouped by kind (conv/matmul, batch norm, the CSPN
     kernels, other).
-Prints both tables with the card's name and power limit and writes them to
+With `--train` it profiles a nyu_train step instead: forward, backward and
+optimizer by CUDA events, and the kernels by kind.  With `--stereo` it
+builds the stereo model at StereoConfig width (PSMNetCSPN, max_disp 192,
+features 32, 24 steps; seeded random weights, BN statistics calibrated on
+one synthetic batch) on synthetic 256x512 pairs, batch 4 by default, and
+times each stage of a forward (models/stereo.py:STAGES: feature extractor,
+cost volume, hourglass, heads, 3D CSPN, upsample + regression) with CUDA
+events between them; `--stereo --train` splits a stereo train step.
+Prints the tables with the card's name and power limit and writes them to
 `--out` as JSON.
 """
 
@@ -146,16 +154,18 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def train_step_split_ms(model, optimizer, loss_fn, rgbd, depth, reps: int = 5) -> dict[str, float]:
+def train_step_split_ms(model, optimizer, loss_fn, inputs, target, reps: int = 5) -> dict[str, float]:
     """Median device ms of a train step's forward (with the loss), backward
-    and optimizer step, CUDA events between them, after one warm-up step."""
+    and optimizer step, CUDA events between them, after one warm-up step.
+    `inputs` is the model's input tensor, or a tuple of them."""
+    inputs = inputs if isinstance(inputs, tuple) else (inputs,)
     marks = []
     model.train()
     for r in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         optimizer.zero_grad(set_to_none=True)
         ev[0].record()
-        loss = loss_fn(model(rgbd), depth)
+        loss = loss_fn(model(*inputs), target)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -173,6 +183,9 @@ def train_step_split_ms(model, optimizer, loss_fn, rgbd, depth, reps: int = 5) -
 
 def _kind(kernel: str) -> str:
     k = kernel.lower()
+    # the 3D kernels first: their names hold the 2D ones' substrings
+    if "cspn3d_" in k:  # in a train step the step kernel is also the backward's replay
+        return "cspn3d_fwd" if "cspn3d_step_kernel" in k else "cspn3d_bwd"
     if "reverse_step_kernel" in k or "epilogue_kernel" in k or "unshift_kernel" in k:
         return "cspn2d_bwd"
     if "prep_kernel" in k or "step_kernel" in k:  # in a train step also the backward's replay
@@ -250,7 +263,61 @@ def kernel_kinds_ms(fn, reps: int = 5) -> tuple[dict[str, float], list]:
     return by_kind, top
 
 
-def _print_kinds(what: str, kinds: dict, top: list) -> None:
+STEREO_HW = (256, 512)
+
+
+def stereo_batch(cfg, n: int, seed: int = 1, device="cuda"):
+    """(left, right, disp) of `n` synthetic stereo pairs at STEREO_HW."""
+    from cspn_tpu_torch.data import SyntheticStereoDataset
+
+    ds = SyntheticStereoDataset(length=n, hw=STEREO_HW, max_disp=cfg.max_disp, seed=seed)
+    return tuple(torch.from_numpy(np.stack([ds[i][k] for i in range(n)])).to(device)
+                 for k in ("left", "right", "disp"))
+
+
+def calibrated_stereo_model(cfg, device="cuda", seed: int = 0, calib_batch: int = 4):
+    """The stereo model with seeded random weights and the BN statistics of
+    one synthetic batch, in eval mode."""
+    from cspn_tpu_torch.train.stereo_loop import build_stereo_model
+
+    model = build_stereo_model(cfg, train=True, device=device, seed=seed)
+    left, right, _ = stereo_batch(cfg, calib_batch, seed=seed, device=device)
+    return calibrate_bn_stats(model, left, right)
+
+
+def stereo_stage_times_ms(model, left, right, reps: int = 5) -> dict[str, float]:
+    """Median device ms of each stage of a stereo forward (CUDA events
+    recorded between the stages), and of the whole forward."""
+    from cspn_tpu_torch.models.stereo import STAGES
+
+    runs = []
+    with torch.inference_mode():
+        for r in range(reps + 1):
+            marks = [torch.cuda.Event(enable_timing=True)]
+            marks[0].record()
+
+            def mark(_stage, marks=marks):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+
+            model(left, right, mark=mark)
+            if r:  # the first forward warms up
+                runs.append(marks)
+        torch.cuda.synchronize()
+    out = {stage: statistics.median(m[i].elapsed_time(m[i + 1]) for m in runs)
+           for i, stage in enumerate(STAGES)}
+    out["forward"] = statistics.median(m[0].elapsed_time(m[-1]) for m in runs)
+    return out
+
+
+def _print_tables(title: str, what: str, by: str, table: dict, total: str, kinds: dict,
+                  top: list) -> None:
+    """Print `table` (device ms by `by`, shares of table[total]), then the
+    kernel kinds and the ten longest kernels."""
+    print(title)
+    print(f"device ms per {what} by {by} (CUDA events, median of reps):")
+    for name, ms in table.items():
+        print(f"  {name:34s} {ms:9.3f}  {100 * ms / table[total]:5.1f}%")
     traced = sum(kinds.values())
     print(f"device ms per {what} by kernel kind (torch.profiler, {traced:.3f} ms traced):")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
@@ -260,12 +327,89 @@ def _print_kinds(what: str, kinds: dict, top: list) -> None:
         print(f"  {ms:9.3f}  {name[:110]}")
 
 
+def _stereo(args, card: str) -> dict:
+    from cspn_tpu_torch.models.stereo import smooth_l1_disparity_loss
+    from cspn_tpu_torch.train.stereo_loop import (
+        StereoConfig,
+        build_stereo_model,
+        make_stereo_train_step,
+    )
+    from cspn_tpu_torch.train.state import make_optimizer
+
+    cfg = StereoConfig()
+    n = args.batch or cfg.batch_size
+    left, right, disp = stereo_batch(cfg, n)
+    result = {"card": card, "batch": n, "hw": STEREO_HW, "max_disp": cfg.max_disp,
+              "features": cfg.features, "cspn_steps": cfg.cspn_steps}
+    what = (f"PSMNetCSPN max_disp {cfg.max_disp}, features {cfg.features}, {cfg.cspn_steps} CSPN "
+            f"steps, batch {n}, {STEREO_HW[0]}x{STEREO_HW[1]}, float32 (TF32 off) on {card}")
+    if args.train:
+        model = build_stereo_model(cfg, train=True, device="cuda", seed=0)
+        optimizer = make_optimizer(model.parameters(), cfg.lr, momentum=0.9, weight_decay=1e-4,
+                                   nesterov=False)
+
+        def loss_fn(out, d):
+            return smooth_l1_disparity_loss(out, d, cfg.max_disp)
+
+        split = train_step_split_ms(model, optimizer, loss_fn, (left, right), disp, args.reps)
+        step = make_stereo_train_step(model, optimizer, cfg.max_disp)
+        kinds, top = kernel_kinds_ms(lambda: step(left, right, disp), args.reps)
+        _print_tables(f"stereo train step, {what}", "train step", "phase", split, "step", kinds, top)
+        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    model = calibrated_stereo_model(cfg)
+    stages = stereo_stage_times_ms(model, left, right, args.reps)
+
+    def forward():
+        with torch.inference_mode():
+            model(left, right)
+
+    kinds, top = kernel_kinds_ms(forward, args.reps)
+    _print_tables(f"stereo forward, {what}", "forward", "stage", stages, "forward", kinds, top)
+    return dict(result, stages_ms=stages, kernel_kinds_ms=kinds, top_kernels_ms=top)
+
+
+def _nyu(args, card: str) -> dict:
+    cfg = nyu_eval_synthetic()
+    batch = args.batch or 8
+    ds = SyntheticDepthDataset(length=batch, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
+    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(batch)])).cuda()
+    result = {"card": card, "batch": batch, "hw": NYU_HW}
+    if args.train:
+        from cspn_tpu_torch.train.loop import make_train_step
+        from cspn_tpu_torch.train.loss import masked_l1_loss
+        from cspn_tpu_torch.train.state import make_optimizer
+
+        depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(batch)])).cuda()
+        model = build_model(PRESETS["nyu_train"], train=True, device="cuda", seed=0)
+        optimizer = make_optimizer(model.parameters())
+        split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
+        step = make_train_step(model, optimizer)
+        kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
+        _print_tables(f"nyu_train train step, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
+                      f"(TF32 off) on {card}", "train step", "phase", split, "step", kinds, top)
+        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    model = calibrated_model(cfg)
+    modules = module_times_ms(model, x, args.reps)
+
+    def forward():
+        with torch.inference_mode():
+            model(x)
+
+    kinds, top = kernel_kinds_ms(forward, args.reps)
+    _print_tables(f"nyu_eval forward, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
+                  f"(TF32 off) on {card}", "forward", "module", modules, "forward", kinds, top)
+    return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m cspn_tpu_torch.utils.profiling")
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=None,
+                   help="frames per batch (default 8 for nyu_eval/nyu_train, 4 for --stereo)")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--train", action="store_true",
-                   help="profile a nyu_train train step (forward, backward, SGD) instead")
+                   help="profile a train step (forward, backward, SGD) instead of a forward")
+    p.add_argument("--stereo", action="store_true",
+                   help="profile the PSMNet + 3D-CSPN stereo model instead of nyu_eval/nyu_train")
     p.add_argument("--out", default=None, help="write the tables here as JSON")
     args = p.parse_args(argv)
 
@@ -275,44 +419,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = nyu_eval_synthetic()
-    ds = SyntheticDepthDataset(length=args.batch, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
-    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(args.batch)])).cuda()
-    result = {"card": card, "batch": args.batch, "hw": NYU_HW}
-    if args.train:
-        from cspn_tpu_torch.train.loop import make_train_step
-        from cspn_tpu_torch.train.loss import masked_l1_loss
-        from cspn_tpu_torch.train.state import make_optimizer
-
-        depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(args.batch)])).cuda()
-        model = build_model(PRESETS["nyu_train"], train=True, device="cuda", seed=0)
-        optimizer = make_optimizer(model.parameters())
-        split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
-        step = make_train_step(model, optimizer)
-        kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
-        print(f"nyu_train train step, batch {args.batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
-              f"(TF32 off) on {card}")
-        print("device ms per train step by phase (CUDA events, median of reps):")
-        for name, ms in split.items():
-            print(f"  {name:34s} {ms:9.3f}  {100 * ms / split['step']:5.1f}%")
-        _print_kinds("train step", kinds, top)
-        result.update(phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
-    else:
-        model = calibrated_model(cfg)
-        modules = module_times_ms(model, x, args.reps)
-
-        def forward():
-            with torch.inference_mode():
-                model(x)
-
-        kinds, top = kernel_kinds_ms(forward, args.reps)
-        print(f"nyu_eval forward, batch {args.batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
-              f"(TF32 off) on {card}")
-        print("device ms per forward by module (CUDA events, median of reps):")
-        for name, ms in modules.items():
-            print(f"  {name:34s} {ms:9.3f}  {100 * ms / modules['forward']:5.1f}%")
-        _print_kinds("forward", kinds, top)
-        result.update(modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    result = _stereo(args, card) if args.stereo else _nyu(args, card)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,5 +1,5 @@
-"""The 2D CSPN CUDA kernels (forward and backward) against their plain
-version, on the card.
+"""The CUDA kernels -- the 2D CSPN forward and backward, the 3D CSPN forward
+and backward -- against their plain versions, on the card.
 
 Marked `cuda`: without a card every test here skips.  On a machine with
 one (and without JAX, which tests/conftest.py imports) run:
@@ -13,8 +13,8 @@ for the output and for each gradient.
 import pytest
 import torch
 
-from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
-from cspn_tpu_torch.ops.cspn import cspn2d
+from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_ref
+from cspn_tpu_torch.ops.cspn import cspn2d, cspn_nd
 
 pytestmark = pytest.mark.cuda
 
@@ -190,3 +190,104 @@ def test_model_on_the_card_uses_the_kernel(gen):
         want = model(x)
     assert cspn_cuda.launches == before + 1
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+# --- the 3D CSPN kernels (csrc/cspn3d_fwd.cu, csrc/cspn3d_bwd.cu) ---------
+
+
+def _gates3d(gen, m, d, h, w, zero_corner=False):
+    """Normalized gates [m,26,d,h,w] from random guidance; all-zero gates
+    (the 1e-12 guard: centre weight 1) in one corner when asked."""
+    g = torch.randn(m, 26, d, h, w, device="cuda", generator=gen)
+    if zero_corner:
+        g[0, :, :2, :3, :4] = 0.0
+    a = g.abs()
+    return a / a.sum(1, keepdim=True).clamp_min(1e-12)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (4, 5, 13, 17), (2, 12, 16, 32), (4, 48, 64, 128)])
+def test_cspn3d_kernels_match_plain(gen, shape, steps):
+    gates = _gates3d(gen, *shape, zero_corner=True)
+    x0 = torch.randn(shape, device="cuda", generator=gen)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    before = (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)
+    gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    got = cspn3d_cuda.propagate3d(gk, xk, steps=steps)
+    got_grads = torch.autograd.grad(got, (gk, xk), ct)
+    torch.cuda.synchronize()
+    assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    want = cspn_ref.propagate_nd_reference(gp, xp, steps)
+    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True)
+    want_grads = (torch.zeros_like(gates) if want_grads[0] is None else want_grads[0], want_grads[1])
+    for a, b in ((got, want), *zip(got_grads, want_grads)):
+        assert a.shape == b.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_cspn_nd_3d_runs_the_kernels(gen, channels):
+    """cspn_nd on CUDA (3D, kernel 3) goes through both kernels, channels
+    last and first, and agrees with the reference backend on the card."""
+    guide = torch.randn(2, 5, 13, 17, 26 * channels, device="cuda", generator=gen)
+    guide[0, :2, :3, :4] = 0.0
+    feat = torch.randn(2, 5, 13, 17, channels, device="cuda", generator=gen)
+    ct = torch.randn(feat.shape, device="cuda", generator=gen)
+    outs = {}
+    for backend in ("kernel", "reference"):
+        g, f = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+        before = (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)
+        out = cspn_nd(g, f, steps=24, backend=backend)
+        outs[backend] = (out, *torch.autograd.grad(out, (g, f), ct))
+        torch.cuda.synchronize()
+        n = 1 if backend == "kernel" else 0
+        assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + n, before[1] + n)
+    for a, b in zip(outs["kernel"], outs["reference"]):
+        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+    cf = cspn_nd(guide.movedim(-1, 1), feat.movedim(-1, 1), steps=24, channel_first=True)
+    assert (cf.movedim(1, -1) - outs["reference"][0]).abs().max().item() <= TOL * outs["reference"][0].abs().max().item()
+
+
+def test_cspn3d_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    gates = _gates3d(gen, 2, 3, 5, 7)
+    x0 = torch.randn(2, 3, 5, 7, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        cspn3d_cuda.propagate3d(gates.double(), x0.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cspn3d_cuda.propagate3d(gates, x0.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match=r"\[M,26,D,H,W\]"):
+        cspn3d_cuda.propagate3d(gates[:, :25].contiguous(), x0)
+    with pytest.raises(ValueError, match=r"must be \[2,3,5,7\]"):
+        cspn3d_cuda.propagate3d(gates, x0[:, :2].contiguous())
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        cspn_nd(torch.randn(1, 5, 7, 8, device="cuda"), torch.randn(1, 5, 7, 1, device="cuda"))
+
+
+def test_stereo_model_on_the_card_uses_the_kernels(gen):
+    """A small PSMNetCSPN forward and train step through the 3D kernels
+    launch each once and agree with the plain CSPN."""
+    from cspn_tpu_torch.models.stereo import PSMNetCSPN, smooth_l1_disparity_loss
+
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.device("cuda"):
+        model = PSMNetCSPN(max_disp=16, features=8, cspn_steps=4,
+                           generator=torch.Generator("cuda").manual_seed(0))
+    left = torch.randn(2, 32, 48, 3, device="cuda", generator=gen)
+    right = torch.randn(2, 32, 48, 3, device="cuda", generator=gen)
+    disp = 1.0 + 14.0 * torch.rand(2, 32, 48, device="cuda", generator=gen)
+    outs = {}
+    for backend in ("auto", "reference"):
+        model.cspn_backend = backend
+        model.zero_grad(set_to_none=True)
+        before = (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)
+        out = model(left, right)
+        smooth_l1_disparity_loss(out, disp, 16).backward()
+        torch.cuda.synchronize()
+        n = 1 if backend == "auto" else 0
+        assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + n, before[1] + n)
+        outs[backend] = (out.detach(), model.guidance3d_head.weight.grad.clone())
+    # the output within the kernels' 1e-4; the head's gradient sums float32
+    # products over the whole volume in another order (cuDNN wgrad): 1e-3
+    for a, b, tol in zip(outs["auto"], outs["reference"], (TOL, 1e-3)):
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
