@@ -13,21 +13,24 @@ any phase fails:
      at the main paths' shapes (the backward: gradients of the plain
      version under a cotangent that is not all ones, with negative sparse
      samples), and times both with CUDA events;
-  4. serving: the nyu_eval ResNet-50 CSPN-UNet (228x304, 24 steps, 8sum)
-     with seeded random weights and BN statistics calibrated on one
-     synthetic batch, served through DepthServer (buckets 1, 8) to requests
-     of 1, 3, 8 and 11 synthetic NYU-geometry frames; checks shapes,
-     finiteness, the forward kernel's launch count on that run, and
-     agreement with the same server on the plain CSPN; prints metrics and
-     frames/s;
-  5. training: nyu_train (ResNet-50, 228x304, batch 8, 24 steps, SGD-Nesterov)
-     on synthetic frames: Trainer.fit(1) (4 train steps, validation on 8
-     frames) with finite metrics, moved parameters, the checkpoints, and
-     both kernels' launch counts on that run; a resume into a fresh Trainer
-     equal to the saved state; one train step through the kernels against
-     the same step through the plain CSPN (loss and every gradient); the
-     train step's forward / backward / optimizer split, frames/s and peak
-     memory;
+  4. serving: the nyu_eval ResNet-50 CSPN-UNet (228x304, 24 steps, 8sum,
+     the subpixel decoder) with seeded random weights and BN statistics
+     calibrated on one synthetic batch, served through DepthServer
+     (buckets 1, 8) to requests of 1, 3, 8 and 11 synthetic NYU-geometry
+     frames; checks shapes, finiteness, the CSPN and depth-to-space
+     kernels' launch counts on that run, and agreement with the same
+     server on the plain CSPN; prints metrics and frames/s; times the b8
+     forward in both decoder forms with the same weights and holds their
+     outputs together;
+  5. training: nyu_train (ResNet-50, 228x304, batch 8, 24 steps, SGD-Nesterov,
+     the subpixel decoder) on synthetic frames: Trainer.fit(1) (4 train
+     steps, validation on 8 frames) with finite metrics, moved parameters,
+     the checkpoints, and the CSPN and depth-to-space kernels' launch
+     counts on that run; a resume into a fresh Trainer equal to the saved
+     state; one train step through the kernels against the same step
+     through the plain CSPN (loss and every gradient); the train step's
+     forward / backward / optimizer split in both decoder forms, frames/s
+     and peak memory;
   6. stereo eval: the PSMNet + 3D-CSPN stereo model at StereoConfig width
      (max_disp 192, features 32, 24 CSPN steps) with seeded random weights
      and BN statistics calibrated on one synthetic batch, evaluated by
@@ -45,8 +48,11 @@ any phase fails:
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
 plain versions at the stereo shape [4,48,64,128] (and an odd [2,5,13,17]
-with C=2, and all-zero gates in a corner).  Every path's run starts with
-all four kernels' launch counts at 0 and reads them at its end.
+with C=2, and all-zero gates in a corner), and the depth-to-space kernel
+and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
+shapes, an odd one with C=1, and in float64 and bfloat16.  Every path's
+run starts with all six kernels' launch counts at 0 and reads them at its
+end.
 
 The last two lines are JSON: the kernel table, then the result line.
 Imports nothing of JAX or of the JAX package.
@@ -91,6 +97,16 @@ STEREO_SHAPE = (4, 48, 64, 128)  # N*C, D, H, W: the stereo model's b4 quarter-r
 STEREO_EVAL_FRAMES = 8
 STEREO_TRAIN_FRAMES = 16  # 4 train steps of batch 4
 STEPS = 24
+# the depth-to-space calls of a b8 nyu_eval forward (ResNet-50, 228x304):
+# (stage, input [N, 4C, H, W], crop, calls per forward); layers 1-4 run it
+# for conv1 and sc_conv1, the fused 9-channel head once
+D2S_STAGES = (
+    ("layer1", (8, 4096, 8, 10), (15, 19), 2),
+    ("layer2", (8, 2048, 15, 19), (29, 38), 2),
+    ("layer3", (8, 1024, 29, 38), (57, 76), 2),
+    ("layer4", (8, 256, 57, 76), (114, 152), 2),
+    ("head", (8, 36, 114, 152), (228, 304), 1),
+)
 REQUESTS = (1, 3, 8, 11)
 BUCKETS = (1, 8)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -100,21 +116,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd")
+KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d")
 
 
 def reset_launches() -> None:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, d2s
 
     cspn_cuda.launches = cspn_cuda.bwd_launches = 0
     cspn3d_cuda.launches = cspn3d_cuda.bwd_launches = 0
+    d2s.launches = d2s.bwd_launches = 0
 
 
 def read_launches() -> dict:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, d2s
 
     return dict(zip(KERNEL_NAMES, (cspn_cuda.launches, cspn_cuda.bwd_launches,
-                                   cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)))
+                                   cspn3d_cuda.launches, cspn3d_cuda.bwd_launches,
+                                   d2s.launches, d2s.bwd_launches)))
+
+
+def d2s_per_forward(model) -> int:
+    """depth_to_space2 calls in one CSPNUNet forward: one per
+    SubpixelUnpoolConv the decoder blocks call, and one for the fused
+    9-channel head, which uses the two heads' weights but not their modules."""
+    from cspn_tpu_torch.models.decoder import SubpixelUnpoolConv
+
+    fused = model.use_cspn
+    heads = ("gud_up_proj_layer5", "gud_up_proj_layer6")
+    calls = sum(isinstance(m, SubpixelUnpoolConv) for name, m in model.named_modules()
+                if not (fused and name.startswith(heads)))
+    return calls + int(fused and model.subpixel)
 
 
 def card_line() -> str:
@@ -144,6 +175,27 @@ def time_ms(fn, reps: int = 21, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median device time of one call among `calls` back-to-back calls.
+    The stream first sleeps ~5 ms on the card (torch.cuda._sleep), so the
+    host has enqueued every call before the card reaches the first: the
+    events time the card alone, not the host's launch overhead, which
+    exceeds the device time of a call of tens of microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)  # cycles: ~5 ms at the H100's ~2 GHz
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -434,14 +486,96 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
     }
 
 
+def check_d2s_kernels(name: str) -> list[dict]:
+    """Phase 3: the depth-to-space kernel and its adjoint against the plain
+    version and its autograd, bit for bit, under a random cotangent; then
+    each b8 decoder stage timed against the plain version, its byte bound
+    and F.pixel_shuffle / F.pixel_unshuffle (the same bytes moved in
+    PyTorch's own channel order, without a crop), all three queued back to
+    back (`time_queued_ms`: a call takes tens of microseconds on the card,
+    less than its launch on the host).  Each row sums a b8 forward's nine
+    calls (`d2s`) or a backward's nine (`s2d`)."""
+    import torch.nn.functional as F
+
+    from cspn_tpu_torch.ops import d2s
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layer3 = D2S_STAGES[2]
+    cases = [(f"{stage} float32", shape, crop, torch.float32) for stage, shape, crop, _ in D2S_STAGES]
+    cases += [("odd C=1 float32", (3, 4, 5, 7), (9, 13), torch.float32),
+              ("layer3 float64", layer3[1], layer3[2], torch.float64),
+              ("layer3 bfloat16", layer3[1], layer3[2], torch.bfloat16)]
+    max_err = {"d2s": 0.0, "s2d": 0.0}
+    for label, (n, c4, h, w), (oh, ow), dtype in cases:
+        x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
+        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen).to(dtype)
+        outs = {}
+        for kind, fn in (("kernel", d2s.depth_to_space2), ("plain", d2s.depth_to_space2_ref)):
+            xg = x.clone().requires_grad_(True)
+            y = fn(xg, oh, ow)
+            outs[kind] = (y, *torch.autograd.grad(y, xg, ct))
+        torch.cuda.synchronize()
+        for what, a, b in zip(("d2s", "s2d"), outs["kernel"], outs["plain"]):
+            err = (a.double() - b.double()).abs().max().item()
+            log(f"  {what} {label} [{n},{c4},{h},{w}] -> crop ({oh},{ow}): max|err| = {err:.3e} "
+                f"(bit-exact required)")
+            if not (a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)):
+                raise AssertionError(f"{what} {label}: kernel differs from the plain version "
+                                     f"(max|err| {err:.3e})")
+            max_err[what] = max(max_err[what], err)
+
+    sums = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0) for k in max_err}
+    for stage, (n, c4, h, w), (oh, ow), calls in D2S_STAGES:
+        x = torch.randn(n, c4, h, w, device="cuda", generator=gen)
+        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen)
+        full = torch.randn(n, c4 // 4, 2 * h, 2 * w, device="cuda", generator=gen)
+        kept = n * (c4 // 4) * oh * ow * 4  # bytes of the values the crop keeps
+        timed = {
+            "d2s": (time_queued_ms(lambda: d2s._launch(x, oh, ow)),
+                    time_queued_ms(lambda: d2s.depth_to_space2_ref(x, oh, ow)),
+                    time_queued_ms(lambda: F.pixel_shuffle(x, 2)), 2 * kept),
+            "s2d": (time_queued_ms(lambda: d2s._launch_bwd(ct, h, w)),
+                    time_queued_ms(lambda: d2s.space_to_depth2_ref(ct, h, w)),
+                    time_queued_ms(lambda: F.pixel_unshuffle(full, 2)), kept + x.numel() * 4),
+        }
+        for what, (ms, plain_ms, lib_ms, bytes_moved) in timed.items():
+            bound_ms = bound(name, bytes_moved, 0)[0]
+            log(f"  {what} {stage} [{n},{c4},{h},{w}] <-> [{n},{c4 // 4},{oh},{ow}] f32: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.pixel_{'un' if what == 's2d' else ''}"
+                f"shuffle {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB) "
+                f"on {name}; {calls} per {'forward' if what == 'd2s' else 'backward'}")
+            for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                              (ms, plain_ms, lib_ms, bound_ms)):
+                sums[what][key] += calls * v
+    rows = []
+    for what, tpu_line in (("d2s", 118), ("s2d", 137)):
+        log(f"  {what} per b8 {'forward' if what == 'd2s' else 'backward'} (9 calls): kernel "
+            f"{sums[what]['ms']:.4f} ms, plain {sums[what]['plain_ms']:.4f} ms, library "
+            f"{sums[what]['library_ms']:.4f} ms, bound {sums[what]['bound_ms']:.4f} ms on {name}")
+        rows.append({
+            "name": what,
+            "route": "cuda",
+            "source": "cspn_tpu_torch/csrc/d2s.cu",
+            "replaces": f"cspn_tpu/ops/d2s_pallas.py:{tpu_line}",
+            "launches": None,
+            "max_abs_err": max_err[what],
+            **{k: sums[what][k] for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes",  # the kernels compute nothing
+            # F.pixel_shuffle / pixel_unshuffle: the same bytes in PyTorch's
+            # channel order (c*4 + py*2 + px), without the crop
+            "library_ms": sums[what]["library_ms"],
+        })
+    return rows
+
+
 def serve_slice(name: str) -> dict:
     """Phase 4: the nyu_eval model served through DepthServer; returns each
-    CSPN kernel's launches during the served requests."""
+    kernel's launches during the served requests."""
     from cspn_tpu_torch.data import SyntheticDepthDataset
     from cspn_tpu_torch.serving import DepthServer, chunk_plan
     from cspn_tpu_torch.train.evaluate import build_model
     from cspn_tpu_torch.train.metrics import ErrorAverager, evaluate_error
-    from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
+    from cspn_tpu_torch.utils.profiling import calibrated_model, decoder_twin, nyu_eval_synthetic
 
     cfg = nyu_eval_synthetic()
     h, w = cfg.data.crop_hw
@@ -449,6 +583,8 @@ def serve_slice(name: str) -> dict:
         f"norm {cfg.model.cspn_norm_type}, {cfg.data.n_sample} sparse samples, {h}x{w}")
     t0 = time.perf_counter()
     model = calibrated_model(cfg)
+    if not model.subpixel:
+        raise AssertionError("nyu_eval's model must run the subpixel decoder (the default)")
     ref_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, cspn_backend="reference"))
     model_ref = build_model(ref_cfg, train=False, device="cuda", seed=None)
     model_ref.load_state_dict(model.state_dict())
@@ -471,8 +607,9 @@ def serve_slice(name: str) -> dict:
     outs = [srv.predict(r) for r in reqs]  # predict returns host arrays: synchronized
     elapsed = time.perf_counter() - t0
     launches = read_launches()
-    expected = dict.fromkeys(KERNEL_NAMES, 0)
-    expected["cspn2d_fwd"] = sum(len(chunk_plan(n, BUCKETS)) for n in REQUESTS)
+    forwards = sum(len(chunk_plan(n, BUCKETS)) for n in REQUESTS)
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=forwards,
+                    d2s=d2s_per_forward(model) * forwards)
     log(f"  served requests {REQUESTS} over buckets {BUCKETS}: {sum(REQUESTS)} frames in "
         f"{elapsed:.4f} s = {sum(REQUESTS) / elapsed:.2f} frames/s on {name}; "
         f"launches {launches} (expected {expected})")
@@ -500,6 +637,25 @@ def serve_slice(name: str) -> dict:
             x = torch.from_numpy(np.stack([f["rgbd"] for f in frames[:b]])).cuda()
             fwd_ms = time_ms(lambda: model(x), reps=5, warmup=1)
             log(f"  bucket {b} forward: {fwd_ms:.3f} ms = {b * 1e3 / fwd_ms:.2f} frames/s on {name}")
+        # the same weights in the plain unpool + conv decoder (JAX's
+        # subpixel=False): outputs held together, the b8 forward timed in
+        # turns (subpixel, plain, plain, subpixel)
+        del model_ref, srv_ref
+        plain = decoder_twin(model, subpixel=False)
+        got, want = model(x), plain(x)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        log(f"  b{x.shape[0]} subpixel vs plain decoder, same weights: max|err| = {err:.3e} "
+            f"(max|plain| = {scale:.3e}, tol {KERNEL_TOL:g} x max|plain|)")
+        if not err <= KERNEL_TOL * scale:
+            raise AssertionError(f"subpixel vs plain decoder: {err:.3e} > {KERNEL_TOL * scale:.3e}")
+        times = {"subpixel": [], "plain": []}
+        for form in ("subpixel", "plain", "plain", "subpixel"):
+            mdl = model if form == "subpixel" else plain
+            times[form].append(time_ms(lambda: mdl(x), reps=5, warmup=1))
+        for form, ts in times.items():
+            log(f"  b{x.shape[0]} forward, {form} decoder: "
+                f"{' / '.join(f'{t:.3f}' for t in ts)} ms on {name}")
+        del plain
     m = avg.average
     log("  metrics vs synthetic ground truth (random weights): " + ", ".join(
         f"{k}={m[k]:.4f}" for k in ("RMSE", "MAE", "ABS_REL", "LG10", "DELTA1.25", "iRMSE")))
@@ -573,13 +729,13 @@ def check_against_oracle(kernel, plain, oracle) -> None:
 
 def train_slice(name: str, kernel_ms: dict) -> dict:
     """Phase 5: nyu_train through Trainer.fit(1) on the card; returns each
-    CSPN kernel's launches during the fit."""
+    kernel's launches during the fit."""
     from cspn_tpu_torch.train.evaluate import build_model
     from cspn_tpu_torch.train.factory import build_loaders
     from cspn_tpu_torch.train.loop import Trainer, make_train_step
     from cspn_tpu_torch.train.loss import masked_l1_loss
     from cspn_tpu_torch.train.state import make_optimizer
-    from cspn_tpu_torch.utils.profiling import train_step_split_ms
+    from cspn_tpu_torch.utils.profiling import decoder_twin, train_step_split_ms
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as save_dir:
         cfg = _train_cfg(save_dir)
@@ -602,8 +758,9 @@ def train_slice(name: str, kernel_ms: dict) -> dict:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = read_launches()
+        per_fwd = d2s_per_forward(trainer.state.model)
         expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train + n_val,
-                        cspn2d_bwd=n_train)
+                        cspn2d_bwd=n_train, d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         log(f"  Trainer.fit(1): {n_train} train steps of {cfg.data.batch_size_train}, {n_val} val "
             f"batches of {cfg.data.batch_size_eval} in {elapsed:.2f} s (checkpoints included); "
@@ -664,15 +821,21 @@ def train_slice(name: str, kernel_ms: dict) -> dict:
     check_against_oracle(*(results[k] for k in models))
     del models, results
 
-    split = train_step_split_ms(model_k, make_optimizer(model_k.parameters()), masked_l1_loss,
-                                x, depth)
+    # the step split in both decoder forms from the same weights, in turns
+    # (subpixel, plain, plain, subpixel)
+    models = {"subpixel": model_k, "plain": decoder_twin(model_k, subpixel=False)}
+    optimizers = {form: make_optimizer(m.parameters()) for form, m in models.items()}
     n = x.shape[0]
-    cspn_share = (kernel_ms["cspn2d_fwd"] + kernel_ms["cspn2d_bwd"]) / split["step"]
-    log(f"  train step (batch {n}, median of 5, CUDA events): {split['step']:.3f} ms = "
-        f"{n * 1e3 / split['step']:.2f} frames/s; forward + loss {split['forward']:.3f} ms, "
-        f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the two CSPN "
-        f"kernels {100 * cspn_share:.2f}% of the step (their phase-3 times); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
+    for form in ("subpixel", "plain", "plain", "subpixel"):
+        split = train_step_split_ms(models[form], optimizers[form], masked_l1_loss, x, depth)
+        cspn_share = (kernel_ms["cspn2d_fwd"] + kernel_ms["cspn2d_bwd"]) / split["step"]
+        d2s_share = (kernel_ms["d2s"] + kernel_ms["s2d"]) / split["step"] if form == "subpixel" else 0.0
+        log(f"  train step, {form} decoder (batch {n}, median of 5, CUDA events): "
+            f"{split['step']:.3f} ms = {n * 1e3 / split['step']:.2f} frames/s; forward + loss "
+            f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
+            f"{split['optimizer']:.3f} ms; the two CSPN kernels {100 * cspn_share:.2f}%, d2s + s2d "
+            f"{100 * d2s_share:.2f}% of the step (their phase-3 times); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
     return launches
 
 
@@ -894,7 +1057,7 @@ def main() -> int:
 
     log("[3/7] kernels against their plain versions")
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
-            check_cspn3d_bwd_kernel(name)]
+            check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name)]
     kernel_ms = {r["name"]: r["ms"] for r in rows}
 
     log("[4/7] nyu_eval served through DepthServer")

@@ -4,7 +4,8 @@ cspn_tpu/models/unet.py).
 NCHW PyTorch form of cspn_pytorch/models/torch_resnet_cspn_nyu.py's
 `ResNet` (:278-376), with geometry derived from the input shape, the 2D
 CSPN through ops/cspn.py (the Hopper kernel on CUDA tensors), a no-CSPN
-baseline, and resnet18..152 trunks.
+baseline, resnet18..152 trunks, and the decoder in its subpixel form by
+default (models/decoder.py; `subpixel=False` is the plain unpool + conv).
 
 Input: [N, H, W, 4] RGBD, as in the JAX package; channel 3 is the sparse
 depth used for anchoring.  Output: [N, H, W] dense depth.  Inside, NCHW.
@@ -17,7 +18,13 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from cspn_tpu_torch.models.decoder import GudiUpConvLast, GudiUpProj, GudiUpProjCat, unpool2x
+from cspn_tpu_torch.models.decoder import (
+    GudiUpConvLast,
+    GudiUpProj,
+    GudiUpProjCat,
+    subpixel_unpool_conv,
+    unpool2x,
+)
 from cspn_tpu_torch.models.resnet import ResNetEncoder, init_weights
 from cspn_tpu_torch.ops.cspn import cspn2d
 
@@ -39,7 +46,9 @@ class CSPNUNet(ResNetEncoder):
     so the state dict keys are the reference's (conv1_1, bn1, layer1..4,
     conv2, bn2, gud_up_proj_layer1..6).  `generator` seeds the JAX
     package's he_normal init of every conv (models/resnet.init_weights);
-    without one the convs keep PyTorch's default init."""
+    without one the convs keep PyTorch's default init.  `subpixel` picks
+    the decoder's form (models/decoder.py); both hold the same parameters
+    under the same keys."""
 
     def __init__(
         self,
@@ -51,21 +60,24 @@ class CSPNUNet(ResNetEncoder):
         cspn_backend: str = "auto",
         cspn_io_dtype=None,
         generator: torch.Generator | None = None,
+        subpixel: bool = True,
     ):
         super().__init__(block, layers)
         e = self.expansion
+        self.block, self.layers = block, tuple(layers)
+        self.subpixel = subpixel
         self.cspn_steps = cspn_steps
         self.cspn_norm_type = cspn_norm_type
         self.use_cspn = use_cspn
         self.cspn_backend = cspn_backend
         self.cspn_io_dtype = cspn_io_dtype
-        self.gud_up_proj_layer1 = GudiUpProj(512 * e, 256 * e)
-        self.gud_up_proj_layer2 = GudiUpProjCat(256 * e, 128 * e, 128 * e)
-        self.gud_up_proj_layer3 = GudiUpProjCat(128 * e, 64 * e, 64 * e)
-        self.gud_up_proj_layer4 = GudiUpProjCat(64 * e, 64, 64)
-        self.gud_up_proj_layer5 = GudiUpConvLast(64, 1)
+        self.gud_up_proj_layer1 = GudiUpProj(512 * e, 256 * e, subpixel)
+        self.gud_up_proj_layer2 = GudiUpProjCat(256 * e, 128 * e, 128 * e, subpixel)
+        self.gud_up_proj_layer3 = GudiUpProjCat(128 * e, 64 * e, 64 * e, subpixel)
+        self.gud_up_proj_layer4 = GudiUpProjCat(64 * e, 64, 64, subpixel)
+        self.gud_up_proj_layer5 = GudiUpConvLast(64, 1, subpixel)
         if use_cspn:
-            self.gud_up_proj_layer6 = GudiUpConvLast(64, 8)
+            self.gud_up_proj_layer6 = GudiUpConvLast(64, 8, subpixel)
         if generator is not None:
             init_weights(self, generator)
 
@@ -84,11 +96,16 @@ class CSPNUNet(ResNetEncoder):
             return self.gud_up_proj_layer5(d, *sizes[0])[:, 0]
         # one 9-channel head conv (channel 0 = depth, 1..8 = affinity): the
         # two heads' weights keep their own modules and are concatenated
-        # along cout, the JAX package's fused head (unet.py:156-181)
+        # along cout, the JAX package's fused head (unet.py:156-181); in the
+        # subpixel form one reindexed 2x2 conv, padded (0,1),(0,1), and one
+        # depth_to_space2 to the full size
         w_heads = torch.cat(
             [self.gud_up_proj_layer5.conv1.weight, self.gud_up_proj_layer6.conv1.weight]
         )
-        heads = F.conv2d(unpool2x(d, *sizes[0]), w_heads, padding=1)
+        if self.subpixel:
+            heads = subpixel_unpool_conv(d, w_heads, *sizes[0])
+        else:
+            heads = F.conv2d(unpool2x(d, *sizes[0]), w_heads, padding=1)
         return cspn2d(
             heads[:, 1:],
             heads[:, 0].contiguous(),

@@ -51,6 +51,10 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "cspn3d_bwd.cu",
         {"cspn3d_bwd_f32": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]},
     ),
+    "d2s": (
+        "d2s.cu",
+        {fn: [_c_void_p] * 2 + [_c_int] * 7 + [_c_void_p] for fn in ("d2s", "s2d")},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

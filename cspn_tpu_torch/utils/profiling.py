@@ -2,25 +2,29 @@
 (counterpart of cspn_tpu/utils/profiling.py, on CUDA events and
 torch.profiler).
 
-    python -m cspn_tpu_torch.utils.profiling [--stereo] [--train] [--batch N] [--reps 5] [--out FILE.json]
+    python -m cspn_tpu_torch.utils.profiling [--stereo] [--train] [--decoder subpixel|plain]
+        [--batch N] [--reps 5] [--out FILE.json]
 
   - `StepTimer`: per-step time (CUDA events on the card, the wall clock on
     the CPU) with a warm-up skip, median and frames/s;
   - `trace(logdir)`: a torch.profiler trace of the block, written to
     `logdir/trace.json` (chrome://tracing, Perfetto);
   - `train_step_split_ms`: a train step's forward, backward and optimizer
-    time by CUDA events.
+    time by CUDA events;
+  - `decoder_twin`: a CSPN-UNet's weights in the other decoder form.
 
 The module's main builds the nyu_eval ResNet-50 CSPN-UNet (228x304, 24
-steps) with seeded random weights and BN statistics calibrated on one
-synthetic batch, then, on the card:
+steps; the decoder in its subpixel form, or plain with `--decoder plain`)
+with seeded random weights and BN statistics calibrated on one synthetic
+batch, then, on the card:
   - times each top-level module of a forward with CUDA events recorded in
     forward hooks (median over `reps` forwards); the rest of the forward
     (input relayout, the fused head conv and the CSPN) is the total minus
-    their sum;
+    their sum; in the subpixel form also the weight reindex the blocks do
+    (`reindex_ms`, timed on its own);
   - traces `reps` forwards with torch.profiler and sums the device time of
     every kernel, grouped by kind (conv/matmul, batch norm, the CSPN
-    kernels, other).
+    kernels, `d2s` and `s2d`, other).
 With `--train` it profiles a nyu_train step instead: forward, backward and
 optimizer by CUDA events, and the kernels by kind.  With `--stereo` it
 builds the stereo model at StereoConfig width (PSMNetCSPN, max_disp 192,
@@ -70,6 +74,52 @@ def calibrated_model(cfg: RunConfig, device="cuda", seed: int = 0, calib_batch: 
                                n_sample=cfg.data.n_sample, seed=seed)
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(calib_batch)]))
     return calibrate_bn_stats(model, x.to(next(model.parameters()).device))
+
+
+def decoder_twin(model, subpixel: bool):
+    """`model` (a CSPNUNet) with its decoder in the given form
+    (models/decoder.py): the same settings, weights, BN statistics, device,
+    dtype and mode."""
+    from cspn_tpu_torch.models.unet import CSPNUNet
+
+    p = next(model.parameters())
+    with torch.device(p.device):
+        twin = CSPNUNet(model.block, model.layers, model.cspn_steps, model.cspn_norm_type,
+                        model.use_cspn, model.cspn_backend, model.cspn_io_dtype,
+                        subpixel=subpixel)
+    twin = twin.to(p.dtype)
+    twin.load_state_dict(model.state_dict())
+    return twin.train(model.training)
+
+
+def reindex_ms(model, reps: int = 5) -> float:
+    """Median device ms of the subpixel weight reindex one forward of
+    `model` does: the kernels of every decoder SubpixelUnpoolConv and of
+    the fused head (decoder._subpixel_convs), copied contiguous as the
+    conv takes them."""
+    from cspn_tpu_torch.models import decoder
+
+    weights = [m.weight for name, m in model.named_modules()
+               if isinstance(m, decoder.SubpixelUnpoolConv)
+               and not name.startswith(("gud_up_proj_layer5", "gud_up_proj_layer6"))]
+    heads = torch.cat([model.gud_up_proj_layer5.conv1.weight, model.gud_up_proj_layer6.conv1.weight])
+
+    def run():
+        for w in (*weights, heads):
+            for kernel, _, _ in decoder._subpixel_convs(w):
+                kernel.contiguous()
+
+    times = []
+    with torch.no_grad():
+        run()
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 class StepTimer:
@@ -183,6 +233,12 @@ def train_step_split_ms(model, optimizer, loss_fn, inputs, target, reps: int = 5
 
 def _kind(kernel: str) -> str:
     k = kernel.lower()
+    # the subpixel decoder's depth-to-space kernels (csrc/d2s.cu) and their
+    # adjoints, before the CSPN kinds and the convs
+    if "d2s_copy_kernel" in k:
+        return "d2s"
+    if "s2d_copy_kernel" in k:
+        return "s2d"
     # the 3D kernels first: their names hold the 2D ones' substrings
     if "cspn3d_" in k:  # in a train step the step kernel is also the backward's replay
         return "cspn3d_fwd" if "cspn3d_step_kernel" in k else "cspn3d_bwd"
@@ -373,7 +429,9 @@ def _nyu(args, card: str) -> dict:
     batch = args.batch or 8
     ds = SyntheticDepthDataset(length=batch, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(batch)])).cuda()
-    result = {"card": card, "batch": batch, "hw": NYU_HW}
+    subpixel = args.decoder == "subpixel"
+    result = {"card": card, "batch": batch, "hw": NYU_HW, "decoder": args.decoder}
+    form = f"{args.decoder} decoder"
     if args.train:
         from cspn_tpu_torch.train.loop import make_train_step
         from cspn_tpu_torch.train.loss import masked_l1_loss
@@ -381,22 +439,29 @@ def _nyu(args, card: str) -> dict:
 
         depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(batch)])).cuda()
         model = build_model(PRESETS["nyu_train"], train=True, device="cuda", seed=0)
+        if not subpixel:
+            model = decoder_twin(model, False)
         optimizer = make_optimizer(model.parameters())
         split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
         step = make_train_step(model, optimizer)
         kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
-        _print_tables(f"nyu_train train step, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
-                      f"(TF32 off) on {card}", "train step", "phase", split, "step", kinds, top)
+        _print_tables(f"nyu_train train step, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, {form}, "
+                      f"float32 (TF32 off) on {card}", "train step", "phase", split, "step", kinds,
+                      top)
         return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
     model = calibrated_model(cfg)
+    if not subpixel:
+        model = decoder_twin(model, False)
     modules = module_times_ms(model, x, args.reps)
+    if subpixel:
+        modules["of which the weight reindex"] = reindex_ms(model, args.reps)
 
     def forward():
         with torch.inference_mode():
             model(x)
 
     kinds, top = kernel_kinds_ms(forward, args.reps)
-    _print_tables(f"nyu_eval forward, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, float32 "
+    _print_tables(f"nyu_eval forward, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, {form}, float32 "
                   f"(TF32 off) on {card}", "forward", "module", modules, "forward", kinds, top)
     return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
 
@@ -408,6 +473,8 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile a train step (forward, backward, SGD) instead of a forward")
+    p.add_argument("--decoder", choices=("subpixel", "plain"), default="subpixel",
+                   help="the CSPN-UNet decoder's form (models/decoder.py; default subpixel)")
     p.add_argument("--stereo", action="store_true",
                    help="profile the PSMNet + 3D-CSPN stereo model instead of nyu_eval/nyu_train")
     p.add_argument("--out", default=None, help="write the tables here as JSON")

@@ -1,5 +1,6 @@
 """The CUDA kernels -- the 2D CSPN forward and backward, the 3D CSPN forward
-and backward -- against their plain versions, on the card.
+and backward, the subpixel decoder's depth-to-space and its adjoint --
+against their plain versions, on the card.
 
 Marked `cuda`: without a card every test here skips.  On a machine with
 one (and without JAX, which tests/conftest.py imports) run:
@@ -7,13 +8,14 @@ one (and without JAX, which tests/conftest.py imports) run:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: 1e-4 x max|plain| (FMA contraction and summation order differ),
-for the output and for each gradient.
+for the output and for each gradient; the depth-to-space kernels move
+values and are held bit for bit.
 """
 
 import pytest
 import torch
 
-from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_ref
+from cspn_tpu_torch.ops import _build, cspn3d_cuda, cspn_cuda, cspn_ref, d2s
 from cspn_tpu_torch.ops.cspn import cspn2d, cspn_nd
 
 pytestmark = pytest.mark.cuda
@@ -291,3 +293,74 @@ def test_stereo_model_on_the_card_uses_the_kernels(gen):
     # products over the whole volume in another order (cuDNN wgrad): 1e-3
     for a, b, tol in zip(outs["auto"], outs["reference"], (TOL, 1e-3)):
         assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+# --- the depth-to-space kernels (csrc/d2s.cu) -----------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("shape, crop", [
+    ((8, 1024, 29, 38), (57, 76)),  # the b8 decoder's layer3, odd crop in both axes
+    ((8, 36, 114, 152), (228, 304)),  # the fused head, no crop
+    ((3, 4, 5, 7), (9, 13)),  # C=1
+    ((2, 36, 6, 7), (12, 13)),
+])
+def test_d2s_kernels_match_plain_bit_for_bit(gen, shape, crop, dtype):
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    ct = torch.randn(shape[0], shape[1] // 4, *crop, device="cuda", generator=gen).to(dtype)
+    before = (d2s.launches, d2s.bwd_launches)
+    xk = x.clone().requires_grad_(True)
+    got = d2s.depth_to_space2(xk, *crop)
+    (gk,) = torch.autograd.grad(got, xk, ct)
+    torch.cuda.synchronize()
+    assert (d2s.launches, d2s.bwd_launches) == (before[0] + 1, before[1] + 1)
+    xr = x.clone().requires_grad_(True)
+    want = d2s.depth_to_space2_ref(xr, *crop)
+    (gr,) = torch.autograd.grad(want, xr, ct)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(gk, gr)
+    assert torch.equal(gk, d2s.space_to_depth2_ref(ct, *shape[2:]))
+
+
+def test_d2s_on_cuda_never_reaches_the_plain_version(gen, monkeypatch):
+    """A CUDA tensor goes to the kernels, forward and backward; the subpixel
+    resnet18 model launches nine of each per train step."""
+    from cspn_tpu_torch.models import unet
+
+    def plain(*_args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(d2s, "depth_to_space2_ref", plain)
+    monkeypatch.setattr(d2s, "space_to_depth2_ref", plain)
+    x = torch.randn(2, 36, 6, 7, device="cuda", generator=gen, requires_grad=True)
+    before = (d2s.launches, d2s.bwd_launches)
+    out = d2s.depth_to_space2(x, 11, 13)
+    out.backward(torch.randn(out.shape, device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    assert (d2s.launches, d2s.bwd_launches) == (before[0] + 1, before[1] + 1)
+
+    model = unet.cspn_unet_resnet18(cspn_steps=2, generator=torch.Generator().manual_seed(0))
+    model = model.cuda().train()
+    before = (d2s.launches, d2s.bwd_launches)
+    model(torch.randn(2, 64, 96, 4, device="cuda", generator=gen)).square().mean().backward()
+    torch.cuda.synchronize()
+    assert (d2s.launches, d2s.bwd_launches) == (before[0] + 9, before[1] + 9)
+
+
+def test_d2s_failed_build_raises(gen, monkeypatch, tmp_path):
+    """A build that fails raises: nothing falls back to the plain version."""
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-flag",))
+    x = torch.randn(1, 8, 3, 4, device="cuda", generator=gen)
+    before = d2s.launches
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        d2s.depth_to_space2(x, 6, 8)
+    assert d2s.launches == before
+
+
+def test_d2s_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    with pytest.raises(TypeError, match="bytes"):
+        d2s.depth_to_space2(torch.zeros(1, 8, 3, 4, dtype=torch.uint8, device="cuda"), 6, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        d2s.depth_to_space2(torch.zeros(1, 6, 3, 4, device="cuda"), 6, 8)

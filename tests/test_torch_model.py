@@ -60,8 +60,9 @@ def jax_reference(depth: int, use_cspn: bool, x: np.ndarray, with_eval: bool = T
         return ref
 
 
-def port_forward(depth: int, use_cspn: bool, variables, x: np.ndarray, train: bool) -> np.ndarray:
-    model = unet._make(depth, use_cspn, cspn_steps=8).double()
+def port_forward(depth: int, use_cspn: bool, variables, x: np.ndarray, train: bool,
+                 **model_kw) -> np.ndarray:
+    model = unet._make(depth, use_cspn, cspn_steps=8, **model_kw).double()
     convert.load_jax_variables(model, variables)
     model.train(train)
     with torch.no_grad():

@@ -1,4 +1,6 @@
-"""One composed train step of the port against the JAX package's.
+"""One composed train step of the port against the JAX package's: the
+port's default (subpixel) decoder, and its plain form, against JAX's
+default model (the two forms compute one function).
 
 The same batch and the converted JAX weights (`model.init(PRNGKey(0))`) go
 through `cspn_tpu.train.loop.make_train_step` (forward in train-mode BN,
@@ -70,17 +72,11 @@ def _jax_step(depth, steps, x, gt):
                     grads=to_np(grads), params=to_np(new_st.params), stats=to_np(new_st.batch_stats))
 
 
-@pytest.mark.parametrize("depth, hw, steps", [
-    (18, (32, 48), 8),
-    pytest.param(50, (228, 304), 24, marks=pytest.mark.slow),
-])
-def test_train_step_matches_jax(depth, hw, steps):
-    x, gt = _batch(hw)
-    ref = _jax_step(depth, steps, x, gt)
-    valid = gt > 1e-4
-    assert np.abs(ref["out"] - gt)[valid].min() > 1e-3  # no L1 sign flip within rounding
-
-    model = convert.load_jax_variables(unet._make(depth, True, cspn_steps=steps).double(), ref["v64"])
+def check_port_step(ref, depth, steps, x, gt, **model_kw):
+    """The port's step from `ref`'s weights on the same batch against `ref`
+    (`_jax_step`'s result); `model_kw` goes to the port's CSPNUNet."""
+    model = convert.load_jax_variables(unet._make(depth, True, cspn_steps=steps, **model_kw).double(),
+                                       ref["v64"])
     optimizer = state.make_optimizer(model.parameters(), LR, momentum=MOMENTUM, weight_decay=WD,
                                      nesterov=True)
     loss, error = loop.make_train_step(model, optimizer, "l1")(torch.from_numpy(x), torch.from_numpy(gt))
@@ -102,3 +98,29 @@ def test_train_step_matches_jax(depth, hw, steps):
     moved = [k for k in want_grads if not np.array_equal(sd[k], convert.convert_jax_tree(
         "params", ref["v64"]["params"])[k])]
     assert len(moved) == len(want_grads)  # SGD moved every parameter
+
+
+@functools.lru_cache(maxsize=1)
+def _reference(depth, hw, steps):
+    """The batch and the JAX step on it, shared by this file's tests."""
+    x, gt = _batch(hw)
+    ref = _jax_step(depth, steps, x, gt)
+    valid = gt > 1e-4
+    assert np.abs(ref["out"] - gt)[valid].min() > 1e-3  # no L1 sign flip within rounding
+    return x, gt, ref
+
+
+@pytest.mark.parametrize("depth, hw, steps", [
+    (18, (32, 48), 8),
+    pytest.param(50, (228, 304), 24, marks=pytest.mark.slow),
+])
+def test_train_step_matches_jax(depth, hw, steps):
+    x, gt, ref = _reference(depth, hw, steps)
+    check_port_step(ref, depth, steps, x, gt)
+
+
+def test_train_step_plain_decoder_matches_jax():
+    """The plain unpool + conv decoder (`subpixel=False`) from the same
+    weights on the same batch against the same JAX step."""
+    x, gt, ref = _reference(18, (32, 48), 8)
+    check_port_step(ref, 18, 8, x, gt, subpixel=False)
