@@ -6,7 +6,8 @@ Drives cspn_tpu_torch's main paths on the card and fails (non-zero exit) if
 any phase fails:
 
   1. device: a CUDA card is required; prints its name and power limit, and
-     turns TF32 off (the nyu_eval and nyu_train presets are float32);
+     turns TF32 off (the nyu_eval and nyu_train presets are float32); the
+     model builders turn on cuDNN's algorithm timing (autotune_convs);
   2. build: compiles every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
      per source, all started together;
   3. kernels: holds each kernel against its plain PyTorch version on the card
@@ -109,6 +110,20 @@ D2S_STAGES = (
 )
 REQUESTS = (1, 3, 8, 11)
 BUCKETS = (1, 8)
+KITTI_SHAPE = (4, 352, 1216)  # N, H, W: kitti_benchmark's training batch, past the L2 (tiled)
+KITTI_RAGGED = (2, 75, 101)  # ragged last tiles in both axes, several tiles each way
+KITTI_REQUESTS = (1, 3, 5)
+KITTI_BUCKETS = (1, 4)
+KITTI_TRAIN_FRAMES = 16  # 4 train steps of batch 4
+KITTI_VAL_FRAMES = 4  # validation at batch 1
+# paddle 2D: (N, H, W, C): the demo's --dim-num 2 maps, and four NYU frames with C=2
+PADDLE_CASES = ((3, 64, 128, 1), (4, 228, 304, 2))
+DEMO_ITERS = 3
+PROBE_CHECK_ITERS = 4
+PROBE_ROW_ITERS = 64  # iterations of the probe's timed row (kernel, plain)
+# bf16 state: the kernel's bf16 FMA rounds once where the plain version may
+# round twice; 4 iterations of ~1-sized values stay within a few bf16 ulps
+PROBE_TOL = {torch.float32: KERNEL_TOL, torch.bfloat16: 1e-2}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -116,23 +131,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d")
+KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d",
+                "cspn2d_tiled", "paddle2d", "step_probe")
 
 
 def reset_launches() -> None:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, d2s
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.utils import step_probe
 
-    cspn_cuda.launches = cspn_cuda.bwd_launches = 0
+    cspn_cuda.launches = cspn_cuda.bwd_launches = cspn_cuda.tiled_launches = 0
     cspn3d_cuda.launches = cspn3d_cuda.bwd_launches = 0
     d2s.launches = d2s.bwd_launches = 0
+    cspn_paddle2d_cuda.launches = step_probe.launches = 0
 
 
 def read_launches() -> dict:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, d2s
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.utils import step_probe
 
     return dict(zip(KERNEL_NAMES, (cspn_cuda.launches, cspn_cuda.bwd_launches,
                                    cspn3d_cuda.launches, cspn3d_cuda.bwd_launches,
-                                   d2s.launches, d2s.bwd_launches)))
+                                   d2s.launches, d2s.bwd_launches, cspn_cuda.tiled_launches,
+                                   cspn_paddle2d_cuda.launches, step_probe.launches)))
 
 
 def d2s_per_forward(model) -> int:
@@ -566,6 +586,185 @@ def check_d2s_kernels(name: str) -> list[dict]:
             "library_ms": sums[what]["library_ms"],
         })
     return rows
+
+
+def check_tiled_kernel(name: str) -> dict:
+    """Phase 3: the tiled 2D CSPN forward against its plain version and the
+    per-step kernel's values, at kitti_benchmark's training batch and a
+    ragged shape; its backward (cspn2d_bwd after the tiled forward) against
+    autograd of the plain version under a random cotangent; then timed
+    beside the per-step kernel at the KITTI batch."""
+    from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, h, w = KITTI_SHAPE
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    if not cspn_cuda.use_tiled(n, h, w, l2) or cspn_cuda.use_tiled(1, h, w, l2):
+        raise AssertionError(f"L2 of {l2} B: KITTI b4 must run tiled and b1 per-step")
+    cases = [
+        ("kitti b4 8sum", KITTI_SHAPE, True, "8sum"),
+        ("ragged 8sum_abs", KITTI_RAGGED, True, "8sum_abs"),
+        ("ragged no-sparse", KITTI_RAGGED, False, "8sum"),
+    ]
+    max_err = 0.0
+    for label, (cn, ch, cw), with_sparse, norm in cases:
+        g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
+        g[0, :, :6, :6] = 0.0  # zero gates: the 0/0 guard
+        got = cspn_cuda._launch_tiled(g, b, s, STEPS, norm)
+        per_step = cspn_cuda._launch(g, b, s, STEPS, norm)
+        want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=STEPS, norm_type=norm)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _check_close(f"cspn2d_tiled {label} [{cn},8,{ch},{cw}] steps={STEPS}",
+                                            got, want))
+        if not torch.equal(got, per_step):
+            raise AssertionError(f"cspn2d_tiled {label}: values differ from the per-step kernel's "
+                                 f"(max {(got - per_step).abs().max().item():.3e})")
+    log("  cspn2d_tiled equals the per-step kernel value for value in all three cases")
+
+    g, b, s = cspn_inputs(gen, n, h, w, True, negative=0.2)
+    ct = torch.randn(n, h, w, device="cuda", generator=gen)
+    before = (cspn_cuda.tiled_launches, cspn_cuda.bwd_launches)
+    gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = cspn_cuda.cspn2d_cuda(gk, bk, s, steps=STEPS, channel_first=True)
+    got = torch.autograd.grad(out, (gk, bk), ct)
+    if (cspn_cuda.tiled_launches - before[0], cspn_cuda.bwd_launches - before[1]) != (1, 1):
+        raise AssertionError("a KITTI b4 forward + backward must run cspn2d_tiled and cspn2d_bwd once")
+    for what, a, x in zip(("dguidance", "dblur"), got, plain_vjp(g, b, s, ct)):
+        max_err = max(max_err, _check_close(
+            f"cspn2d_tiled + cspn2d_bwd kitti b4 [{n},8,{h},{w}] steps={STEPS} {what}", a, x))
+    del got, out, gk, bk
+
+    g, b, s = cspn_inputs(gen, n, h, w, True)
+    kernel_ms = time_ms(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"))
+    per_step_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
+    bwd_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
+    g_last = g.movedim(1, -1)
+    plain_ms = time_ms(lambda: cspn_ref.cspn2d_reference(g_last, b, s, steps=STEPS), reps=5, warmup=1)
+    bytes_moved = 11 * n * h * w * 4  # read 8 guidance + blur + sparse, write 1
+    ops = 17 * STEPS * n * h * w
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
+    log(f"  cspn2d_tiled [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, per-step kernel "
+        f"(cspn2d_fwd) {per_step_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}; cspn2d_bwd at this "
+        f"shape {bwd_ms:.4f} ms")
+    return {
+        "name": "cspn2d_tiled",
+        "route": "cuda",
+        "source": "cspn_tpu_torch/csrc/cspn2d_tiled.cu",
+        "replaces": "cspn_tpu/ops/cspn_pallas.py:799",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes CSPN
+        "per_step_ms": per_step_ms,  # cspn2d_fwd.cu on the same inputs
+        "cspn2d_bwd_ms": bwd_ms,  # cspn2d_bwd.cu at this shape: the KITTI train step's backward
+    }
+
+
+def paddle_inputs(gen, n, h, w, c):
+    """Raw guidance [n,h,w,8c] (zero in one corner: centre weight 1 there)
+    and features [n,h,w,c] for cspn_nd's 2D branch."""
+    guide = torch.randn(n, h, w, 8 * c, device="cuda", generator=gen)
+    guide[0, :3, :4] = 0.0
+    return guide, torch.randn(n, h, w, c, device="cuda", generator=gen)
+
+
+def check_paddle2d_kernel(name: str) -> dict:
+    """Phase 3: the paddle 2D kernel, through cspn2d_paddle_cuda (layout,
+    kernel, autograd of the plain propagation), against cspn_nd_reference,
+    forward and gradients under a random cotangent; then timed at each
+    case's maps."""
+    from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
+    from cspn_tpu_torch.ops import cspn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    max_err = 0.0
+    times = []
+    for n, h, w, c in PADDLE_CASES:
+        guide, feat = paddle_inputs(gen, n, h, w, c)
+        ct = torch.randn(feat.shape, device="cuda", generator=gen)
+        outs = {}
+        for label, fn in (("kernel", p2.cspn2d_paddle_cuda), ("plain", cspn_ref.cspn_nd_reference)):
+            gd, ft = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+            out = fn(gd, ft, steps=STEPS)
+            outs[label] = (out, *torch.autograd.grad(out, (gd, ft), ct))
+        torch.cuda.synchronize()
+        for what, a, x in zip(("out", "d guide", "d feat"), outs["kernel"], outs["plain"]):
+            max_err = max(max_err, _check_close(
+                f"paddle2d [{n},{h},{w}] C={c} (cspn_nd) steps={STEPS} {what}", a, x))
+        gates, x0 = p2.paddle2d_layout(guide, feat)
+        ms = time_ms(lambda: p2._launch(gates, x0, STEPS))
+        plain_ms = time_ms(lambda: cspn_ref.propagate_nd_reference(gates, x0, STEPS), reps=5, warmup=1)
+        px = gates.shape[0] * h * w
+        # read 8 gates + x0, write 1; 8 FMA + the centre product per step, the centre sum once
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, 10 * px * 4, (17 * STEPS + 8) * px)
+        log(f"  paddle2d [{gates.shape[0]},8,{h},{w}] steps={STEPS}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
+            f"{ops_ms:.4f} ms) on {name}")
+        times.append((ms, plain_ms, bound_ms, bound_by))
+    ms, plain_ms, bound_ms, bound_by = times[0]  # the demo's maps: the main path's shape
+    return {
+        "name": "paddle2d",
+        "route": "cuda",
+        "source": "cspn_tpu_torch/csrc/paddle2d.cu",
+        "replaces": "cspn_tpu/ops/cspn_pallas.py:666",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes a 24-step CSPN
+        "ms_4x228x304_c2": times[1][0],
+    }
+
+
+def check_step_probe(name: str) -> dict:
+    """Phase 3: the step-body probe against its plain version for each
+    dtype pair, a few iterations on one block per SM; then one launch of
+    PROBE_ROW_ITERS iterations (f32 / f32) timed beside the plain version."""
+    from cspn_tpu_torch.utils import step_probe
+
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    max_err = 0.0
+    for gd, sd in step_probe.PAIRS:
+        g, x = step_probe.probe_inputs(blocks, gd, sd, device="cuda")
+        got = step_probe.step_probe(g, x, PROBE_CHECK_ITERS).float()
+        want = step_probe.step_probe_ref(g, x, PROBE_CHECK_ITERS).float()
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        tol = PROBE_TOL[sd]
+        log(f"  step_probe {gd}/{sd} [{blocks},8,8,512] iters={PROBE_CHECK_ITERS}: max|err| = {err:.3e} "
+            f"(max|plain| = {scale:.3e}, tol {tol:g} x max|plain|)")
+        if not (err <= tol * scale) or not torch.isfinite(got).all():
+            raise AssertionError(f"step_probe {gd}/{sd}: max|err| {err:.3e} > {tol * scale:.3e}")
+        if sd == torch.float32:
+            max_err = max(max_err, err)
+    g, x = step_probe.probe_inputs(blocks, torch.float32, torch.float32, device="cuda")
+    ms = time_ms(lambda: step_probe._launch(g, x, PROBE_ROW_ITERS))
+    plain_ms = time_ms(lambda: step_probe.step_probe_ref(g, x, PROBE_ROW_ITERS), reps=5, warmup=1)
+    px = x.numel()
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(
+        name, 10 * px * 4, step_probe.OPS_PER_PX_ITER * PROBE_ROW_ITERS * px)
+    log(f"  step_probe f32/f32 [{blocks},8,8,512] iters={PROBE_ROW_ITERS}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
+        f"{ops_ms:.4f} ms) on {name}")
+    return {
+        "name": "step_probe",
+        "route": "cuda",
+        "source": "cspn_tpu_torch/csrc/step_probe.cu",
+        "replaces": "scripts/vpu_probe.py:49",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # a microprobe: no PyTorch call computes its loop
+    }
 
 
 def serve_slice(name: str) -> dict:
@@ -1035,6 +1234,254 @@ def stereo_train_slice(name: str, kernel_ms: dict) -> dict:
     return launches
 
 
+def _kitti_cfg(save_dir: str = "", backend: str = "auto"):
+    """kitti_benchmark (ResNet-18, 352x1216, 24 steps, b4 train, b1 eval)
+    on the synthetic dataset at KITTI geometry."""
+    from cspn_tpu_torch.utils.profiling import kitti_benchmark_synthetic
+
+    cfg = kitti_benchmark_synthetic()
+    return dataclasses.replace(cfg, save_dir=save_dir, best_model_dir=save_dir, log_every=1,
+                               model=dataclasses.replace(cfg.model, cspn_backend=backend))
+
+
+def _expected_2d_forwards(batches, h: int, w: int) -> dict:
+    """cspn2d_fwd / cspn2d_tiled launches of forwards at these batch sizes,
+    by ops/cspn_cuda.py:use_tiled on this card's L2."""
+    from cspn_tpu_torch.ops import cspn_cuda
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    tiled = sum(cspn_cuda.use_tiled(b, h, w, l2) for b in batches)
+    return {"cspn2d_fwd": len(batches) - tiled, "cspn2d_tiled": tiled}
+
+
+def kitti_serve_slice(name: str) -> dict:
+    """Phase 8: kitti_benchmark served through DepthServer (buckets 1, 4) to
+    requests of 1, 3 and 5 frames; returns each kernel's launches during
+    the served requests."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.serving import DepthServer, chunk_plan, pick_bucket
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.utils.profiling import calibrated_model
+
+    cfg = _kitti_cfg()
+    h, w = cfg.data.crop_hw
+    log(f"  model {cfg.model.arch}, cspn steps {cfg.model.cspn_steps}, norm "
+        f"{cfg.model.cspn_norm_type}, {cfg.data.n_sample} sparse samples, {h}x{w}")
+    t0 = time.perf_counter()
+    model = calibrated_model(cfg, calib_batch=KITTI_BUCKETS[-1])
+    model_ref = build_model(_kitti_cfg(backend="reference"), train=False, device="cuda", seed=None)
+    model_ref.load_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  built + calibrated {n_params / 1e6:.1f} M params in {time.perf_counter() - t0:.1f} s")
+
+    srv, srv_ref = DepthServer(model, KITTI_BUCKETS), DepthServer(model_ref, KITTI_BUCKETS)
+    srv.warmup(h, w)
+    srv_ref.warmup(h, w)
+    ds = SyntheticDepthDataset(length=sum(KITTI_REQUESTS), hw=(h, w), n_sample=cfg.data.n_sample,
+                               seed=1, split="val")
+    frames = [ds[i] for i in range(len(ds))]
+    starts = np.cumsum((0,) + KITTI_REQUESTS)
+    reqs = [np.stack([f["rgbd"] for f in frames[a:b]]) for a, b in zip(starts, starts[1:])]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [srv.predict(r) for r in reqs]
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    buckets = [pick_bucket(size, KITTI_BUCKETS) for n in KITTI_REQUESTS
+               for size in chunk_plan(n, KITTI_BUCKETS)]
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **_expected_2d_forwards(buckets, h, w),
+                    d2s=d2s_per_forward(model) * len(buckets))
+    log(f"  served requests {KITTI_REQUESTS} over buckets {KITTI_BUCKETS} (forwards at batches "
+        f"{buckets}): {sum(KITTI_REQUESTS)} frames in {elapsed:.4f} s = "
+        f"{sum(KITTI_REQUESTS) / elapsed:.2f} frames/s on {name}; launches {launches} "
+        f"(expected {expected})")
+    if launches != expected or expected["cspn2d_tiled"] == 0 or expected["cspn2d_fwd"] == 0:
+        raise AssertionError(f"served run launched {launches}, expected {expected} with both "
+                             "2D forwards")
+    worst = 0.0
+    for req, out in zip(reqs, outs):
+        if out.shape != req.shape[:3] or not np.isfinite(out).all():
+            raise AssertionError(f"bad output: shape {out.shape}, finite {np.isfinite(out).all()}")
+        ref = srv_ref.predict(req)
+        err, scale = float(np.abs(out - ref).max()), float(np.abs(ref).max())
+        if not err <= KERNEL_TOL * scale:
+            raise AssertionError(f"served KITTI output vs plain-CSPN server: {err:.3e} > "
+                                 f"{KERNEL_TOL * scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"  outputs finite, shapes right; max|kernel - plain| / max|plain| = {worst:.3e}")
+    del model_ref, srv_ref
+    with torch.inference_mode():
+        for b in KITTI_BUCKETS:
+            x = torch.from_numpy(np.stack([f["rgbd"] for f in frames[:b]])).cuda()
+            fwd_ms = time_ms(lambda: model(x), reps=5, warmup=1)
+            log(f"  bucket {b} forward: {fwd_ms:.3f} ms = {b * 1e3 / fwd_ms:.2f} frames/s on {name}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
+    """Phase 9: kitti_benchmark through Trainer.fit(1) (4 train steps of b4,
+    validation at b1); returns each kernel's launches during the fit."""
+    from cspn_tpu_torch.data import DataLoader, SyntheticDepthDataset
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loop import Trainer, make_train_step
+    from cspn_tpu_torch.train.loss import masked_l1_loss
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.utils.profiling import train_step_split_ms
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as save_dir:
+        cfg = _kitti_cfg(save_dir)
+        h, w = cfg.data.crop_hw
+        bs, n_sample = cfg.data.batch_size_train, cfg.data.n_sample
+        train_ds = SyntheticDepthDataset(KITTI_TRAIN_FRAMES, (h, w), n_sample, seed=0, split="train")
+        val_ds = SyntheticDepthDataset(KITTI_VAL_FRAMES, (h, w), n_sample, seed=0, split="val")
+        train = DataLoader(train_ds, bs, shuffle=True, drop_last=True,
+                           num_workers=cfg.data.num_workers)
+        val = DataLoader(val_ds, cfg.data.batch_size_eval, num_workers=cfg.data.num_workers)
+        log(f"  model {cfg.model.arch}, cspn steps {cfg.model.cspn_steps}, {n_sample} sparse "
+            f"samples, {h}x{w}, batch {bs}, SGD lr {cfg.optim.lr} momentum {cfg.optim.momentum} "
+            f"nesterov {cfg.optim.nesterov} wd {cfg.optim.weight_decay}, loss {cfg.optim.loss}")
+        trainer = Trainer(cfg, train, val, device="cuda")
+        n_train, n_val = len(train), len(val)
+        p0 = {k: v.detach().clone() for k, v in trainer.state.model.named_parameters()}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        val_metrics = trainer.fit(1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+        per_fwd = d2s_per_forward(trainer.state.model)
+        batches = [bs] * n_train + [cfg.data.batch_size_eval] * n_val
+        fwd = _expected_2d_forwards(batches, h, w)
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **fwd, cspn2d_bwd=n_train,
+                        d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
+        log(f"  Trainer.fit(1): {n_train} train steps of {bs}, {n_val} val batches of "
+            f"{cfg.data.batch_size_eval} in {elapsed:.2f} s (checkpoints included); launches "
+            f"{launches} (expected {expected}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != expected or fwd != {"cspn2d_fwd": n_val, "cspn2d_tiled": n_train}:
+            raise AssertionError(f"KITTI training launched {launches}, expected {expected}: the "
+                                 "tiled forward for b4, the per-step one for b1")
+        with open(os.path.join(save_dir, "log_train.txt")) as f:
+            train_row = [float(v) for v in f.read().splitlines()[-1].split()]
+        if not (np.isfinite(train_row).all() and all(np.isfinite(v) for v in val_metrics.values())):
+            raise AssertionError(f"non-finite metrics: train {train_row}, val {val_metrics}")
+        moved = sum(not torch.equal(p, p0[k]) for k, p in trainer.state.model.named_parameters())
+        if moved != len(p0):
+            raise AssertionError(f"only {moved} of {len(p0)} parameter tensors moved")
+        if not (trainer.ckpt.has("best_model") and trainer.ckpt.has("epoch_00")):
+            raise AssertionError(f"checkpoints missing in {os.listdir(save_dir)}")
+        log(f"  train MAE {train_row[5]:.4f} RMSE {train_row[4]:.4f}; val MAE "
+            f"{val_metrics['MAE']:.4f} RMSE {val_metrics['RMSE']:.4f}; all {len(p0)} parameter "
+            "tensors moved; best_model and epoch_00 written")
+        del p0
+
+    # one b4 train step through the kernels (tiled forward, cspn2d_bwd), the
+    # plain CSPN and the plain CSPN in float64, as phase 5
+    model_k = trainer.state.model
+    del trainer
+    x = torch.from_numpy(np.stack([train_ds[i]["rgbd"] for i in range(bs)])).cuda()
+    models = {"kernel": model_k}
+    for label, dtype in (("plain", torch.float32), ("float64", torch.float64)):
+        models[label] = build_model(_kitti_cfg(backend="reference"), train=True, device="cuda",
+                                    seed=None).to(dtype)
+        models[label].load_state_dict(model_k.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            pred = model_k(x)
+        side = torch.where(torch.rand(pred.shape, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+        depth = pred + side * (1.0 + torch.rand(pred.shape, device="cuda", generator=gen))
+        for label, model in models.items():
+            dt = next(model.parameters()).dtype
+            step = make_train_step(model, make_optimizer(model.parameters()))
+            loss, _ = step(x.to(dt), depth.to(dt))
+            results[label] = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check_against_oracle(*(results[k] for k in models))
+    del models, results
+
+    torch.cuda.reset_peak_memory_stats()
+    split = train_step_split_ms(model_k, make_optimizer(model_k.parameters()), masked_l1_loss, x, depth)
+    cspn_share = (kernel_ms["cspn2d_tiled"] + kernel_ms["cspn2d_bwd_kitti"]) / split["step"]
+    log(f"  KITTI train step (batch {bs}, median of 5, CUDA events): {split['step']:.3f} ms = "
+        f"{bs * 1e3 / split['step']:.2f} frames/s; forward + loss {split['forward']:.3f} ms, "
+        f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the tiled "
+        f"forward + cspn2d_bwd {100 * cspn_share:.2f}% of the step (their phase-3 times); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
+    return launches
+
+
+def demo_slice(name: str, dim: int) -> dict:
+    """Phase 10: `python -m cspn_tpu_torch demo --dim-num {dim}` (batch 3, 24
+    steps) for DEMO_ITERS iterations; returns each kernel's launches during
+    the demo.  Its first loss is held against the same draws through the
+    plain cspn_nd on the card."""
+    from cspn_tpu_torch import cli
+    from cspn_tpu_torch.ops.cspn import cspn_nd
+
+    args = cli.build_parser().parse_args(["demo", "--dim-num", str(dim), "--iter-num",
+                                          str(DEMO_ITERS)])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = args.fn(args)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    kernels = {"paddle2d": DEMO_ITERS} if dim == 2 else {"cspn3d_fwd": DEMO_ITERS,
+                                                         "cspn3d_bwd": DEMO_ITERS}
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **kernels)
+    log(f"  demo --dim-num {dim}: {DEMO_ITERS} Adam iterations in {elapsed:.3f} s on {name}, "
+        f"losses {[round(v, 6) for v in losses]}; launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"demo --dim-num {dim} launched {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"demo --dim-num {dim}: losses {losses} not finite and falling")
+    map_shape = (48, 64, 128)[3 - dim:]
+    rng = np.random.default_rng(0)  # the demo's draws
+    guide = torch.tensor(rng.random((args.batch_size, *map_shape, 3**dim - 1)), dtype=torch.float32,
+                         device="cuda")
+    feat = torch.tensor(rng.random((args.batch_size, *map_shape, 1)), dtype=torch.float32,
+                        device="cuda")
+    with torch.no_grad():
+        plain = cspn_nd(guide, feat, steps=args.prop_step, backend="reference").mean().item()
+    rel = abs(losses[0] - plain) / abs(plain)
+    log(f"  first loss {losses[0]:.7f} vs the plain cspn_nd's {plain:.7f} (rel {rel:.2e}, tol "
+        f"{LOSS_RTOL:g})")
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"demo --dim-num {dim}: first loss off the plain version by {rel:.2e}")
+    return launches
+
+
+def probe_slice(name: str) -> dict:
+    """The probe path: `python -m cspn_tpu_torch.utils.step_probe`'s
+    measurement (two-point slope, every dtype pair, one block per SM);
+    returns its launches and prints its results."""
+    from cspn_tpu_torch.utils import step_probe
+
+    torch.cuda.synchronize()
+    reset_launches()
+    results = step_probe.run_probe()
+    launches = read_launches()
+    for r in results:
+        log(f"  step_probe {r['gate_dtype']}/{r['state_dtype']} on {r['blocks']} blocks of [8,512]: "
+            f"{r['ns_per_iter']:.3f} ns per iteration, {r['ps_per_px_iter']:.5f} ps per "
+            f"px-iteration, {r['Tops_per_s']:.3f} Tops/s (19 ops per px) on {name}")
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), step_probe=launches["step_probe"])
+    if launches != expected or launches["step_probe"] == 0:
+        raise AssertionError(f"the probe path launched {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -1047,30 +1494,45 @@ def main() -> int:
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"[1/7] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/10] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
+        f"{torch.cuda.get_device_properties(0).L2_cache_size} B")
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/7] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/10] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/7] kernels against their plain versions")
+    log("[3/10] kernels against their plain versions")
+    tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
-            check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name)]
+            check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
+            check_paddle2d_kernel(name), check_step_probe(name)]
     kernel_ms = {r["name"]: r["ms"] for r in rows}
+    kernel_ms["cspn2d_bwd_kitti"] = tiled["cspn2d_bwd_ms"]
 
-    log("[4/7] nyu_eval served through DepthServer")
+    log("[4/10] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/7] nyu_train trained through Trainer.fit")
+    log("[5/10] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/7] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/10] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/7] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/10] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
+
+    log("[8/10] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    by_path["kitti_serve"] = kitti_serve_slice(name)
+
+    log("[9/10] kitti_benchmark trained through Trainer.fit")
+    by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
+
+    log("[10/10] the demo subcommand (dims 2 and 3) and the step-body probe")
+    by_path["demo2d"] = demo_slice(name, 2)
+    by_path["demo3d"] = demo_slice(name, 3)
+    by_path["probe"] = probe_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

@@ -6,7 +6,8 @@ is PyTorch; every Pallas kernel of `cspn_tpu` on a ported path has a
 hand-written Hopper counterpart under `csrc/` (see PERF.md for the table).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; a CUDA
-request on a machine without a card raises.
+request on a machine without a card raises.  The model builders turn on
+cuDNN's algorithm timing for the card (`autotune_convs`).
 """
 
 from __future__ import annotations
@@ -26,3 +27,13 @@ def resolve_device(device=None) -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def autotune_convs(device) -> None:
+    """On a CUDA device, let cuDNN time its convolution algorithms at each
+    new shape (torch.backends.cudnn.benchmark, process-wide), as XLA
+    autotunes the JAX package's GPU convolutions.  cuDNN's heuristic alone
+    picks FFT algorithms for kitti_benchmark's batch-4 convs that take ~25x
+    the time of those its timing finds (PERF.md, kitti_benchmark)."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.benchmark = True

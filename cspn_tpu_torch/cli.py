@@ -6,6 +6,7 @@
     python -m cspn_tpu_torch train-stereo --max-disp 192 --features 32 --prop-step 24 \
         --batch-size 4 --height 256 --width 512 [--train-list scene_flow.csv]
     python -m cspn_tpu_torch eval-stereo ... [--checkpoint best_model] [--dump-images]
+    python -m cspn_tpu_torch demo --dim-num 2 [--prop-step 24 --batch-size 3 --iter-num 20]
 
 All run on `--device` (default cuda).  The stereo subcommands train on the
 synthetic stereo pairs unless --train-list names a Scene Flow manifest.
@@ -230,6 +231,35 @@ def cmd_eval_stereo(args):
     return trainer.run_eval(checkpoint=args.checkpoint, dump_images=args.dump_images)
 
 
+def cmd_demo(args):
+    """Op-level demo mirroring cspn_paddle/demo.py (and cspn_tpu's `demo`):
+    random guidance and features through `prop_step` cspn_nd steps, Adam on
+    both, the loss printed per iteration.  On the card, 2D runs the paddle
+    2D kernel and 3D the 3D kernels.  Returns the losses."""
+    import numpy as np
+    import torch
+
+    from cspn_tpu_torch.ops.cspn import cspn_nd
+
+    dim, c, k, steps = args.dim_num, args.feat_chan, args.prop_kernel, args.prop_step
+    map_shape = tuple([48, 64, 128][3 - dim :])
+    n_gates = k**dim - 1
+    rng = np.random.default_rng(0)
+    guide = rng.random((args.batch_size, *map_shape, c * n_gates)).astype(np.float32)
+    feat = rng.random((args.batch_size, *map_shape, c)).astype(np.float32)
+    params = [torch.tensor(a, device=args.device, requires_grad=True) for a in (guide, feat)]
+    opt = torch.optim.Adam(params, lr=1e-3)  # optax.adam(1e-3)'s defaults and update
+    losses = []
+    for i in range(args.iter_num):
+        opt.zero_grad(set_to_none=True)
+        loss = cspn_nd(*params, kernel_size=k, steps=steps).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        print(f"iter={i:02d}  out={losses[-1]:.4f}", flush=True)
+    return losses
+
+
 def _add_stereo_args(p: argparse.ArgumentParser):
     p.add_argument("--max-disp", type=int, default=64)
     p.add_argument("--features", type=int, default=16)
@@ -251,7 +281,7 @@ def _add_stereo_args(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="cspn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -288,7 +318,20 @@ def main(argv=None):
                       help="write %%05d_{disp,gt}.png (uint16 disp*256)")
     p_se.set_defaults(fn=cmd_eval_stereo)
 
-    args = parser.parse_args(argv)
+    p_demo = sub.add_parser("demo", help="2D/3D CSPN op demo (paddle demo.py)")
+    p_demo.add_argument("--dim-num", type=int, default=3, choices=[2, 3])
+    p_demo.add_argument("--feat-chan", type=int, default=1)
+    p_demo.add_argument("--prop-kernel", type=int, default=3, choices=[3])
+    p_demo.add_argument("--prop-step", type=int, default=24)
+    p_demo.add_argument("--batch-size", type=int, default=3)
+    p_demo.add_argument("--iter-num", type=int, default=20)
+    p_demo.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p_demo.set_defaults(fn=cmd_demo)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     args.fn(args)
     return 0
 

@@ -55,6 +55,18 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "d2s.cu",
         {fn: [_c_void_p] * 2 + [_c_int] * 7 + [_c_void_p] for fn in ("d2s", "s2d")},
     ),
+    "cspn2d_tiled": (
+        "cspn2d_tiled.cu",
+        {"cspn2d_tiled_f32": [_c_void_p] * 7 + [_c_int] * 7 + [_c_void_p]},
+    ),
+    "paddle2d": (
+        "paddle2d.cu",
+        {"paddle2d_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p]},
+    ),
+    "step_probe": (
+        "step_probe.cu",
+        {"step_probe": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p]},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -3,17 +3,16 @@ cspn_tpu/ops/cspn.py).
 
 Backends:
     'kernel'    -- the hand-written CUDA kernels (ops/cspn_cuda.py for the
-                   2D op, ops/cspn3d_cuda.py for the 3D `cspn_nd`); CUDA
-                   tensors only.
+                   2D op, ops/cspn_paddle2d_cuda.py for the 2D `cspn_nd`,
+                   ops/cspn3d_cuda.py for the 3D one); CUDA tensors only.
     'reference' -- the plain PyTorch version (ops/cspn_ref.py), any device,
                    autograd-native.
     'auto'      -- the kernel for CUDA tensors, the reference otherwise.
 
-`cspn_nd` on CUDA: 3D with kernel_size 3 runs the 3D kernels at every size
-(no fallback to the reference by size, unlike cspn_pallas.py:1494); 2D
-raises until the paddle-semantics 2D kernel is ported (ROADMAP.md Queue 2
-item 6, `_paddle2d_kernel`); other kernel sizes, for which the JAX package
-has no kernel either, run the reference under 'auto'.
+`cspn_nd` on CUDA with kernel_size 3 runs the 2D or 3D kernels at every
+size (no fallback to the reference by size, unlike cspn_pallas.py:1492-1494);
+other kernel sizes, for which the JAX package has no kernel either, run the
+reference under 'auto'.
 """
 
 from __future__ import annotations
@@ -128,11 +127,9 @@ def cspn_nd(
 
             return cspn3d_cuda(guide, feat, steps=steps, channel_first=channel_first)
         if ndim == 2 and kernel_size == 3:
-            raise NotImplementedError(
-                "the 2D paddle-semantics CSPN kernel is not ported yet (ROADMAP.md Queue 2 "
-                "item 6, cspn_pallas.py:_paddle2d_kernel); pass backend='reference' to run "
-                "the plain version on the card"
-            )
+            from cspn_tpu_torch.ops.cspn_paddle2d_cuda import cspn2d_paddle_cuda
+
+            return cspn2d_paddle_cuda(guide, feat, steps=steps, channel_first=channel_first)
         if backend == "kernel":
             raise NotImplementedError(f"no CSPN kernel for {ndim}D with kernel_size {kernel_size}")
     g = guide.movedim(1, -1) if channel_first else guide

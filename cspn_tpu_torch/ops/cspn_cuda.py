@@ -1,23 +1,34 @@
 """Hopper kernels for the 2D CSPN forward and backward (counterpart of
-cspn_tpu/ops/cspn_pallas.py:cspn2d_pallas, its _fwd_kernel and _bwd_kernel).
+cspn_tpu/ops/cspn_pallas.py:cspn2d_pallas and its _fwd_kernel and
+_bwd_kernel, and of cspn2d_tiled and its _fwd_dma_kernel).
 
-The kernels are hand-written CUDA C++ in csrc/cspn2d_fwd.cu and
-csrc/cspn2d_bwd.cu (their headers say what bounds them and what the design
-leaves open), built by ops/_build.py and called through ctypes on PyTorch's
-current stream.
+The kernels are hand-written CUDA C++ in csrc/cspn2d_fwd.cu (one launch
+per step), csrc/cspn2d_tiled.cu (8 steps per launch on halo-extended
+tiles) and csrc/cspn2d_bwd.cu (their headers say what bounds them and what
+the design leaves open), built by ops/_build.py and called through ctypes
+on PyTorch's current stream.
 
 `cspn2d_cuda` is the wrapper.  A tensor on the CPU goes to the kernels'
 plain version (ops/cspn_ref.py, autograd-native) because it lies on the
 CPU; a CUDA tensor goes to the kernels or raises, forward and backward.
-There is no fallback between the two.
+There is no fallback between the two.  The forward runs the per-step
+kernel while its working set (N*H*W*11*4 bytes: 8 gate planes, base, x
+and y) fits the card's L2, and the tiled kernel past it (`use_tiled`, the
+counterpart of JAX's fwd_fits_vmem with L2 in the place of VMEM); both
+compute the same function, and the backward kernel is its exact adjoint at
+every size.
 
-`launches` counts the forward kernel's runs (one per forward: one `prep`
-launch plus `steps` `step` launches on the card); `bwd_launches` counts the
-backward kernel's runs (one per backward: prep, `steps - 1` replay steps,
-`steps` reverse steps and two epilogue launches).
+`launches` counts the per-step forward's runs (one per forward: one
+`prep` launch plus `steps` `step` launches on the card); `tiled_launches`
+counts the tiled forward's runs (one per forward: prep plus
+ceil(steps / 8) tile launches); `bwd_launches` counts the backward
+kernel's runs (one per backward: prep, `steps - 1` replay steps, `steps`
+reverse steps and two epilogue launches).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -25,7 +36,55 @@ from cspn_tpu_torch.ops import cspn_ref
 from cspn_tpu_torch.ops.cspn import _reference, _round_io
 
 launches = 0
+tiled_launches = 0
 bwd_launches = 0
+
+TILE, HALO = 32, 8  # csrc/cspn2d_tile.cuh: kTile (interior side), kHalo (steps per launch)
+_PLANES = 11  # f32 planes a per-step launch touches: 8 gates, base, x, y
+
+
+def use_tiled(n: int, h: int, w: int, l2_bytes: int) -> bool:
+    """True when the per-step kernel's working set, N*H*W*11*4 bytes,
+    exceeds the card's L2 (so every step would go to device memory): NYU
+    b8 (24.4 MB) and KITTI b1 (18.8 MB) stay per-step on a 50 MB L2,
+    KITTI b4 (75.3 MB) runs tiled."""
+    return n * h * w * _PLANES * 4 > l2_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The tiled kernel's schedule for one h x w map: `grid` (rows, columns)
+    tiles of `tile` x `tile` interiors, each computed on its interior
+    extended by `halo` on every side, in launches of `launch_steps` steps
+    (each at most `halo`)."""
+
+    h: int
+    w: int
+    tile: int
+    halo: int
+    grid: tuple[int, int]
+    launch_steps: tuple[int, ...]
+
+    def interior(self, ty: int, tx: int) -> tuple[int, int, int, int]:
+        """Rows [r0, r1) and columns [c0, c1) of the image tile (ty, tx) writes."""
+        t = self.tile
+        return ty * t, min((ty + 1) * t, self.h), tx * t, min((tx + 1) * t, self.w)
+
+    def extended(self, ty: int, tx: int) -> tuple[int, int, int, int]:
+        """Rows [r0, r1) and columns [c0, c1) tile (ty, tx) computes on; the
+        part outside the image is held at 0."""
+        t, k = self.tile, self.halo
+        return ty * t - k, (ty + 1) * t + k, tx * t - k, (tx + 1) * t + k
+
+
+def plan_tiles(h: int, w: int, steps: int, k: int = HALO, tile: int = TILE) -> TilePlan:
+    """The tile grid and launch schedule of `steps` steps on an h x w map
+    (ragged last tiles included: the kernel masks them)."""
+    if min(h, w, k, tile) < 1 or steps < 0:
+        raise ValueError(f"bad tile plan arguments h={h} w={w} steps={steps} k={k} tile={tile}")
+    full, rest = divmod(steps, k)
+    return TilePlan(h, w, tile, k, (-(-h // tile), -(-w // tile)),
+                    (k,) * full + ((rest,) if rest else ()))
 
 
 def _check_inputs(guid_cf, blur, sparse, norm_type):
@@ -75,6 +134,31 @@ def _launch(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
     return out
 
 
+def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
+    """Run the tiled forward on already checked inputs; returns [N, H, W] f32."""
+    global tiled_launches
+    from cspn_tpu_torch.ops import _build
+
+    lib = _build.load("cspn2d_tiled")
+    n, _, h, w = guid_cf.shape
+    out = torch.empty_like(blur)
+    gates = torch.empty_like(guid_cf)
+    base = torch.empty_like(blur)
+    x_scratch = torch.empty_like(blur)
+    with torch.cuda.device(guid_cf.device):
+        err = lib.cspn2d_tiled_f32(
+            guid_cf.data_ptr(), blur.data_ptr(),
+            None if sparse is None else sparse.data_ptr(),
+            out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
+            n, h, w, int(steps), int(norm_type == "8sum_abs"), TILE, HALO,
+            torch.cuda.current_stream(guid_cf.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"cspn2d_tiled_f32 launch failed: cudaError_t {err}")
+    tiled_launches += 1
+    return out
+
+
 def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str):
     """Run the backward kernel on checked f32 inputs and the cotangent `ct`
     of the output; returns (d guidance [N,8,H,W], d blur [N,H,W])."""
@@ -108,7 +192,9 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str):
 
 
 class _Cspn2dFwd(torch.autograd.Function):
-    """Forward and backward are the CUDA kernels.  As the JAX custom VJP
+    """Forward and backward are the CUDA kernels, the forward per-step or
+    tiled by `use_tiled`, the backward `cspn2d_bwd` after either.  As
+    the JAX custom VJP
     (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its inputs
     through `io_dtype` and saves them unrounded: the backward is the exact
     adjoint of the f32 function at the f32 inputs.  The sparse map enters
@@ -119,7 +205,10 @@ class _Cspn2dFwd(torch.autograd.Function):
         ctx.save_for_backward(guid_cf, blur, sparse)
         ctx.steps, ctx.norm_type = steps, norm_type
         g, b, s = _round_io(guid_cf, blur, sparse, io_dtype)
-        return _launch(g, b, s, steps, norm_type)
+        n, _, h, w = guid_cf.shape
+        l2 = torch.cuda.get_device_properties(guid_cf.device).L2_cache_size
+        launch = _launch_tiled if use_tiled(n, h, w, l2) else _launch
+        return launch(g, b, s, steps, norm_type)
 
     @staticmethod
     def backward(ctx, grad_out):

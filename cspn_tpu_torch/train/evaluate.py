@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from cspn_tpu_torch import resolve_device
+from cspn_tpu_torch import autotune_convs, resolve_device
 from cspn_tpu_torch.config import RunConfig
 from cspn_tpu_torch.data import batches
 from cspn_tpu_torch.models.convert import load_jax_variables
@@ -29,13 +29,15 @@ from cspn_tpu_torch.train.metrics import METRIC_KEYS, evaluate_error
 def build_model(cfg: RunConfig, train: bool = False, device=None, seed: int | None = 0) -> CSPNUNet:
     """The configured CSPNUNet on `device` (default cuda), in train or eval
     mode; `seed` (None: PyTorch's default init) seeds the he_normal init
-    with a torch.Generator on that device."""
+    with a torch.Generator on that device.  On a card it turns on cuDNN's
+    algorithm timing (`autotune_convs`)."""
     if cfg.model.dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.model.dtype!r} is not ported yet (ROADMAP.md Queue 1: "
             "bf16/int8 serving); this slice serves float32"
         )
     dev = resolve_device(device)
+    autotune_convs(dev)
     block, layers = LAYERS[int(cfg.model.arch.replace("resnet", ""))]
     model = CSPNUNet(
         block=block,

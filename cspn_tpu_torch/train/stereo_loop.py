@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cspn_tpu_torch import resolve_device
+from cspn_tpu_torch import autotune_convs, resolve_device
 from cspn_tpu_torch.models.stereo import PSMNetCSPN, end_point_error, smooth_l1_disparity_loss
 from cspn_tpu_torch.train import checkpoint as ckpt_lib
 from cspn_tpu_torch.train.state import make_optimizer
@@ -65,8 +65,10 @@ def build_stereo_model(cfg: StereoConfig, train: bool = False, device=None, seed
                        cspn_backend: str = "auto") -> PSMNetCSPN:
     """The configured PSMNetCSPN on `device` (default cuda), in train or
     eval mode; `seed` (None: PyTorch's default init) seeds the JAX-style
-    init with a torch.Generator on that device."""
+    init with a torch.Generator on that device.  On a card it turns on
+    cuDNN's algorithm timing (`autotune_convs`)."""
     dev = resolve_device(device)
+    autotune_convs(dev)
     gen = None if seed is None else torch.Generator(dev).manual_seed(seed)
     with torch.device(dev):
         model = PSMNetCSPN(

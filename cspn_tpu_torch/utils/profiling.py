@@ -2,8 +2,8 @@
 (counterpart of cspn_tpu/utils/profiling.py, on CUDA events and
 torch.profiler).
 
-    python -m cspn_tpu_torch.utils.profiling [--stereo] [--train] [--decoder subpixel|plain]
-        [--batch N] [--reps 5] [--out FILE.json]
+    python -m cspn_tpu_torch.utils.profiling [--stereo | --kitti] [--train]
+        [--decoder subpixel|plain] [--batch N] [--reps 5] [--cudnn-heuristic] [--out FILE.json]
 
   - `StepTimer`: per-step time (CUDA events on the card, the wall clock on
     the CPU) with a warm-up skip, median and frames/s;
@@ -14,9 +14,10 @@ torch.profiler).
   - `decoder_twin`: a CSPN-UNet's weights in the other decoder form.
 
 The module's main builds the nyu_eval ResNet-50 CSPN-UNet (228x304, 24
-steps; the decoder in its subpixel form, or plain with `--decoder plain`)
-with seeded random weights and BN statistics calibrated on one synthetic
-batch, then, on the card:
+steps; the decoder in its subpixel form, or plain with `--decoder plain`),
+or with `--kitti` the kitti_benchmark ResNet-18 one (352x1216, batch 4 by
+default), with seeded random weights and BN statistics calibrated on one
+synthetic batch, then, on the card:
   - times each top-level module of a forward with CUDA events recorded in
     forward hooks (median over `reps` forwards); the rest of the forward
     (input relayout, the fused head conv and the CSPN) is the total minus
@@ -239,6 +240,14 @@ def _kind(kernel: str) -> str:
         return "d2s"
     if "s2d_copy_kernel" in k:
         return "s2d"
+    # the tile kernels (csrc/cspn2d_tiled.cu, csrc/paddle2d.cu) and the probe;
+    # the tiled forward's prep launch is the per-step forward's prep_kernel
+    if "cspn2d_tiled_kernel" in k:
+        return "cspn2d_tiled"
+    if "paddle2d_kernel" in k:
+        return "paddle2d"
+    if "step_probe" in k:
+        return "step_probe"
     # the 3D kernels first: their names hold the 2D ones' substrings
     if "cspn3d_" in k:  # in a train step the step kernel is also the backward's replay
         return "cspn3d_fwd" if "cspn3d_step_kernel" in k else "cspn3d_bwd"
@@ -383,6 +392,13 @@ def _print_tables(title: str, what: str, by: str, table: dict, total: str, kinds
         print(f"  {ms:9.3f}  {name[:110]}")
 
 
+def _conv_policy(args) -> None:
+    """cuDNN's algorithm timing, as the model builders set it
+    (cspn_tpu_torch.autotune_convs), or its heuristic alone with
+    --cudnn-heuristic."""
+    torch.backends.cudnn.benchmark = not args.cudnn_heuristic
+
+
 def _stereo(args, card: str) -> dict:
     from cspn_tpu_torch.models.stereo import smooth_l1_disparity_loss
     from cspn_tpu_torch.train.stereo_loop import (
@@ -396,11 +412,14 @@ def _stereo(args, card: str) -> dict:
     n = args.batch or cfg.batch_size
     left, right, disp = stereo_batch(cfg, n)
     result = {"card": card, "batch": n, "hw": STEREO_HW, "max_disp": cfg.max_disp,
-              "features": cfg.features, "cspn_steps": cfg.cspn_steps}
+              "features": cfg.features, "cspn_steps": cfg.cspn_steps,
+              "cudnn_benchmark": not args.cudnn_heuristic}
     what = (f"PSMNetCSPN max_disp {cfg.max_disp}, features {cfg.features}, {cfg.cspn_steps} CSPN "
-            f"steps, batch {n}, {STEREO_HW[0]}x{STEREO_HW[1]}, float32 (TF32 off) on {card}")
+            f"steps, batch {n}, {STEREO_HW[0]}x{STEREO_HW[1]}, float32 (TF32 off), "
+            f"cudnn.benchmark={not args.cudnn_heuristic} on {card}")
     if args.train:
         model = build_stereo_model(cfg, train=True, device="cuda", seed=0)
+        _conv_policy(args)
         optimizer = make_optimizer(model.parameters(), cfg.lr, momentum=0.9, weight_decay=1e-4,
                                    nesterov=False)
 
@@ -413,6 +432,7 @@ def _stereo(args, card: str) -> dict:
         _print_tables(f"stereo train step, {what}", "train step", "phase", split, "step", kinds, top)
         return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
     model = calibrated_stereo_model(cfg)
+    _conv_policy(args)
     stages = stereo_stage_times_ms(model, left, right, args.reps)
 
     def forward():
@@ -424,34 +444,49 @@ def _stereo(args, card: str) -> dict:
     return dict(result, stages_ms=stages, kernel_kinds_ms=kinds, top_kernels_ms=top)
 
 
-def _nyu(args, card: str) -> dict:
-    cfg = nyu_eval_synthetic()
-    batch = args.batch or 8
-    ds = SyntheticDepthDataset(length=batch, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
+def kitti_benchmark_synthetic() -> RunConfig:
+    """The kitti_benchmark preset (ResNet-18, 352x1216) on the synthetic
+    dataset at KITTI geometry."""
+    cfg = PRESETS["kitti_benchmark"]
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+
+
+def _depth(args, card: str) -> dict:
+    """nyu_eval / nyu_train, or kitti_benchmark with --kitti."""
+    if args.kitti:
+        cfg, train_cfg, run, batch = (kitti_benchmark_synthetic(), kitti_benchmark_synthetic(),
+                                      "kitti_benchmark", args.batch or 4)
+    else:
+        cfg, train_cfg, run, batch = nyu_eval_synthetic(), PRESETS["nyu_train"], "nyu", args.batch or 8
+    hw = tuple(cfg.data.crop_hw)
+    ds = SyntheticDepthDataset(length=batch, hw=hw, n_sample=cfg.data.n_sample, seed=1)
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(batch)])).cuda()
     subpixel = args.decoder == "subpixel"
-    result = {"card": card, "batch": batch, "hw": NYU_HW, "decoder": args.decoder}
-    form = f"{args.decoder} decoder"
+    result = {"card": card, "batch": batch, "hw": hw, "decoder": args.decoder, "run": run,
+              "cudnn_benchmark": not args.cudnn_heuristic}
+    form = f"{args.decoder} decoder, cudnn.benchmark={not args.cudnn_heuristic}"
     if args.train:
         from cspn_tpu_torch.train.loop import make_train_step
         from cspn_tpu_torch.train.loss import masked_l1_loss
         from cspn_tpu_torch.train.state import make_optimizer
 
         depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(batch)])).cuda()
-        model = build_model(PRESETS["nyu_train"], train=True, device="cuda", seed=0)
+        model = build_model(train_cfg, train=True, device="cuda", seed=0)
         if not subpixel:
             model = decoder_twin(model, False)
+        _conv_policy(args)
         optimizer = make_optimizer(model.parameters())
         split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
         step = make_train_step(model, optimizer)
         kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
-        _print_tables(f"nyu_train train step, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, {form}, "
+        _print_tables(f"{run} train step, batch {batch}, {hw[0]}x{hw[1]}, {form}, "
                       f"float32 (TF32 off) on {card}", "train step", "phase", split, "step", kinds,
                       top)
         return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
-    model = calibrated_model(cfg)
+    model = calibrated_model(cfg, calib_batch=batch)
     if not subpixel:
         model = decoder_twin(model, False)
+    _conv_policy(args)
     modules = module_times_ms(model, x, args.reps)
     if subpixel:
         modules["of which the weight reindex"] = reindex_ms(model, args.reps)
@@ -461,7 +496,7 @@ def _nyu(args, card: str) -> dict:
             model(x)
 
     kinds, top = kernel_kinds_ms(forward, args.reps)
-    _print_tables(f"nyu_eval forward, batch {batch}, {NYU_HW[0]}x{NYU_HW[1]}, {form}, float32 "
+    _print_tables(f"{run} forward, batch {batch}, {hw[0]}x{hw[1]}, {form}, float32 "
                   f"(TF32 off) on {card}", "forward", "module", modules, "forward", kinds, top)
     return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
 
@@ -469,7 +504,8 @@ def _nyu(args, card: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m cspn_tpu_torch.utils.profiling")
     p.add_argument("--batch", type=int, default=None,
-                   help="frames per batch (default 8 for nyu_eval/nyu_train, 4 for --stereo)")
+                   help="frames per batch (default 8 for nyu_eval/nyu_train, 4 for --stereo "
+                        "and --kitti)")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile a train step (forward, backward, SGD) instead of a forward")
@@ -477,6 +513,11 @@ def main(argv=None) -> int:
                    help="the CSPN-UNet decoder's form (models/decoder.py; default subpixel)")
     p.add_argument("--stereo", action="store_true",
                    help="profile the PSMNet + 3D-CSPN stereo model instead of nyu_eval/nyu_train")
+    p.add_argument("--kitti", action="store_true",
+                   help="profile kitti_benchmark (ResNet-18, 352x1216) instead of nyu_eval/nyu_train")
+    p.add_argument("--cudnn-heuristic", action="store_true",
+                   help="let cuDNN's heuristic pick the conv algorithms instead of timing them "
+                        "(torch.backends.cudnn.benchmark=False after the model builders set it)")
     p.add_argument("--out", default=None, help="write the tables here as JSON")
     args = p.parse_args(argv)
 
@@ -486,7 +527,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    result = _stereo(args, card) if args.stereo else _nyu(args, card)
+    result = _stereo(args, card) if args.stereo else _depth(args, card)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

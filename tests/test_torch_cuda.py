@@ -1,6 +1,7 @@
-"""The CUDA kernels -- the 2D CSPN forward and backward, the 3D CSPN forward
-and backward, the subpixel decoder's depth-to-space and its adjoint --
-against their plain versions, on the card.
+"""The CUDA kernels -- the 2D CSPN forward (per-step and tiled) and
+backward, the paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
+the subpixel decoder's depth-to-space and its adjoint, the step-body probe
+-- against their plain versions, on the card.
 
 Marked `cuda`: without a card every test here skips.  On a machine with
 one (and without JAX, which tests/conftest.py imports) run:
@@ -9,14 +10,17 @@ one (and without JAX, which tests/conftest.py imports) run:
 
 Tolerance: 1e-4 x max|plain| (FMA contraction and summation order differ),
 for the output and for each gradient; the depth-to-space kernels move
-values and are held bit for bit.
+values and are held bit for bit, and the tiled 2D forward to the per-step
+one's values; the probe's bf16-state pair within 1e-2 x max|plain| (its
+bf16 FMA rounds once where the plain version may round twice).
 """
 
 import pytest
 import torch
 
-from cspn_tpu_torch.ops import _build, cspn3d_cuda, cspn_cuda, cspn_ref, d2s
+from cspn_tpu_torch.ops import _build, cspn3d_cuda, cspn_cuda, cspn_paddle2d_cuda, cspn_ref, d2s
 from cspn_tpu_torch.ops.cspn import cspn2d, cspn_nd
+from cspn_tpu_torch.utils import step_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -178,6 +182,15 @@ def test_train_step_on_the_card_launches_both_kernels(gen):
         assert d_k <= 1e-3 * g64.abs().max().item() or d_k <= 8 * d_r, k
 
 
+def test_model_builders_on_the_card_turn_on_cudnn_timing(gen, monkeypatch):
+    from cspn_tpu_torch.config import PRESETS
+    from cspn_tpu_torch.train.evaluate import build_model
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    build_model(PRESETS["synthetic_smoke"], device="cuda")
+    assert torch.backends.cudnn.benchmark is True
+
+
 def test_model_on_the_card_uses_the_kernel(gen):
     from cspn_tpu_torch.models import unet
 
@@ -262,8 +275,9 @@ def test_cspn3d_wrapper_refuses_what_the_kernel_does_not_take(gen):
         cspn3d_cuda.propagate3d(gates[:, :25].contiguous(), x0)
     with pytest.raises(ValueError, match=r"must be \[2,3,5,7\]"):
         cspn3d_cuda.propagate3d(gates, x0[:, :2].contiguous())
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        cspn_nd(torch.randn(1, 5, 7, 8, device="cuda"), torch.randn(1, 5, 7, 1, device="cuda"))
+    with pytest.raises(NotImplementedError, match="kernel_size 5"):
+        cspn_nd(torch.randn(1, 5, 7, 24, device="cuda"), torch.randn(1, 5, 7, 1, device="cuda"),
+                kernel_size=5, backend="kernel")
 
 
 def test_stereo_model_on_the_card_uses_the_kernels(gen):
@@ -364,3 +378,152 @@ def test_d2s_wrapper_refuses_what_the_kernel_does_not_take(gen):
         d2s.depth_to_space2(torch.zeros(1, 8, 3, 4, dtype=torch.uint8, device="cuda"), 6, 8)
     with pytest.raises(ValueError, match="multiple of 4"):
         d2s.depth_to_space2(torch.zeros(1, 6, 3, 4, device="cuda"), 6, 8)
+
+
+# --- the tiled 2D forward (csrc/cspn2d_tiled.cu) --------------------------
+
+
+@pytest.mark.parametrize("norm_type", ["8sum", "8sum_abs"])
+@pytest.mark.parametrize("with_sparse", [True, False])
+@pytest.mark.parametrize("steps", [0, 1, 7, 8, 9, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 75, 101), (3, 33, 65), (1, 352, 1216)])
+def test_tiled_kernel_matches_plain_and_the_per_step_kernel(gen, shape, steps, with_sparse,
+                                                            norm_type):
+    g, b, s = _inputs(gen, *shape, with_sparse)
+    g[0, :, :5, :5] = 0.0
+    before = (cspn_cuda.tiled_launches, cspn_cuda.launches)
+    got = cspn_cuda._launch_tiled(g, b, s, steps, norm_type)
+    per_step = cspn_cuda._launch(g, b, s, steps, norm_type)
+    torch.cuda.synchronize()
+    assert (cspn_cuda.tiled_launches, cspn_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = _plain(g, b, s, steps, norm_type)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+    assert torch.equal(got, per_step)  # the same FMA chains in the same order
+
+
+def test_forward_routes_by_the_l2_rule_and_backward_runs_cspn2d_bwd(gen, monkeypatch):
+    """A batch past the L2 runs the tiled forward, one within it the
+    per-step forward; the backward runs cspn2d_bwd after either."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    assert cspn_cuda.use_tiled(4, 352, 1216, l2) and not cspn_cuda.use_tiled(1, 352, 1216, l2)
+    g, b, s = _inputs(gen, 2, 40, 56)
+    ct = torch.randn(2, 40, 56, device="cuda", generator=gen)
+    want = _grads(lambda g, b, s: _plain(g, b, s, 24, "8sum"), g, b, s, ct)
+    for l2_bytes, tiled in ((1, True), (1 << 40, False)):
+        monkeypatch.setattr(cspn_cuda, "use_tiled", lambda n, h, w, _l2, l2_bytes=l2_bytes:
+                            n * h * w * 44 > l2_bytes)
+        before = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
+        got = _grads(lambda g, b, s: cspn2d(g.movedim(1, -1), b, s, steps=24), g, b, s, ct)
+        torch.cuda.synchronize()
+        after = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
+        assert after == (before[0] + tiled, before[1] + (not tiled), before[2] + 1)
+        for a, x in zip(got, want):
+            assert (a - x).abs().max().item() <= TOL * x.abs().max().item()
+
+
+def test_tiled_kernel_rounds_bf16_io(gen, monkeypatch):
+    monkeypatch.setattr(cspn_cuda, "use_tiled", lambda *_: True)
+    g, b, s = _inputs(gen, 2, 45, 70)
+    before = cspn_cuda.tiled_launches
+    got = cspn_cuda.cspn2d_cuda(g, b, s, steps=9, channel_first=True, io_dtype=torch.bfloat16)
+    assert cspn_cuda.tiled_launches == before + 1
+    want = _plain(*[t.to(torch.bfloat16).float() for t in (g, b, s)], 9, "8sum")
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+def test_tiled_failed_build_raises(gen, monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("--no-such-flag",))
+    monkeypatch.setattr(cspn_cuda, "use_tiled", lambda *_: True)
+    g, b, s = _inputs(gen, 1, 8, 9)
+    before = cspn_cuda.tiled_launches
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        cspn_cuda.cspn2d_cuda(g, b, s, steps=4, channel_first=True)
+    assert cspn_cuda.tiled_launches == before
+
+
+# --- the paddle-semantics 2D CSPN (csrc/paddle2d.cu) ----------------------
+
+
+@pytest.mark.parametrize("steps", [0, 1, 8, 9, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 64, 128), (2, 13, 17), (8, 228, 304)])
+def test_paddle2d_kernel_matches_plain(gen, shape, steps):
+    guide = torch.randn(shape[0], *shape[1:], 8, device="cuda", generator=gen)
+    guide[0, :3, :4] = 0.0  # all-zero gates: centre weight 1
+    gates, x0 = cspn_paddle2d_cuda.paddle2d_layout(guide, torch.randn(*shape, 1, device="cuda",
+                                                                       generator=gen))
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    before = cspn_paddle2d_cuda.launches
+    got = cspn_paddle2d_cuda.propagate2d(gk, xk, steps=steps)
+    got_grads = torch.autograd.grad(got, (gk, xk), ct)
+    torch.cuda.synchronize()
+    assert cspn_paddle2d_cuda.launches == before + 1
+    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    want = cspn_ref.propagate_nd_reference(gp, xp, steps)
+    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True)
+    want_grads = (torch.zeros_like(gates) if want_grads[0] is None else want_grads[0], want_grads[1])
+    for a, b in ((got, want), *zip(got_grads, want_grads)):
+        assert a.shape == b.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_cspn_nd_2d_runs_the_paddle_kernel(gen, channels):
+    guide = torch.randn(2, 13, 17, 8 * channels, device="cuda", generator=gen)
+    guide[0, :2, :3] = 0.0
+    feat = torch.randn(2, 13, 17, channels, device="cuda", generator=gen)
+    ct = torch.randn(feat.shape, device="cuda", generator=gen)
+    outs = {}
+    for backend in ("kernel", "reference"):
+        g, f = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+        before = cspn_paddle2d_cuda.launches
+        out = cspn_nd(g, f, steps=24, backend=backend)
+        outs[backend] = (out, *torch.autograd.grad(out, (g, f), ct))
+        torch.cuda.synchronize()
+        assert cspn_paddle2d_cuda.launches == before + (backend == "kernel")
+    for a, b in zip(outs["kernel"], outs["reference"]):
+        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+    cf = cspn_nd(guide.movedim(-1, 1), feat.movedim(-1, 1), steps=24, channel_first=True)
+    ref = outs["reference"][0]
+    assert (cf.movedim(1, -1) - ref).abs().max().item() <= TOL * ref.abs().max().item()
+
+
+def test_paddle2d_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    gates = torch.rand(2, 8, 5, 7, device="cuda", generator=gen)
+    x0 = torch.randn(2, 5, 7, device="cuda", generator=gen)
+    with pytest.raises(TypeError):
+        cspn_paddle2d_cuda.propagate2d(gates.double(), x0.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cspn_paddle2d_cuda.propagate2d(gates, x0.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[M,8,H,W\]"):
+        cspn_paddle2d_cuda.propagate2d(gates[:, :7].contiguous(), x0)
+    with pytest.raises(ValueError, match=r"must be \[2,5,7\]"):
+        cspn_paddle2d_cuda.propagate2d(gates, x0[:, :4].contiguous())
+
+
+# --- the step-body probe (csrc/step_probe.cu) -----------------------------
+
+
+@pytest.mark.parametrize("gate_dtype, state_dtype", step_probe.PAIRS)
+@pytest.mark.parametrize("iters", [0, 1, 4])
+def test_step_probe_kernel_matches_plain(gen, gate_dtype, state_dtype, iters):
+    g, x = step_probe.probe_inputs(3, gate_dtype, state_dtype, device="cuda", seed=iters)
+    before = step_probe.launches
+    got = step_probe.step_probe(g, x, iters)
+    torch.cuda.synchronize()
+    assert step_probe.launches == before + 1
+    want = step_probe.step_probe_ref(g, x, iters)
+    tol = 1e-2 if state_dtype == torch.bfloat16 else TOL
+    assert got.dtype == state_dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+def test_step_probe_measures_every_pair(gen):
+    results = step_probe.run_probe(iters_lo=16, iters_hi=64, trials=2)
+    assert [(r["gate_dtype"], r["state_dtype"]) for r in results] == [
+        ("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+    assert all(r["blocks"] == torch.cuda.get_device_properties(0).multi_processor_count
+               for r in results)
