@@ -5,9 +5,10 @@
 Drives cspn_tpu_torch's main paths on the card and fails (non-zero exit) if
 any phase fails:
 
-  1. device: a CUDA card is required; prints its name and power limit, and
-     turns TF32 off (the nyu_eval and nyu_train presets are float32); the
-     model builders turn on cuDNN's algorithm timing (autotune_convs);
+  1. device: a CUDA card is required; prints its name and power limit,
+     turns TF32 off (the nyu_eval and nyu_train presets are float32) and
+     sets the entry points' conv policy, cuDNN's algorithm timing
+     (autotune_convs), before the first convolution;
   2. build: compiles every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
      per source, all started together;
   3. kernels: holds each kernel against its plain PyTorch version on the card
@@ -45,15 +46,24 @@ any phase fails:
      and reproduced by a fresh trainer's run_eval, exact 3D kernel launch
      counts; one train step through the kernels against the same step
      through the plain CSPN and the float64 oracle (phase 5's rule); the
-     step's forward / backward / optimizer split, frames/s and peak memory.
+     step's forward / backward / optimizer split, frames/s and peak memory;
+  8. kitti serve: kitti_benchmark (ResNet-18, 352x1216, 24 steps) served
+     through DepthServer (buckets 1, 4) to requests of 1, 3, 5 frames,
+     against the same server on the plain CSPN, with exact launch counts;
+  9. kitti train: Trainer.fit(1) (4 steps of b4, validation at b1), exact
+     launch counts, one b4 train step against the plain CSPN and float64;
+ 10. the `demo` subcommand for dims 2 and 3, and the step-body probe.
+Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
 plain versions at the stereo shape [4,48,64,128] (and an odd [2,5,13,17]
 with C=2, and all-zero gates in a corner), and the depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
-shapes, an odd one with C=1, and in float64 and bfloat16.  Every path's
-run starts with all six kernels' launch counts at 0 and reads them at its
-end.
+shapes, an odd one with C=1, and in float64 and bfloat16; and it times
+both 2D CSPN forwards and both ways to run a train step's 2D CSPN at the
+paths' shapes (FWD_ROUTE_SHAPES), the times ops/cspn_cuda.py:use_tiled is
+set from.  Every path's run starts with all nine kernels' launch counts at
+0 and reads them at its end.
 
 The last two lines are JSON: the kernel table, then the result line.
 Imports nothing of JAX or of the JAX package.
@@ -110,8 +120,14 @@ D2S_STAGES = (
 )
 REQUESTS = (1, 3, 8, 11)
 BUCKETS = (1, 8)
-KITTI_SHAPE = (4, 352, 1216)  # N, H, W: kitti_benchmark's training batch, past the L2 (tiled)
+SERVE_WINDOW = 240  # requests of a served-rate window, cycling through a path's requests
+KITTI_SHAPE = (4, 352, 1216)  # N, H, W: kitti_benchmark's training batch
 KITTI_RAGGED = (2, 75, 101)  # ragged last tiles in both axes, several tiles each way
+# the 2D CSPN's shapes on the main paths (N, H, W): NYU buckets 1 and 8
+# (b8 trains), KITTI b1 (eval, bucket 1) and b4 (train, bucket 4); the
+# forward kernels and the train-step pairs are timed at each
+# (ops/cspn_cuda.py:use_tiled is set from these times)
+FWD_ROUTE_SHAPES = ((1, 228, 304), (8, 228, 304), (1, 352, 1216), (4, 352, 1216))
 KITTI_REQUESTS = (1, 3, 5)
 KITTI_BUCKETS = (1, 4)
 KITTI_TRAIN_FRAMES = 16  # 4 train steps of batch 4
@@ -121,6 +137,7 @@ PADDLE_CASES = ((3, 64, 128, 1), (4, 228, 304, 2))
 DEMO_ITERS = 3
 PROBE_CHECK_ITERS = 4
 PROBE_ROW_ITERS = 64  # iterations of the probe's timed row (kernel, plain)
+PROBE_TRIALS = 7  # the probe path's slope trials (step_probe.run_probe)
 # bf16 state: the kernel's bf16 FMA rounds once where the plain version may
 # round twice; 4 iterations of ~1-sized values stay within a few bf16 ulps
 PROBE_TOL = {torch.float32: KERNEL_TOL, torch.bfloat16: 1e-2}
@@ -242,7 +259,8 @@ def bound(name: str, bytes_moved: float, ops: float) -> tuple[float, str, float,
 
 
 def check_cspn_kernel(name: str) -> dict:
-    """Phase 3: the CSPN kernel against its plain version on the card."""
+    """Phase 3: the per-step CSPN kernel against its plain version on the
+    card."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -256,7 +274,7 @@ def check_cspn_kernel(name: str) -> dict:
     max_err = 0.0
     for label, (cn, ch, cw), with_sparse, norm in cases:
         g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse)
-        got = cspn_cuda.cspn2d_cuda(g, b, s, steps=STEPS, norm_type=norm, channel_first=True)
+        got = cspn_cuda._launch(g, b, s, STEPS, norm)
         want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=STEPS, norm_type=norm)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -268,7 +286,7 @@ def check_cspn_kernel(name: str) -> dict:
         max_err = max(max_err, err)
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
-    kernel_ms = time_ms(lambda: cspn_cuda.cspn2d_cuda(g, b, s, steps=STEPS, channel_first=True))
+    kernel_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
     g_last = g.movedim(1, -1)
     plain_ms = time_ms(lambda: cspn_ref.cspn2d_reference(g_last, b, s, steps=STEPS))
     bytes_moved = 11 * n * h * w * 4  # read 8 guidance + blur + sparse, write 1
@@ -303,7 +321,9 @@ def plain_vjp(g_cf, b, s, ct, norm="8sum"):
 
 def check_cspn_bwd_kernel(name: str) -> dict:
     """Phase 3: the CSPN backward kernel against autograd of the plain
-    version, under a random cotangent and with negative sparse samples."""
+    version, under a random cotangent and with negative sparse samples;
+    through autograd (the per-step forward keeps its states) and on its own
+    (prep and replay), value for value the same."""
     from cspn_tpu_torch.ops import cspn_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -322,8 +342,12 @@ def check_cspn_bwd_kernel(name: str) -> dict:
         gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
         out = cspn_cuda.cspn2d_cuda(gk, bk, s, steps=STEPS, norm_type=norm, channel_first=True)
         got = torch.autograd.grad(out, (gk, bk), ct)
+        replayed = cspn_cuda._launch_bwd(g, b, s, ct, STEPS, norm)
         want = plain_vjp(g, b, s, ct, norm)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, r) for a, r in zip(got, replayed)):
+            raise AssertionError(f"cspn2d_bwd {label}: the kept states give other values than "
+                                 "the replay")
         for what, a, x in zip(("dguidance", "dblur"), got, want):
             err = (a - x).abs().max().item()
             scale = x.abs().max().item()
@@ -337,6 +361,8 @@ def check_cspn_bwd_kernel(name: str) -> dict:
     g, b, s = cspn_inputs(gen, n, h, w, True)
     ct = torch.randn(n, h, w, device="cuda", generator=gen)
     kernel_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
+    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+    kept_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept))
     plain_ms = time_ms(lambda: plain_vjp(g, b, s, ct))
     # read 8 guidance + blur + sparse + cotangent, write 8 + 1; operations
     # per pixel: the replay's 17 per step, the reverse step's 33, ~110 in
@@ -344,9 +370,9 @@ def check_cspn_bwd_kernel(name: str) -> dict:
     bytes_moved = 20 * n * h * w * 4
     ops = (17 * (STEPS - 1) + 33 * STEPS + 110) * n * h * w
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn2d_bwd [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, plain "
-        f"(forward + autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    log(f"  cspn2d_bwd [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms (given the "
+        f"forward's states {kept_ms:.4f} ms), plain (forward + autograd) {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
     return {
         "name": "cspn2d_bwd",
         "route": "cuda",
@@ -359,6 +385,7 @@ def check_cspn_bwd_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this VJP
+        "kept_states_ms": kept_ms,  # given the per-step forward's states: no prep, no replay
     }
 
 
@@ -591,16 +618,14 @@ def check_d2s_kernels(name: str) -> list[dict]:
 def check_tiled_kernel(name: str) -> dict:
     """Phase 3: the tiled 2D CSPN forward against its plain version and the
     per-step kernel's values, at kitti_benchmark's training batch and a
-    ragged shape; its backward (cspn2d_bwd after the tiled forward) against
-    autograd of the plain version under a random cotangent; then timed
-    beside the per-step kernel at the KITTI batch."""
+    ragged shape; cspn2d_cuda's routing there (no backward: tiled; with
+    one: per-step, then cspn2d_bwd, against autograd of the plain version
+    under a random cotangent); then timed beside the per-step kernel at
+    the KITTI batch."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     n, h, w = KITTI_SHAPE
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    if not cspn_cuda.use_tiled(n, h, w, l2) or cspn_cuda.use_tiled(1, h, w, l2):
-        raise AssertionError(f"L2 of {l2} B: KITTI b4 must run tiled and b1 per-step")
     cases = [
         ("kitti b4 8sum", KITTI_SHAPE, True, "8sum"),
         ("ragged 8sum_abs", KITTI_RAGGED, True, "8sum_abs"),
@@ -621,18 +646,26 @@ def check_tiled_kernel(name: str) -> dict:
                                  f"(max {(got - per_step).abs().max().item():.3e})")
     log("  cspn2d_tiled equals the per-step kernel value for value in all three cases")
 
+    # through the wrapper: a forward without a backward runs the tiled
+    # kernel, one with a backward the per-step kernel and cspn2d_bwd
     g, b, s = cspn_inputs(gen, n, h, w, True, negative=0.2)
     ct = torch.randn(n, h, w, device="cuda", generator=gen)
-    before = (cspn_cuda.tiled_launches, cspn_cuda.bwd_launches)
+    before = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
+    with torch.no_grad():
+        inference = cspn_cuda.cspn2d_cuda(g, b, s, steps=STEPS, channel_first=True)
     gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
     out = cspn_cuda.cspn2d_cuda(gk, bk, s, steps=STEPS, channel_first=True)
     got = torch.autograd.grad(out, (gk, bk), ct)
-    if (cspn_cuda.tiled_launches - before[0], cspn_cuda.bwd_launches - before[1]) != (1, 1):
-        raise AssertionError("a KITTI b4 forward + backward must run cspn2d_tiled and cspn2d_bwd once")
+    ran = tuple(a - z for a, z in zip((cspn_cuda.tiled_launches, cspn_cuda.launches,
+                                       cspn_cuda.bwd_launches), before))
+    if ran != (1, 1, 1) or not torch.equal(inference, out):
+        raise AssertionError(f"KITTI b4 through cspn2d_cuda launched (tiled, per-step, bwd) {ran}, "
+                             "expected (1, 1, 1) with equal forwards")
     for what, a, x in zip(("dguidance", "dblur"), got, plain_vjp(g, b, s, ct)):
         max_err = max(max_err, _check_close(
-            f"cspn2d_tiled + cspn2d_bwd kitti b4 [{n},8,{h},{w}] steps={STEPS} {what}", a, x))
-    del got, out, gk, bk
+            f"cspn2d_fwd (states kept) + cspn2d_bwd kitti b4 [{n},8,{h},{w}] steps={STEPS} {what}",
+            a, x))
+    del got, out, gk, bk, inference
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
     kernel_ms = time_ms(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"))
@@ -662,6 +695,43 @@ def check_tiled_kernel(name: str) -> dict:
         "per_step_ms": per_step_ms,  # cspn2d_fwd.cu on the same inputs
         "cspn2d_bwd_ms": bwd_ms,  # cspn2d_bwd.cu at this shape: the KITTI train step's backward
     }
+
+
+def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES) -> list[dict]:
+    """At each shape (24 steps, 8sum, 500 samples): both 2D CSPN forward
+    kernels, by CUDA events around one call (`*_ms`) and as the device time
+    of a call among queued ones (`*_queued_ms`); and the two ways to run a
+    train step's forward and backward, the tiled forward then cspn2d_bwd's
+    prep and replay (`train_tiled_ms`), or the per-step forward keeping its
+    states then cspn2d_bwd without them (`train_kept_ms`)."""
+    from cspn_tpu_torch.ops import cspn_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for n, h, w in shapes:
+        g, b, s = cspn_inputs(gen, n, h, w, True)
+        ct = torch.randn(n, h, w, device="cuda", generator=gen)
+        row = {"shape": [n, h, w]}
+        for kernel, fn in (("tiled", cspn_cuda._launch_tiled), ("per_step", cspn_cuda._launch)):
+            row[f"{kernel}_ms"] = time_ms(lambda: fn(g, b, s, STEPS, "8sum"))
+            row[f"{kernel}_queued_ms"] = time_queued_ms(lambda: fn(g, b, s, STEPS, "8sum"))
+
+        def train_tiled():
+            cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum")
+            cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum")
+
+        def train_kept():
+            kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+            cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept)
+
+        row["train_tiled_ms"], row["train_kept_ms"] = time_ms(train_tiled), time_ms(train_kept)
+        log(f"  2D CSPN at [{n},8,{h},{w}] steps={STEPS}: forward cspn2d_tiled {row['tiled_ms']:.4f} "
+            f"ms (queued {row['tiled_queued_ms']:.4f}), cspn2d_fwd {row['per_step_ms']:.4f} ms "
+            f"(queued {row['per_step_queued_ms']:.4f}); forward + backward: tiled + cspn2d_bwd "
+            f"replaying {row['train_tiled_ms']:.4f} ms, per-step keeping its states + cspn2d_bwd "
+            f"{row['train_kept_ms']:.4f} ms on {name}")
+        rows.append(row)
+    return rows
 
 
 def paddle_inputs(gen, n, h, w, c):
@@ -747,8 +817,9 @@ def check_step_probe(name: str) -> dict:
     ms = time_ms(lambda: step_probe._launch(g, x, PROBE_ROW_ITERS))
     plain_ms = time_ms(lambda: step_probe.step_probe_ref(g, x, PROBE_ROW_ITERS), reps=5, warmup=1)
     px = x.numel()
+    # read 8 gate planes + state, write the state; 16 flops a px-iteration
     bound_ms, bound_by, bytes_ms, ops_ms = bound(
-        name, 10 * px * 4, step_probe.OPS_PER_PX_ITER * PROBE_ROW_ITERS * px)
+        name, 10 * px * 4, step_probe.FLOPS_PER_PX_ITER * PROBE_ROW_ITERS * px)
     log(f"  step_probe f32/f32 [{blocks},8,8,512] iters={PROBE_ROW_ITERS}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
         f"{ops_ms:.4f} ms) on {name}")
@@ -765,6 +836,21 @@ def check_step_probe(name: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,  # a microprobe: no PyTorch call computes its loop
     }
+
+
+def served_rate(srv, reqs, name: str) -> float:
+    """Frames/s of SERVE_WINDOW requests to `srv`, cycling through `reqs`,
+    by the host's clock (DepthServer.predict returns host arrays, so each
+    request ends synchronized)."""
+    frames = 0
+    t0 = time.perf_counter()
+    for i in range(SERVE_WINDOW):
+        frames += len(srv.predict(reqs[i % len(reqs)]))
+    elapsed = time.perf_counter() - t0
+    log(f"  served rate: {SERVE_WINDOW} requests cycling through sizes "
+        f"{tuple(len(r) for r in reqs)}, {frames} frames in {elapsed:.4f} s = "
+        f"{frames / elapsed:.2f} frames/s, {SERVE_WINDOW / elapsed:.2f} requests/s on {name}")
+    return frames / elapsed
 
 
 def serve_slice(name: str) -> dict:
@@ -807,11 +893,10 @@ def serve_slice(name: str) -> dict:
     elapsed = time.perf_counter() - t0
     launches = read_launches()
     forwards = sum(len(chunk_plan(n, BUCKETS)) for n in REQUESTS)
-    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=forwards,
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=forwards,
                     d2s=d2s_per_forward(model) * forwards)
     log(f"  served requests {REQUESTS} over buckets {BUCKETS}: {sum(REQUESTS)} frames in "
-        f"{elapsed:.4f} s = {sum(REQUESTS) / elapsed:.2f} frames/s on {name}; "
-        f"launches {launches} (expected {expected})")
+        f"{elapsed:.4f} s; launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"served run launched {launches}, expected {expected}")
     if srv.served["float32"] != sum(REQUESTS):
@@ -831,6 +916,7 @@ def serve_slice(name: str) -> dict:
         error = evaluate_error(torch.from_numpy(gt), torch.from_numpy(out))
         avg.update({k: float(v) for k, v in error.items()}, len(req))
     log(f"  outputs finite, shapes right; max|kernel - plain| / max|plain| = {worst:.3e}")
+    served_rate(srv, reqs, name)
     with torch.inference_mode():
         for b in BUCKETS:
             x = torch.from_numpy(np.stack([f["rgbd"] for f in frames[:b]])).cuda()
@@ -958,7 +1044,7 @@ def train_slice(name: str, kernel_ms: dict) -> dict:
         elapsed = time.perf_counter() - t0
         launches = read_launches()
         per_fwd = d2s_per_forward(trainer.state.model)
-        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train + n_val,
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train, cspn2d_tiled=n_val,
                         cspn2d_bwd=n_train, d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         log(f"  Trainer.fit(1): {n_train} train steps of {cfg.data.batch_size_train}, {n_val} val "
@@ -1027,13 +1113,14 @@ def train_slice(name: str, kernel_ms: dict) -> dict:
     n = x.shape[0]
     for form in ("subpixel", "plain", "plain", "subpixel"):
         split = train_step_split_ms(models[form], optimizers[form], masked_l1_loss, x, depth)
-        cspn_share = (kernel_ms["cspn2d_fwd"] + kernel_ms["cspn2d_bwd"]) / split["step"]
+        cspn_share = kernel_ms["cspn2d_train_nyu"] / split["step"]
         d2s_share = (kernel_ms["d2s"] + kernel_ms["s2d"]) / split["step"] if form == "subpixel" else 0.0
         log(f"  train step, {form} decoder (batch {n}, median of 5, CUDA events): "
             f"{split['step']:.3f} ms = {n * 1e3 / split['step']:.2f} frames/s; forward + loss "
             f"{split['forward']:.3f} ms, backward {split['backward']:.3f} ms, optimizer "
-            f"{split['optimizer']:.3f} ms; the two CSPN kernels {100 * cspn_share:.2f}%, d2s + s2d "
-            f"{100 * d2s_share:.2f}% of the step (their phase-3 times); peak device memory "
+            f"{split['optimizer']:.3f} ms; the 2D CSPN forward + cspn2d_bwd "
+            f"{100 * cspn_share:.2f}%, d2s + s2d {100 * d2s_share:.2f}% of the step (their phase-3 "
+            f"times); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
     return launches
 
@@ -1244,16 +1331,6 @@ def _kitti_cfg(save_dir: str = "", backend: str = "auto"):
                                model=dataclasses.replace(cfg.model, cspn_backend=backend))
 
 
-def _expected_2d_forwards(batches, h: int, w: int) -> dict:
-    """cspn2d_fwd / cspn2d_tiled launches of forwards at these batch sizes,
-    by ops/cspn_cuda.py:use_tiled on this card's L2."""
-    from cspn_tpu_torch.ops import cspn_cuda
-
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    tiled = sum(cspn_cuda.use_tiled(b, h, w, l2) for b in batches)
-    return {"cspn2d_fwd": len(batches) - tiled, "cspn2d_tiled": tiled}
-
-
 def kitti_serve_slice(name: str) -> dict:
     """Phase 8: kitti_benchmark served through DepthServer (buckets 1, 4) to
     requests of 1, 3 and 5 frames; returns each kernel's launches during
@@ -1291,15 +1368,13 @@ def kitti_serve_slice(name: str) -> dict:
     launches = read_launches()
     buckets = [pick_bucket(size, KITTI_BUCKETS) for n in KITTI_REQUESTS
                for size in chunk_plan(n, KITTI_BUCKETS)]
-    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **_expected_2d_forwards(buckets, h, w),
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=len(buckets),
                     d2s=d2s_per_forward(model) * len(buckets))
     log(f"  served requests {KITTI_REQUESTS} over buckets {KITTI_BUCKETS} (forwards at batches "
-        f"{buckets}): {sum(KITTI_REQUESTS)} frames in {elapsed:.4f} s = "
-        f"{sum(KITTI_REQUESTS) / elapsed:.2f} frames/s on {name}; launches {launches} "
+        f"{buckets}): {sum(KITTI_REQUESTS)} frames in {elapsed:.4f} s; launches {launches} "
         f"(expected {expected})")
-    if launches != expected or expected["cspn2d_tiled"] == 0 or expected["cspn2d_fwd"] == 0:
-        raise AssertionError(f"served run launched {launches}, expected {expected} with both "
-                             "2D forwards")
+    if launches != expected:
+        raise AssertionError(f"served run launched {launches}, expected {expected}")
     worst = 0.0
     for req, out in zip(reqs, outs):
         if out.shape != req.shape[:3] or not np.isfinite(out).all():
@@ -1312,6 +1387,7 @@ def kitti_serve_slice(name: str) -> dict:
         worst = max(worst, err / max(scale, 1e-30))
     log(f"  outputs finite, shapes right; max|kernel - plain| / max|plain| = {worst:.3e}")
     del model_ref, srv_ref
+    served_rate(srv, reqs, name)
     with torch.inference_mode():
         for b in KITTI_BUCKETS:
             x = torch.from_numpy(np.stack([f["rgbd"] for f in frames[:b]])).cuda()
@@ -1356,17 +1432,16 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
         elapsed = time.perf_counter() - t0
         launches = read_launches()
         per_fwd = d2s_per_forward(trainer.state.model)
-        batches = [bs] * n_train + [cfg.data.batch_size_eval] * n_val
-        fwd = _expected_2d_forwards(batches, h, w)
-        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **fwd, cspn2d_bwd=n_train,
-                        d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train, cspn2d_tiled=n_val,
+                        cspn2d_bwd=n_train, d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
         log(f"  Trainer.fit(1): {n_train} train steps of {bs}, {n_val} val batches of "
             f"{cfg.data.batch_size_eval} in {elapsed:.2f} s (checkpoints included); launches "
             f"{launches} (expected {expected}); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if launches != expected or fwd != {"cspn2d_fwd": n_val, "cspn2d_tiled": n_train}:
+        if launches != expected:
             raise AssertionError(f"KITTI training launched {launches}, expected {expected}: the "
-                                 "tiled forward for b4, the per-step one for b1")
+                                 "per-step forward and cspn2d_bwd for the train steps, the tiled "
+                                 "forward for validation")
         with open(os.path.join(save_dir, "log_train.txt")) as f:
             train_row = [float(v) for v in f.read().splitlines()[-1].split()]
         if not (np.isfinite(train_row).all() and all(np.isfinite(v) for v in val_metrics.values())):
@@ -1381,7 +1456,7 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
             "tensors moved; best_model and epoch_00 written")
         del p0
 
-    # one b4 train step through the kernels (tiled forward, cspn2d_bwd), the
+    # one b4 train step through the kernels (per-step forward, cspn2d_bwd), the
     # plain CSPN and the plain CSPN in float64, as phase 5
     model_k = trainer.state.model
     del trainer
@@ -1411,11 +1486,11 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     split = train_step_split_ms(model_k, make_optimizer(model_k.parameters()), masked_l1_loss, x, depth)
-    cspn_share = (kernel_ms["cspn2d_tiled"] + kernel_ms["cspn2d_bwd_kitti"]) / split["step"]
+    cspn_share = kernel_ms["cspn2d_train_kitti"] / split["step"]
     log(f"  KITTI train step (batch {bs}, median of 5, CUDA events): {split['step']:.3f} ms = "
         f"{bs * 1e3 / split['step']:.2f} frames/s; forward + loss {split['forward']:.3f} ms, "
-        f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the tiled "
-        f"forward + cspn2d_bwd {100 * cspn_share:.2f}% of the step (their phase-3 times); peak "
+        f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the 2D "
+        f"CSPN forward + cspn2d_bwd {100 * cspn_share:.2f}% of the step (their phase-3 times); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
     return launches
 
@@ -1470,15 +1545,18 @@ def probe_slice(name: str) -> dict:
 
     torch.cuda.synchronize()
     reset_launches()
-    results = step_probe.run_probe()
+    results = step_probe.run_probe(trials=PROBE_TRIALS)
     launches = read_launches()
     for r in results:
         log(f"  step_probe {r['gate_dtype']}/{r['state_dtype']} on {r['blocks']} blocks of [8,512]: "
             f"{r['ns_per_iter']:.3f} ns per iteration, {r['ps_per_px_iter']:.5f} ps per "
             f"px-iteration, {r['Tops_per_s']:.3f} Tops/s (19 ops per px) on {name}")
-    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), step_probe=launches["step_probe"])
-    if launches != expected or launches["step_probe"] == 0:
-        raise AssertionError(f"the probe path launched {launches}")
+    # each pair: one warm-up launch at each of the two points, then a
+    # launch at each point per trial
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0),
+                    step_probe=len(step_probe.PAIRS) * 2 * (PROBE_TRIALS + 1))
+    if launches != expected:
+        raise AssertionError(f"the probe path launched {launches}, expected {expected}")
     return launches
 
 
@@ -1487,6 +1565,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from cspn_tpu_torch import autotune_convs
     from cspn_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -1494,7 +1573,9 @@ def main() -> int:
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    autotune_convs("cuda")  # the entry points' conv policy, before the first convolution
     log(f"[1/10] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
         f"{torch.cuda.get_device_properties(0).L2_cache_size} B")
@@ -1508,8 +1589,11 @@ def main() -> int:
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
             check_paddle2d_kernel(name), check_step_probe(name)]
+    tiled["fwd_routes"] = time_fwd_routes(name)
     kernel_ms = {r["name"]: r["ms"] for r in rows}
-    kernel_ms["cspn2d_bwd_kitti"] = tiled["cspn2d_bwd_ms"]
+    train_ms = {tuple(r["shape"]): r["train_kept_ms"] for r in tiled["fwd_routes"]}
+    kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
+                                                                      train_ms[KITTI_SHAPE])
 
     log("[4/10] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}

@@ -6,8 +6,10 @@ is PyTorch; every Pallas kernel of `cspn_tpu` on a ported path has a
 hand-written Hopper counterpart under `csrc/` (see PERF.md for the table).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; a CUDA
-request on a machine without a card raises.  The model builders turn on
-cuDNN's algorithm timing for the card (`autotune_convs`).
+request on a machine without a card raises.  The entry points that serve,
+evaluate or train (`Trainer`, `StereoTrainer`, `run_eval`, `load_server`)
+set the process's convolution policy for the card (`autotune_convs`) before
+they build a model; the model builders leave it alone.
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def autotune_convs(device) -> None:
-    """On a CUDA device, let cuDNN time its convolution algorithms at each
-    new shape (torch.backends.cudnn.benchmark, process-wide), as XLA
-    autotunes the JAX package's GPU convolutions.  cuDNN's heuristic alone
-    picks FFT algorithms for kitti_benchmark's batch-4 convs that take ~25x
-    the time of those its timing finds (PERF.md, kitti_benchmark)."""
+def autotune_convs(device, on: bool = True) -> None:
+    """The process's convolution policy on a CUDA device: with `on`, cuDNN
+    times its algorithms at each new shape (torch.backends.cudnn.benchmark),
+    as XLA autotunes the JAX package's GPU convolutions; without, its
+    heuristic alone picks them.  The heuristic picks FFT algorithms for
+    kitti_benchmark's batch-4 convs that take ~25x the time of those the
+    timing finds (PERF.md, kitti_benchmark).  cuDNN keeps the algorithm it
+    first chose for a shape, so set this before the first convolution.  A
+    CPU device leaves the policy alone."""
     if torch.device(device).type == "cuda":
-        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.benchmark = on

@@ -35,7 +35,8 @@
 // over.  Here the replay writes every state x_1..x_{T-1} to device memory
 // (23 planes at 24 steps, 51 MB at b8 228x304), then T reverse launches read
 // them back, each moving ~30 planes (8 gates, 8 gate cotangents read and
-// written, x, v, v', bbar).  So the traffic is ~40x the fused bound, much of
+// written, x, v, v', bbar).  In training the forward keeps its states and
+// gates instead (have_states), and the prep and replay launches drop out.  So the traffic is ~40x the fused bound, much of
 // it from the 50 MB L2.  The roads left open are those of the forward: fuse
 // K steps per launch on row tiles with K-row halos, or keep a tile's gates
 // and cotangents on chip in one persistent kernel.
@@ -173,8 +174,11 @@ __global__ void unshift_kernel(const float* __restrict__ bbar_raw,  // [N,8,H,W]
 //   dguid [n,8,h,w], dblur [n,h,w] (outputs),
 //   gate_scratch/gbar_scratch [n,8,h,w], base_scratch/bbar_scratch [n,h,w],
 //   v_scratch [2,n,h,w], state_scratch [max(steps-1,0),n,h,w].
+// With have_states, gate_scratch and state_scratch hold what the forward
+// kept (cspn2d_fwd.cu given `states`), and prep and the replay are skipped.
 // Launches: steps == 0: a copy and a memset; else 1 prep, steps-1 replay
-// steps, steps reverse steps and 2 epilogue launches.
+// steps (neither with have_states), steps reverse steps and 2 epilogue
+// launches.
 // Returns the first CUDA error of a launch or copy, else 0.
 extern "C" int cspn2d_bwd_f32(const float* guid, const float* blur,
                               const float* sparse, const float* ct,
@@ -182,7 +186,8 @@ extern "C" int cspn2d_bwd_f32(const float* guid, const float* blur,
                               float* gbar_scratch, float* base_scratch,
                               float* bbar_scratch, float* v_scratch,
                               float* state_scratch, int n, int h, int w,
-                              int steps, int norm_abs, void* stream) {
+                              int steps, int norm_abs, int have_states,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t plane = (size_t)n * h * w;
   cudaError_t err;
@@ -193,14 +198,19 @@ extern "C" int cspn2d_bwd_f32(const float* guid, const float* blur,
     return static_cast<int>(cudaMemsetAsync(dguid, 0, sizeof(float) * 8 * plane, s));
   }
   const dim3 grid((h * w + kThreads - 1) / kThreads, n);
-  prep_kernel<<<grid, kThreads, 0, s>>>(guid, blur, sparse, gate_scratch,
-                                        base_scratch, h, w, norm_abs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // replay: state_scratch[t-1] = x_t for t = 1 .. steps-1 (x_0 is blur)
   auto state = [&](int t) -> const float* {
     return t == 0 ? blur : state_scratch + (size_t)(t - 1) * plane;
   };
-  for (int t = 1; t < steps; ++t) {
+  // with have_states, the forward (cspn2d_fwd.cu given `states`) already
+  // wrote prep's gates to gate_scratch and x_1 .. x_{steps-1} to
+  // state_scratch; base_scratch is then unused
+  if (!have_states) {
+    prep_kernel<<<grid, kThreads, 0, s>>>(guid, blur, sparse, gate_scratch,
+                                          base_scratch, h, w, norm_abs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  // replay: state_scratch[t-1] = x_t for t = 1 .. steps-1 (x_0 is blur)
+  for (int t = 1; t < steps && !have_states; ++t) {
     step_kernel<<<grid, kThreads, 0, s>>>(gate_scratch, base_scratch, state(t - 1),
                                           state_scratch + (size_t)(t - 1) * plane, h, w);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

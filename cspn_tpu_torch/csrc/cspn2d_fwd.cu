@@ -46,13 +46,17 @@
 // Runs the whole forward on `stream`: one prep launch and `steps` step
 // launches.  The caller allocates every buffer (contiguous f32):
 //   guid [n,8,h,w], blur/out/x_scratch/base_scratch [n,h,w],
-//   gate_scratch [n,8,h,w]; sparse may be null.
+//   gate_scratch [n,8,h,w]; sparse may be null.  `states` is null, or
+// [steps-1,n,h,w]: step t < steps-1 then writes x_{t+1} to states[t]
+// (x_scratch is unused), and states and gate_scratch are what
+// cspn2d_bwd.cu's prep and replay would compute, so a backward given them
+// skips both (ops/cspn_cuda.py keeps them for training).
 // Returns cudaGetLastError() after the first launch that fails, else 0.
 extern "C" int cspn2d_fwd_f32(const float* guid, const float* blur,
                               const float* sparse, float* out,
                               float* gate_scratch, float* base_scratch,
-                              float* x_scratch, int n, int h, int w, int steps,
-                              int norm_abs, void* stream) {
+                              float* x_scratch, float* states, int n, int h,
+                              int w, int steps, int norm_abs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (steps <= 0) {
     return static_cast<int>(cudaMemcpyAsync(
@@ -64,10 +68,13 @@ extern "C" int cspn2d_fwd_f32(const float* guid, const float* blur,
                                         base_scratch, h, w, norm_abs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // ping-pong so that the last step writes `out`
+  // into states, or ping-pong, so that the last step writes `out`
+  const size_t plane = (size_t)n * h * w;
   const float* src = blur;
   for (int t = 0; t < steps; ++t) {
-    float* dst = ((steps - 1 - t) % 2 == 0) ? out : x_scratch;
+    float* dst = t == steps - 1 ? out
+                 : states     ? states + (size_t)t * plane
+                 : ((steps - 1 - t) % 2 == 0) ? out : x_scratch;
     step_kernel<<<grid, kThreads, 0, s>>>(gate_scratch, base_scratch, src, dst,
                                           h, w);
     err = cudaGetLastError();

@@ -19,9 +19,11 @@
 // Why a second forward kernel.  The per-step kernel (cspn2d_fwd.cu) reads
 // 8 gate planes, base and x and writes y at every step: 11 planes a step.
 // At NYU b8 (24.4 MB) that stays in the 50 MB L2; at KITTI b4 (75.3 MB a
-// step) it goes to device memory 24 times.  ops/cspn_cuda.py:use_tiled
-// routes a batch here when N*H*W*11*4 bytes exceed the card's L2, the
-// counterpart of JAX's fwd_fits_vmem rule with L2 in the place of VMEM.
+// step) it goes to device memory 24 times.  Timed beside it on an H100,
+// this kernel is faster at every shape of the paths, inside the L2 too
+// (NYU b1-b16, KITTI b1-b4), so ops/cspn_cuda.py:use_tiled sends every
+// forward here that no backward follows; a forward that cspn2d_bwd follows
+// runs the per-step kernel, which keeps its states for the backward.
 //
 // What this design does about it.  The TPU kernel keeps a full-width row
 // band and all steps in VMEM; on Hopper a 1216-wide band with a 24-row

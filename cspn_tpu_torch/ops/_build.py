@@ -37,11 +37,11 @@ _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     "cspn2d_fwd": (
         "cspn2d_fwd.cu",
-        {"cspn2d_fwd_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn2d_fwd_f32": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]},
     ),
     "cspn2d_bwd": (
         "cspn2d_bwd.cu",
-        {"cspn2d_bwd_f32": [_c_void_p] * 12 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn2d_bwd_f32": [_c_void_p] * 12 + [_c_int] * 6 + [_c_void_p]},
     ),
     "cspn3d_fwd": (
         "cspn3d_fwd.cu",

@@ -11,19 +11,19 @@ on PyTorch's current stream.
 `cspn2d_cuda` is the wrapper.  A tensor on the CPU goes to the kernels'
 plain version (ops/cspn_ref.py, autograd-native) because it lies on the
 CPU; a CUDA tensor goes to the kernels or raises, forward and backward.
-There is no fallback between the two.  The forward runs the per-step
-kernel while its working set (N*H*W*11*4 bytes: 8 gate planes, base, x
-and y) fits the card's L2, and the tiled kernel past it (`use_tiled`, the
-counterpart of JAX's fwd_fits_vmem with L2 in the place of VMEM); both
-compute the same function, and the backward kernel is its exact adjoint at
-every size.
+There is no fallback between the two.  Both forward kernels compute the
+same function, value for value, and the backward kernel is its exact
+adjoint at every size.  `use_tiled` picks the forward: the tiled kernel
+for a forward that no backward follows, the per-step kernel, keeping its
+states for the backward, for one that `cspn2d_bwd` follows.
 
 `launches` counts the per-step forward's runs (one per forward: one
 `prep` launch plus `steps` `step` launches on the card); `tiled_launches`
 counts the tiled forward's runs (one per forward: prep plus
 ceil(steps / 8) tile launches); `bwd_launches` counts the backward
-kernel's runs (one per backward: prep, `steps - 1` replay steps, `steps`
-reverse steps and two epilogue launches).
+kernel's runs (one per backward: `steps` reverse steps and two epilogue
+launches, after a prep and `steps - 1` replay steps unless the forward
+kept its states).
 """
 
 from __future__ import annotations
@@ -40,15 +40,18 @@ tiled_launches = 0
 bwd_launches = 0
 
 TILE, HALO = 32, 8  # csrc/cspn2d_tile.cuh: kTile (interior side), kHalo (steps per launch)
-_PLANES = 11  # f32 planes a per-step launch touches: 8 gates, base, x, y
 
 
-def use_tiled(n: int, h: int, w: int, l2_bytes: int) -> bool:
-    """True when the per-step kernel's working set, N*H*W*11*4 bytes,
-    exceeds the card's L2 (so every step would go to device memory): NYU
-    b8 (24.4 MB) and KITTI b1 (18.8 MB) stay per-step on a 50 MB L2,
-    KITTI b4 (75.3 MB) runs tiled."""
-    return n * h * w * _PLANES * 4 > l2_bytes
+def use_tiled(for_backward: bool) -> bool:
+    """The 2D forward's kernel, set from both kernels' times on an H100
+    (chip_smoke.py phase 3; PERF.md).  The tiled kernel is 1.4-2.9x
+    faster than the per-step one at every shape of the paths (NYU b1-b16,
+    KITTI b1-b4, 24 steps), so every forward that no backward follows runs
+    it.  A forward that `cspn2d_bwd` follows runs the per-step kernel,
+    which writes its states x_1..x_{T-1} and folded gates on the way: the
+    backward then skips its prep and its T-1 replay steps, which cost more
+    than the per-step forward's lag behind the tiled one."""
+    return not for_backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +112,10 @@ def _check_inputs(guid_cf, blur, sparse, norm_type):
             raise ValueError(f"{name} must be [{n},{h},{w}], got {tuple(t.shape)}")
 
 
-def _launch(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
-    """Run the kernel on already checked inputs; returns [N, H, W] f32."""
+def _launch(guid_cf, blur, sparse, steps: int, norm_type: str, keep_states: bool = False):
+    """Run the per-step kernel on already checked inputs; returns [N, H, W]
+    f32, or with `keep_states` (out, folded gates [N,8,H,W], states
+    x_1..x_{T-1} [T-1,N,H,W]) for `_launch_bwd`."""
     global launches
     from cspn_tpu_torch.ops import _build
 
@@ -119,19 +124,24 @@ def _launch(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
     out = torch.empty_like(blur)
     gates = torch.empty_like(guid_cf)
     base = torch.empty_like(blur)
-    x_scratch = torch.empty_like(blur)
+    if keep_states:
+        x_scratch, states = None, blur.new_empty((max(int(steps) - 1, 0), n, h, w))
+    else:
+        x_scratch, states = torch.empty_like(blur), None
     with torch.cuda.device(guid_cf.device):  # the runtime launches on the current device
         err = lib.cspn2d_fwd_f32(
             guid_cf.data_ptr(), blur.data_ptr(),
             None if sparse is None else sparse.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
+            out.data_ptr(), gates.data_ptr(), base.data_ptr(),
+            None if x_scratch is None else x_scratch.data_ptr(),
+            None if states is None else states.data_ptr(),
             n, h, w, int(steps), int(norm_type == "8sum_abs"),
             torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cspn2d_fwd_f32 launch failed: cudaError_t {err}")
     launches += 1
-    return out
+    return (out, gates, states) if keep_states else out
 
 
 def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
@@ -159,9 +169,12 @@ def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Te
     return out
 
 
-def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str):
+def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None):
     """Run the backward kernel on checked f32 inputs and the cotangent `ct`
-    of the output; returns (d guidance [N,8,H,W], d blur [N,H,W])."""
+    of the output; returns (d guidance [N,8,H,W], d blur [N,H,W]).  `kept`
+    is the (folded gates, states) a forward on the same inputs kept
+    (`_launch(..., keep_states=True)`); without it the kernel recomputes
+    them (prep and replay)."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
@@ -172,18 +185,21 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str):
     n, _, h, w = guid_cf.shape
     dguid = torch.empty_like(guid_cf)
     dblur = torch.empty_like(blur)
-    gates, gbar = torch.empty_like(guid_cf), torch.empty_like(guid_cf)
-    base, bbar = torch.empty_like(blur), torch.empty_like(blur)
+    gbar, bbar = torch.empty_like(guid_cf), torch.empty_like(blur)
     v = blur.new_empty((2, n, h, w))
-    states = blur.new_empty((max(int(steps) - 1, 0), n, h, w))  # x_1 .. x_{T-1}
+    if kept is None:
+        gates, base = torch.empty_like(guid_cf), torch.empty_like(blur)
+        states = blur.new_empty((max(int(steps) - 1, 0), n, h, w))  # x_1 .. x_{T-1}
+    else:
+        (gates, states), base = kept, None
     with torch.cuda.device(guid_cf.device):
         err = lib.cspn2d_bwd_f32(
             guid_cf.data_ptr(), blur.data_ptr(),
             None if sparse is None else sparse.data_ptr(), ct.data_ptr(),
             dguid.data_ptr(), dblur.data_ptr(), gates.data_ptr(), gbar.data_ptr(),
-            base.data_ptr(), bbar.data_ptr(), v.data_ptr(), states.data_ptr(),
-            n, h, w, int(steps), int(norm_type == "8sum_abs"),
-            torch.cuda.current_stream(guid_cf.device).cuda_stream,
+            None if base is None else base.data_ptr(), bbar.data_ptr(), v.data_ptr(),
+            states.data_ptr(), n, h, w, int(steps), int(norm_type == "8sum_abs"),
+            int(kept is not None), torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cspn2d_bwd_f32 launch failed: cudaError_t {err}")
@@ -192,29 +208,30 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str):
 
 
 class _Cspn2dFwd(torch.autograd.Function):
-    """Forward and backward are the CUDA kernels, the forward per-step or
-    tiled by `use_tiled`, the backward `cspn2d_bwd` after either.  As
-    the JAX custom VJP
-    (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its inputs
-    through `io_dtype` and saves them unrounded: the backward is the exact
-    adjoint of the f32 function at the f32 inputs.  The sparse map enters
-    only through sign(), so its gradient is None (zero)."""
+    """The forward that `cspn2d_bwd` follows: the per-step kernel, keeping
+    its folded gates and states for the backward kernel.  As the JAX custom
+    VJP (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its
+    inputs through `io_dtype` and saves them unrounded: the backward is the
+    exact adjoint of the f32 function at the f32 inputs, so the states of
+    rounded inputs are not kept and the backward recomputes them.  The
+    sparse map enters only through sign(), so its gradient is None (zero)."""
 
     @staticmethod
     def forward(ctx, guid_cf, blur, sparse, steps, norm_type, io_dtype):
-        ctx.save_for_backward(guid_cf, blur, sparse)
-        ctx.steps, ctx.norm_type = steps, norm_type
         g, b, s = _round_io(guid_cf, blur, sparse, io_dtype)
-        n, _, h, w = guid_cf.shape
-        l2 = torch.cuda.get_device_properties(guid_cf.device).L2_cache_size
-        launch = _launch_tiled if use_tiled(n, h, w, l2) else _launch
-        return launch(g, b, s, steps, norm_type)
+        if g is guid_cf:
+            out, gates, states = _launch(g, b, s, steps, norm_type, keep_states=True)
+        else:
+            out, gates, states = _launch(g, b, s, steps, norm_type), None, None
+        ctx.save_for_backward(guid_cf, blur, sparse, gates, states)
+        ctx.steps, ctx.norm_type = steps, norm_type
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        guid_cf, blur, sparse = ctx.saved_tensors
-        dguid, dblur = _launch_bwd(guid_cf, blur, sparse, grad_out.contiguous(),
-                                   ctx.steps, ctx.norm_type)
+        guid_cf, blur, sparse, gates, states = ctx.saved_tensors
+        dguid, dblur = _launch_bwd(guid_cf, blur, sparse, grad_out.contiguous(), ctx.steps,
+                                   ctx.norm_type, None if states is None else (gates, states))
         return dguid, dblur, None, None, None, None
 
 
@@ -244,4 +261,7 @@ def cspn2d_cuda(
                           channel_first, io_dtype)
     g_cf = (guidance if channel_first else guidance.movedim(-1, 1)).contiguous()
     _check_inputs(g_cf, blur_depth, sparse_depth, norm_type)
+    for_backward = torch.is_grad_enabled() and (g_cf.requires_grad or blur_depth.requires_grad)
+    if use_tiled(for_backward):
+        return _launch_tiled(*_round_io(g_cf, blur_depth, sparse_depth, io_dtype), steps, norm_type)
     return _Cspn2dFwd.apply(g_cf, blur_depth, sparse_depth, steps, norm_type, io_dtype)

@@ -106,8 +106,11 @@ class DepthServer:
 
 def load_server(cfg: RunConfig, checkpoint: str = "best_model",
                 buckets: tuple[int, ...] = (1, 8, 32, 128), device=None) -> DepthServer:
-    """A DepthServer over `load_eval_state(cfg, ...)` at the preset's float32."""
+    """A DepthServer over `load_eval_state(cfg, ...)` at the preset's float32,
+    with cuDNN's algorithm timing on a card (`autotune_convs`)."""
+    from cspn_tpu_torch import autotune_convs, resolve_device
     from cspn_tpu_torch.train.evaluate import load_eval_state
 
+    autotune_convs(resolve_device(device))
     model = load_eval_state(cfg, checkpoint, device=device)
     return DepthServer(model, buckets=buckets)

@@ -29,15 +29,13 @@ from cspn_tpu_torch.train.metrics import METRIC_KEYS, evaluate_error
 def build_model(cfg: RunConfig, train: bool = False, device=None, seed: int | None = 0) -> CSPNUNet:
     """The configured CSPNUNet on `device` (default cuda), in train or eval
     mode; `seed` (None: PyTorch's default init) seeds the he_normal init
-    with a torch.Generator on that device.  On a card it turns on cuDNN's
-    algorithm timing (`autotune_convs`)."""
+    with a torch.Generator on that device."""
     if cfg.model.dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.model.dtype!r} is not ported yet (ROADMAP.md Queue 1: "
             "bf16/int8 serving); this slice serves float32"
         )
     dev = resolve_device(device)
-    autotune_convs(dev)
     block, layers = LAYERS[int(cfg.model.arch.replace("resnet", ""))]
     model = CSPNUNet(
         block=block,
@@ -109,6 +107,7 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
 
 def run_eval(cfg: RunConfig, runs: int = 5, checkpoint: str = "best_model",
              max_batches: int | None = None, device=None, jax_variables=None) -> dict:
+    autotune_convs(resolve_device(device))
     model = load_eval_state(cfg, checkpoint, device=device, jax_variables=jax_variables)
     eval_step = make_eval_step(model, cfg.optim.loss)
     dev = next(model.parameters()).device

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from cspn_tpu_torch import resolve_device
+from cspn_tpu_torch import autotune_convs, resolve_device
 from cspn_tpu_torch.config import RunConfig
 from cspn_tpu_torch.train import checkpoint as ckpt_lib
 from cspn_tpu_torch.train.evaluate import build_model, make_eval_step
@@ -94,6 +94,7 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = resolve_device(device)
+        autotune_convs(self.device)
         model = build_model(cfg, train=True, device=self.device, seed=seed)
         if pretrained_params is not None:
             partial_restore(model, pretrained_params, verbose=True)

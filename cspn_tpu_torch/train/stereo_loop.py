@@ -65,10 +65,8 @@ def build_stereo_model(cfg: StereoConfig, train: bool = False, device=None, seed
                        cspn_backend: str = "auto") -> PSMNetCSPN:
     """The configured PSMNetCSPN on `device` (default cuda), in train or
     eval mode; `seed` (None: PyTorch's default init) seeds the JAX-style
-    init with a torch.Generator on that device.  On a card it turns on
-    cuDNN's algorithm timing (`autotune_convs`)."""
+    init with a torch.Generator on that device."""
     dev = resolve_device(device)
-    autotune_convs(dev)
     gen = None if seed is None else torch.Generator(dev).manual_seed(seed)
     with torch.device(dev):
         model = PSMNetCSPN(
@@ -132,6 +130,7 @@ class StereoTrainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = resolve_device(device)
+        autotune_convs(self.device)
         self.model = build_stereo_model(cfg, train=True, device=self.device, seed=seed)
         params = [p for k, p in self.model.named_parameters()
                   if cfg.train_only is None or cfg.train_only in k]

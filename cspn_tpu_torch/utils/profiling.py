@@ -34,8 +34,11 @@ one synthetic batch) on synthetic 256x512 pairs, batch 4 by default, and
 times each stage of a forward (models/stereo.py:STAGES: feature extractor,
 cost volume, hourglass, heads, 3D CSPN, upsample + regression) with CUDA
 events between them; `--stereo --train` splits a stereo train step.
-Prints the tables with the card's name and power limit and writes them to
-`--out` as JSON.
+Prints the tables with the card's name and power limit and the peak device
+memory (with and without the first calls' cuDNN algorithm search), and
+writes them to `--out` as JSON.  The convolution policy is the entry
+points' (`cspn_tpu_torch.autotune_convs`: cuDNN times its algorithms), set
+before the first convolution; `--cudnn-heuristic` turns it off.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from cspn_tpu_torch import autotune_convs
 from cspn_tpu_torch.config import PRESETS, RunConfig
 from cspn_tpu_torch.data import SyntheticDepthDataset
 from cspn_tpu_torch.train.evaluate import build_model, calibrate_bn_stats
@@ -392,11 +396,15 @@ def _print_tables(title: str, what: str, by: str, table: dict, total: str, kinds
         print(f"  {ms:9.3f}  {name[:110]}")
 
 
-def _conv_policy(args) -> None:
-    """cuDNN's algorithm timing, as the model builders set it
-    (cspn_tpu_torch.autotune_convs), or its heuristic alone with
-    --cudnn-heuristic."""
-    torch.backends.cudnn.benchmark = not args.cudnn_heuristic
+def _warm_kinds(fn, reps: int):
+    """kernel_kinds_ms(fn, reps) and device memory in GiB: the peak up to
+    and over these warm calls (the first calls' cuDNN algorithm search
+    included), and the peak of the warm calls alone."""
+    first = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    kinds, top = kernel_kinds_ms(fn, reps)
+    warm = torch.cuda.max_memory_allocated() / 2**30
+    return kinds, top, {"peak_gib": max(first, warm), "warm_peak_gib": warm}
 
 
 def _stereo(args, card: str) -> dict:
@@ -419,7 +427,6 @@ def _stereo(args, card: str) -> dict:
             f"cudnn.benchmark={not args.cudnn_heuristic} on {card}")
     if args.train:
         model = build_stereo_model(cfg, train=True, device="cuda", seed=0)
-        _conv_policy(args)
         optimizer = make_optimizer(model.parameters(), cfg.lr, momentum=0.9, weight_decay=1e-4,
                                    nesterov=False)
 
@@ -428,20 +435,19 @@ def _stereo(args, card: str) -> dict:
 
         split = train_step_split_ms(model, optimizer, loss_fn, (left, right), disp, args.reps)
         step = make_stereo_train_step(model, optimizer, cfg.max_disp)
-        kinds, top = kernel_kinds_ms(lambda: step(left, right, disp), args.reps)
+        kinds, top, mem = _warm_kinds(lambda: step(left, right, disp), args.reps)
         _print_tables(f"stereo train step, {what}", "train step", "phase", split, "step", kinds, top)
-        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
+        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
     model = calibrated_stereo_model(cfg)
-    _conv_policy(args)
     stages = stereo_stage_times_ms(model, left, right, args.reps)
 
     def forward():
         with torch.inference_mode():
             model(left, right)
 
-    kinds, top = kernel_kinds_ms(forward, args.reps)
+    kinds, top, mem = _warm_kinds(forward, args.reps)
     _print_tables(f"stereo forward, {what}", "forward", "stage", stages, "forward", kinds, top)
-    return dict(result, stages_ms=stages, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    return dict(result, stages_ms=stages, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
 
 
 def kitti_benchmark_synthetic() -> RunConfig:
@@ -474,19 +480,17 @@ def _depth(args, card: str) -> dict:
         model = build_model(train_cfg, train=True, device="cuda", seed=0)
         if not subpixel:
             model = decoder_twin(model, False)
-        _conv_policy(args)
         optimizer = make_optimizer(model.parameters())
         split = train_step_split_ms(model, optimizer, masked_l1_loss, x, depth, args.reps)
         step = make_train_step(model, optimizer)
-        kinds, top = kernel_kinds_ms(lambda: step(x, depth), args.reps)
+        kinds, top, mem = _warm_kinds(lambda: step(x, depth), args.reps)
         _print_tables(f"{run} train step, batch {batch}, {hw[0]}x{hw[1]}, {form}, "
                       f"float32 (TF32 off) on {card}", "train step", "phase", split, "step", kinds,
                       top)
-        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top)
+        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
     model = calibrated_model(cfg, calib_batch=batch)
     if not subpixel:
         model = decoder_twin(model, False)
-    _conv_policy(args)
     modules = module_times_ms(model, x, args.reps)
     if subpixel:
         modules["of which the weight reindex"] = reindex_ms(model, args.reps)
@@ -495,10 +499,10 @@ def _depth(args, card: str) -> dict:
         with torch.inference_mode():
             model(x)
 
-    kinds, top = kernel_kinds_ms(forward, args.reps)
+    kinds, top, mem = _warm_kinds(forward, args.reps)
     _print_tables(f"{run} forward, batch {batch}, {hw[0]}x{hw[1]}, {form}, float32 "
                   f"(TF32 off) on {card}", "forward", "module", modules, "forward", kinds, top)
-    return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top)
+    return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
 
 
 def main(argv=None) -> int:
@@ -517,7 +521,7 @@ def main(argv=None) -> int:
                    help="profile kitti_benchmark (ResNet-18, 352x1216) instead of nyu_eval/nyu_train")
     p.add_argument("--cudnn-heuristic", action="store_true",
                    help="let cuDNN's heuristic pick the conv algorithms instead of timing them "
-                        "(torch.backends.cudnn.benchmark=False after the model builders set it)")
+                        "(cspn_tpu_torch.autotune_convs off)")
     p.add_argument("--out", default=None, help="write the tables here as JSON")
     args = p.parse_args(argv)
 
@@ -527,7 +531,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    autotune_convs("cuda", on=not args.cudnn_heuristic)  # before the first convolution
+    torch.cuda.reset_peak_memory_stats()
     result = _stereo(args, card) if args.stereo else _depth(args, card)
+    print(f"peak device memory {result['memory']['peak_gib']:.3f} GiB (cuDNN's algorithm search "
+          f"included), {result['memory']['warm_peak_gib']:.3f} GiB over warm calls")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

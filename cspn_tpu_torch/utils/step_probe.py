@@ -35,7 +35,10 @@ import torch
 
 ROWS, COLS = 8, 512  # one block: csrc/step_probe.cu kRows, kCols
 SCALE = 0.124
-OPS_PER_PX_ITER = 19  # the TPU probe's count: 8 mul + 7 add + 2 shifts + 2 scale
+OPS_PER_PX_ITER = 19  # the TPU probe's count for its Tops/s: 8 mul + 7 add + 2 shifts + 2 scale
+# the f32 work an iteration needs per pixel, for its bound: 8 products, 7
+# adds and one x 0.124 (the column shifts are shuffles, not arithmetic)
+FLOPS_PER_PX_ITER = 16
 PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
          (torch.bfloat16, torch.bfloat16))
 

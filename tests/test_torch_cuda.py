@@ -55,7 +55,7 @@ def _plain(g_cf, b, s, steps, norm_type):
 def test_kernel_matches_plain(gen, shape, steps, with_sparse, norm_type):
     g, b, s = _inputs(gen, *shape, with_sparse)
     before = cspn_cuda.launches
-    got = cspn_cuda.cspn2d_cuda(g, b, s, steps=steps, norm_type=norm_type, channel_first=True)
+    got = cspn_cuda._launch(g, b, s, steps, norm_type)  # the per-step kernel
     torch.cuda.synchronize()
     assert cspn_cuda.launches == before + 1
     want = _plain(g, b, s, steps, norm_type)
@@ -182,12 +182,20 @@ def test_train_step_on_the_card_launches_both_kernels(gen):
         assert d_k <= 1e-3 * g64.abs().max().item() or d_k <= 8 * d_r, k
 
 
-def test_model_builders_on_the_card_turn_on_cudnn_timing(gen, monkeypatch):
+def test_entry_points_on_the_card_turn_on_cudnn_timing(gen, monkeypatch, tmp_path):
+    """The Trainer sets cuDNN's algorithm timing for the card; building a
+    model alone leaves the policy as it finds it."""
+    import dataclasses
+
     from cspn_tpu_torch.config import PRESETS
     from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loop import Trainer
 
+    cfg = dataclasses.replace(PRESETS["synthetic_smoke"], save_dir=str(tmp_path))
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
-    build_model(PRESETS["synthetic_smoke"], device="cuda")
+    build_model(cfg, device="cuda")
+    assert torch.backends.cudnn.benchmark is False
+    Trainer(cfg, None, None, device="cuda")
     assert torch.backends.cudnn.benchmark is True
 
 
@@ -198,12 +206,12 @@ def test_model_on_the_card_uses_the_kernel(gen):
     model = unet.cspn_unet_resnet18(cspn_steps=4, generator=torch.Generator().manual_seed(0))
     model = model.cuda().eval()
     x = torch.randn(2, 64, 96, 4, device="cuda", generator=gen)
-    before = cspn_cuda.launches
+    before = cspn_cuda.tiled_launches
     with torch.inference_mode():
         got = model(x)
         model.cspn_backend = "reference"
         want = model(x)
-    assert cspn_cuda.launches == before + 1
+    assert cspn_cuda.tiled_launches == before + 1
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
 
 
@@ -402,24 +410,39 @@ def test_tiled_kernel_matches_plain_and_the_per_step_kernel(gen, shape, steps, w
     assert torch.equal(got, per_step)  # the same FMA chains in the same order
 
 
-def test_forward_routes_by_the_l2_rule_and_backward_runs_cspn2d_bwd(gen, monkeypatch):
-    """A batch past the L2 runs the tiled forward, one within it the
-    per-step forward; the backward runs cspn2d_bwd after either."""
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    assert cspn_cuda.use_tiled(4, 352, 1216, l2) and not cspn_cuda.use_tiled(1, 352, 1216, l2)
+def test_forward_routes_by_whether_a_backward_follows(gen):
+    """A forward that no backward follows runs the tiled kernel; one under
+    autograd runs the per-step kernel, and the backward runs cspn2d_bwd on
+    the states it kept."""
     g, b, s = _inputs(gen, 2, 40, 56)
     ct = torch.randn(2, 40, 56, device="cuda", generator=gen)
     want = _grads(lambda g, b, s: _plain(g, b, s, 24, "8sum"), g, b, s, ct)
-    for l2_bytes, tiled in ((1, True), (1 << 40, False)):
-        monkeypatch.setattr(cspn_cuda, "use_tiled", lambda n, h, w, _l2, l2_bytes=l2_bytes:
-                            n * h * w * 44 > l2_bytes)
-        before = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
-        got = _grads(lambda g, b, s: cspn2d(g.movedim(1, -1), b, s, steps=24), g, b, s, ct)
-        torch.cuda.synchronize()
-        after = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
-        assert after == (before[0] + tiled, before[1] + (not tiled), before[2] + 1)
-        for a, x in zip(got, want):
-            assert (a - x).abs().max().item() <= TOL * x.abs().max().item()
+
+    def counts():
+        return cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches
+
+    before = counts()
+    with torch.no_grad():
+        inference = cspn2d(g.movedim(1, -1), b, s, steps=24)
+    assert counts() == (before[0] + 1, before[1], before[2])
+    got = _grads(lambda g, b, s: cspn2d(g.movedim(1, -1), b, s, steps=24), g, b, s, ct)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(inference, cspn_cuda._launch(g, b, s, 24, "8sum"))
+    for a, x in zip(got, want):
+        assert (a - x).abs().max().item() <= TOL * x.abs().max().item()
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 24])
+def test_backward_on_the_kept_states_equals_the_replay(gen, steps):
+    g, b, s = _inputs(gen, 2, 13, 17)
+    ct = torch.randn(2, 13, 17, device="cuda", generator=gen)
+    out, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum", keep_states=True)
+    assert states.shape == (max(steps - 1, 0), 2, 13, 17)
+    assert torch.equal(out, cspn_cuda._launch(g, b, s, steps, "8sum"))
+    kept = cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum", (gates, states))
+    replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum")
+    assert all(torch.equal(a, r) for a, r in zip(kept, replayed))
 
 
 def test_tiled_kernel_rounds_bf16_io(gen, monkeypatch):

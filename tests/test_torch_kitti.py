@@ -28,7 +28,6 @@ from cspn_tpu_torch.utils.profiling import kitti_benchmark_synthetic
 torch.set_num_threads(1)
 
 KITTI_HW = (352, 1216)
-L2_H100 = 50 * 2**20
 
 
 def test_resnet18_forward_at_kitti_eighth_scale_matches_jax():
@@ -60,28 +59,77 @@ def test_kitti_benchmark_preset_on_synthetic_frames():
 
 
 def test_kitti_batches_pick_their_forward_kernel():
-    """On a 50 MB L2 the b4 train batch (and serving bucket 4) runs the
-    tiled forward, the b1 eval batch (bucket 1) the per-step forward."""
+    """The b4 train batch's forward, which cspn2d_bwd follows, runs the
+    per-step kernel; the b1 eval batch and both serving buckets run the
+    tiled one, three launches of 8 steps."""
     cfg = kitti_benchmark_synthetic()
-    assert cspn_cuda.use_tiled(cfg.data.batch_size_train, *KITTI_HW, L2_H100)
-    assert not cspn_cuda.use_tiled(cfg.data.batch_size_eval, *KITTI_HW, L2_H100)
+    assert not cspn_cuda.use_tiled(for_backward=True)
+    assert cspn_cuda.use_tiled(for_backward=False)
     assert cspn_cuda.plan_tiles(*KITTI_HW, cfg.model.cspn_steps).launch_steps == (8, 8, 8)
 
 
 def test_builders_turn_on_cudnn_timing_only_for_the_card(monkeypatch):
     """cuDNN's heuristic alone picks FFT convs ~25x slower than timed ones
-    at kitti_benchmark's batch 4; the model builders turn on its algorithm
-    timing for a CUDA device (as XLA autotunes), and leave it alone on the
-    CPU."""
+    at kitti_benchmark's batch 4.  The conv policy is the entry points'
+    (autotune_convs): it sets cuDNN's algorithm timing for a CUDA device
+    only, and the model builders leave it as they find it."""
     from cspn_tpu_torch import autotune_convs
     from cspn_tpu_torch.train.evaluate import build_model
     from cspn_tpu_torch.train.stereo_loop import StereoConfig, build_stereo_model
 
+    def build_both():
+        build_model(PRESETS["synthetic_smoke"], device="cpu")
+        build_stereo_model(StereoConfig(max_disp=8, features=4, cspn_steps=1), device="cpu")
+
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
-    build_model(PRESETS["synthetic_smoke"], device="cpu")
-    build_stereo_model(StereoConfig(max_disp=8, features=4, cspn_steps=1), device="cpu")
+    build_both()
     assert torch.backends.cudnn.benchmark is False
     autotune_convs("cpu")
     assert torch.backends.cudnn.benchmark is False
     autotune_convs(torch.device("cuda", 0))
     assert torch.backends.cudnn.benchmark is True
+    build_both()
+    assert torch.backends.cudnn.benchmark is True
+    autotune_convs("cuda", on=False)
+    assert torch.backends.cudnn.benchmark is False
+
+
+class _Built(Exception):
+    pass
+
+
+def test_entry_points_set_the_conv_policy_before_building_the_model(monkeypatch):
+    """Trainer, StereoTrainer, run_eval and load_server each set the conv
+    policy for their device before their first model exists (cuDNN keeps
+    the algorithm it first chose for a shape)."""
+    import cspn_tpu_torch
+    from cspn_tpu_torch.train import evaluate, loop, stereo_loop
+    from cspn_tpu_torch.serving import load_server
+
+    calls = []
+
+    def policy(device, on=True):
+        calls.append(("policy", torch.device(device).type))
+
+    def build(*args, **kwargs):
+        calls.append(("build",))
+        raise _Built
+
+    for mod in (cspn_tpu_torch, loop, stereo_loop, evaluate):
+        monkeypatch.setattr(mod, "autotune_convs", policy)
+    for mod, fn in ((loop, "build_model"), (stereo_loop, "build_stereo_model"),
+                    (evaluate, "load_eval_state")):
+        monkeypatch.setattr(mod, fn, build)
+    entry_points = (
+        lambda: loop.Trainer(PRESETS["synthetic_smoke"], None, None, device="cpu"),
+        lambda: stereo_loop.StereoTrainer(stereo_loop.StereoConfig(), None, None, device="cpu"),
+        lambda: evaluate.run_eval(PRESETS["synthetic_smoke"], device="cpu"),
+        lambda: load_server(PRESETS["synthetic_smoke"], device="cpu"),
+    )
+    for entry in entry_points:
+        calls.clear()
+        try:
+            entry()
+        except _Built:
+            pass
+        assert calls == [("policy", "cpu"), ("build",)]
