@@ -5,10 +5,9 @@
 Drives cspn_tpu_torch's main paths on the card and fails (non-zero exit) if
 any phase fails:
 
-  1. device: a CUDA card is required; prints its name and power limit,
-     turns TF32 off (the nyu_eval and nyu_train presets are float32) and
-     sets the entry points' conv policy, cuDNN's algorithm timing
-     (autotune_convs), before the first convolution;
+  1. device: a CUDA card is required; prints its name and power limit and
+     sets the entry points' default conv policy (set_conv_policy: cuDNN's
+     algorithm timing, TF32 off) before the first convolution;
   2. build: compiles every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
      per source, all started together;
   3. kernels: holds each kernel against its plain PyTorch version on the card
@@ -52,18 +51,31 @@ any phase fails:
      against the same server on the plain CSPN, with exact launch counts;
   9. kitti train: Trainer.fit(1) (4 steps of b4, validation at b1), exact
      launch counts, one b4 train step against the plain CSPN and float64;
- 10. the `demo` subcommand for dims 2 and 3, and the step-body probe.
+ 10. the `demo` subcommand for dims 2 and 3, and the step-body probe;
+ 11. the spatially sharded CSPN on in-process meshes (parallel/): the op
+     cspn2d_spatial at KITTI b4 over S = 2 and 4 rows blocks, both norms,
+     with and without sparse, against cspn2d forward and backward; the
+     KITTI CSPN-UNet with spatial_mesh (S = 2) against the unsharded model
+     (eval b1 and b4, one b4 train step by phase 5's rule) and the stereo
+     model with D over S = 2 (one b4 train step); sharded and unsharded
+     timed; exact segment-kernel launches and halo exchanges.
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
 plain versions at the stereo shape [4,48,64,128] (and an odd [2,5,13,17]
-with C=2, and all-zero gates in a corner), and the depth-to-space kernel
+with C=2, all-zero gates in a corner, and the sharded stereo path's
+segment: its S = 2 blocks stacked, D / 2 + 2K deep, K steps), and the
+depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
 shapes, an odd one with C=1, and in float64 and bfloat16; and it times
 both 2D CSPN forwards and both ways to run a train step's 2D CSPN at the
 paths' shapes (FWD_ROUTE_SHAPES), the times ops/cspn_cuda.py:use_tiled is
-set from.  Every path's run starts with all nine kernels' launch counts at
-0 and reads them at its end.
+set from; and the sharded CSPN's segment kernels (`cspn2d_halo_seg`, its
+backward) against the plain segment on the inputs cspn2d_spatial hands
+them at every shape, K and keep of the paths that run them (phase 11's
+op and models; halo_seg_cases), timed at the b4 train step's, with the
+cost model's constants (parallel/halo.py:choose_halo).  Every path's run starts with all eleven
+kernels' launch counts at 0 and reads them at its end.
 
 The last two lines are JSON: the kernel table, then the result line.
 Imports nothing of JAX or of the JAX package.
@@ -72,6 +84,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -82,6 +95,8 @@ import time
 
 import numpy as np
 import torch
+
+from cspn_tpu_torch import set_conv_policy
 
 # (name substring, memory bytes/s, f32 non-tensor-core FLOP/s): NVIDIA's data
 # sheets, dense rates at the full power limit; first match wins
@@ -141,6 +156,10 @@ PROBE_TRIALS = 7  # the probe path's slope trials (step_probe.run_probe)
 # bf16 state: the kernel's bf16 FMA rounds once where the plain version may
 # round twice; 4 iterations of ~1-sized values stay within a few bf16 ulps
 PROBE_TOL = {torch.float32: KERNEL_TOL, torch.bfloat16: 1e-2}
+# the sharded 2D CSPN: the op is held at S = 2 and 4 row blocks with the
+# cost model's K and K = 8 (three segments), the models at S = 2
+HALO_K = 8
+SPATIAL = (2, 4)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -149,27 +168,32 @@ def log(msg: str) -> None:
 
 
 KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d",
-                "cspn2d_tiled", "paddle2d", "step_probe")
+                "cspn2d_tiled", "paddle2d", "step_probe", "cspn2d_halo_seg",
+                "cspn2d_halo_seg_bwd")
 
 
 def reset_launches() -> None:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_paddle2d_cuda, d2s
+    """Every kernel's launch count and the sharded CSPN's exchange count to 0."""
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.parallel import halo
     from cspn_tpu_torch.utils import step_probe
 
     cspn_cuda.launches = cspn_cuda.bwd_launches = cspn_cuda.tiled_launches = 0
     cspn3d_cuda.launches = cspn3d_cuda.bwd_launches = 0
     d2s.launches = d2s.bwd_launches = 0
     cspn_paddle2d_cuda.launches = step_probe.launches = 0
+    cspn_halo_cuda.launches = cspn_halo_cuda.bwd_launches = halo.exchanges = 0
 
 
 def read_launches() -> dict:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda, d2s
     from cspn_tpu_torch.utils import step_probe
 
     return dict(zip(KERNEL_NAMES, (cspn_cuda.launches, cspn_cuda.bwd_launches,
                                    cspn3d_cuda.launches, cspn3d_cuda.bwd_launches,
                                    d2s.launches, d2s.bwd_launches, cspn_cuda.tiled_launches,
-                                   cspn_paddle2d_cuda.launches, step_probe.launches)))
+                                   cspn_paddle2d_cuda.launches, step_probe.launches,
+                                   cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)))
 
 
 def d2s_per_forward(model) -> int:
@@ -417,20 +441,39 @@ def stereo_volume_inputs(gen, c: int):
     return guide, torch.randn(2, 5, 13, 17, c, device="cuda", generator=gen)
 
 
+def stereo_segment():
+    """The sharded stereo path's 3D segment (phase 11): the S = 2 blocks of
+    the b4 volume stacked along the batch, each D / 2 + 2K deep, K steps
+    (the cost model's K); returns ((M, D_ext, H, W), K)."""
+    from cspn_tpu_torch.parallel import halo
+
+    m, d, h, w = STEREO_SHAPE
+    k = halo.effective_halo(None, STEPS, d // 2, h * w, m, n_gate_planes=26,
+                            t_step=halo.T3D_STEP_S_PER_VOX)
+    return (2 * m, d // 2 + 2 * k, h, w), k
+
+
+def cspn3d_cases():
+    """(label, (M, D, H, W), steps, zero-gates corner) of the 3D kernels'
+    checks: the stereo volume, and the sharded stereo path's segment."""
+    seg_shape, k = stereo_segment()
+    return (("main", STEREO_SHAPE, STEPS, False), ("main zero-gates corner", STEREO_SHAPE, STEPS, True),
+            (f"sharded segment (S=2, K={k})", seg_shape, k, False))
+
+
 def check_cspn3d_kernel(name: str) -> dict:
     """Phase 3: the 3D CSPN forward kernel against its plain version."""
     from cspn_tpu_torch.ops import cspn3d_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    m, d, h, w = STEREO_SHAPE
     max_err = 0.0
-    for label, zero_corner in (("main", False), ("main zero-gates corner", True)):
+    for label, (m, d, h, w), steps, zero_corner in cspn3d_cases():
         gates = gates3d(gen, m, d, h, w, zero_corner)
         x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
-        got = cspn3d_cuda.propagate3d(gates, x0, steps=STEPS)
-        want = cspn_ref.propagate_nd_reference(gates, x0, STEPS)
+        got = cspn3d_cuda.propagate3d(gates, x0, steps=steps)
+        want = cspn_ref.propagate_nd_reference(gates, x0, steps)
         torch.cuda.synchronize()
-        max_err = max(max_err, _check_close(f"cspn3d_fwd {label} [{m},26,{d},{h},{w}] steps={STEPS}",
+        max_err = max(max_err, _check_close(f"cspn3d_fwd {label} [{m},26,{d},{h},{w}] steps={steps}",
                                             got, want))
     guide, feat = stereo_volume_inputs(gen, 2)
     got = cspn3d_cuda.cspn3d_cuda(guide, feat, steps=STEPS)
@@ -439,6 +482,7 @@ def check_cspn3d_kernel(name: str) -> dict:
     max_err = max(max_err, _check_close(f"cspn3d_fwd odd [2,5,13,17] C=2 (cspn_nd) steps={STEPS}",
                                         got, want))
 
+    m, d, h, w = STEREO_SHAPE
     gates = gates3d(gen, m, d, h, w)
     x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
     kernel_ms = time_ms(lambda: cspn3d_cuda._launch(gates, x0, STEPS))
@@ -447,8 +491,9 @@ def check_cspn3d_kernel(name: str) -> dict:
     bytes_moved = 28 * voxels * 4  # read 26 gates + x0, write 1
     ops = (54 * STEPS + 26) * voxels  # 27 FMA per voxel per step, the centre sum once
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn3d_fwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    log(f"  cspn3d_fwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms "
+        f"({kernel_ms * 1e9 / (STEPS * voxels):.4f} ps per voxel-step, choose_halo's 3D "
+        f"constant), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
     return {
         "name": "cspn3d_fwd",
@@ -465,12 +510,12 @@ def check_cspn3d_kernel(name: str) -> dict:
     }
 
 
-def plain_vjp3d(gates, x0, ct):
+def plain_vjp3d(gates, x0, ct, steps=STEPS):
     """The 3D backward kernel's plain version: autograd of the plain forward."""
     from cspn_tpu_torch.ops import cspn_ref
 
     gates, x0 = gates.detach().requires_grad_(True), x0.detach().requires_grad_(True)
-    return torch.autograd.grad(cspn_ref.propagate_nd_reference(gates, x0, STEPS), (gates, x0), ct)
+    return torch.autograd.grad(cspn_ref.propagate_nd_reference(gates, x0, steps), (gates, x0), ct)
 
 
 def check_cspn3d_bwd_kernel(name: str) -> dict:
@@ -479,19 +524,18 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
     from cspn_tpu_torch.ops import cspn3d_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    m, d, h, w = STEREO_SHAPE
     max_err = 0.0
-    for label, zero_corner in (("main", False), ("main zero-gates corner", True)):
+    for label, (m, d, h, w), steps, zero_corner in cspn3d_cases():
         gates = gates3d(gen, m, d, h, w, zero_corner)
         x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
         ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
         gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
-        got = torch.autograd.grad(cspn3d_cuda.propagate3d(gk, xk, steps=STEPS), (gk, xk), ct)
-        want = plain_vjp3d(gates, x0, ct)
+        got = torch.autograd.grad(cspn3d_cuda.propagate3d(gk, xk, steps=steps), (gk, xk), ct)
+        want = plain_vjp3d(gates, x0, ct, steps)
         torch.cuda.synchronize()
         for what, a, b in zip(("d gates", "d x0"), got, want):
             max_err = max(max_err, _check_close(
-                f"cspn3d_bwd {label} [{m},26,{d},{h},{w}] steps={STEPS} {what}", a, b))
+                f"cspn3d_bwd {label} [{m},26,{d},{h},{w}] steps={steps} {what}", a, b))
     guide, feat = stereo_volume_inputs(gen, 2)
     ct = torch.randn(feat.shape, device="cuda", generator=gen)
     grads = {}
@@ -503,6 +547,7 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
         max_err = max(max_err, _check_close(
             f"cspn3d_bwd odd [2,5,13,17] C=2 (cspn_nd) steps={STEPS} {what}", a, b))
 
+    m, d, h, w = STEREO_SHAPE
     gates = gates3d(gen, m, d, h, w)
     x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
     ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
@@ -838,6 +883,147 @@ def check_step_probe(name: str) -> dict:
     }
 
 
+def plain_halo_vjp(gates, base, keep, x, ct, k):
+    """The segment backward's plain version: autograd of the plain segment."""
+    from cspn_tpu_torch.ops import cspn_ref
+
+    ts = [None if t is None else t.detach().requires_grad_(True) for t in (gates, base, keep, x)]
+    out = cspn_ref.halo_segment_reference(*ts, k)
+    return torch.autograd.grad(out, [t for t in ts if t is not None], ct)
+
+
+def segment_fixed_s(k_hi: int = 6, steps: int = 24, reps: int = 20) -> float:
+    """The host time of one segment of cspn2d_spatial beyond its stencil
+    work (the halo exchange, the wrapper, the launches): the two-point slope
+    between halo 1 (24 segments) and halo 6 (4 segments) on a tiny
+    in-process S = 2 map, where the stencil costs next to nothing."""
+    from cspn_tpu_torch.parallel import cspn2d_spatial, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g, b, s = cspn_inputs(gen, 1, 16, 32, True)
+    mesh = make_mesh(spatial=2)
+    per_call = {}
+    for k in (1, k_hi):
+        with torch.no_grad():
+            cspn2d_spatial(g, b, s, mesh=mesh, steps=steps, halo=k, channel_first=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                cspn2d_spatial(g, b, s, mesh=mesh, steps=steps, halo=k, channel_first=True)
+            torch.cuda.synchronize()
+        per_call[k] = (time.perf_counter() - t0) / reps
+    return (per_call[1] - per_call[k_hi]) / (steps - -(-steps // k_hi))
+
+
+def halo_seg_cases() -> list[tuple]:
+    """The segment kernels' (S, batch, halo, with_sparse) on the paths that
+    run them: kitti_sharded's eval b1 and b4 and b4 train step (S = 2, the
+    cost model's K, with sparse) and phase 11's op check (b4, S = 2 and 4,
+    the cost model's K and HALO_K, with and without sparse)."""
+    return [(2, 1, None, True)] + list(itertools.product(SPATIAL, (KITTI_SHAPE[0],),
+                                                         (None, HALO_K), (True, False)))
+
+
+def check_halo_seg_kernels(name: str) -> list[dict]:
+    """Phase 3: the sharded CSPN's segment kernels (cspn2d_halo_seg and its
+    backward) against the plain segment and its autograd under a random
+    cotangent, on the inputs that cspn2d_spatial hands its first segment
+    (parallel/halo.py:first_segment_inputs; the in-process mesh stacks the
+    S blocks along the batch) at every (shape, K, keep) of halo_seg_cases;
+    then each timed at kitti_sharded's b4 train shape, with the cost
+    model's per-pixel-step time and fixed cost per segment
+    (parallel/halo.py:choose_halo)."""
+    from cspn_tpu_torch.ops import cspn_halo_cuda, cspn_ref
+    from cspn_tpu_torch.parallel import halo, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    _, h, w = KITTI_SHAPE
+    max_err = {"cspn2d_halo_seg": 0.0, "cspn2d_halo_seg_bwd": 0.0}
+    seen, timed_inputs = set(), None
+    for spatial, batch, halo_k, with_sparse in halo_seg_cases():
+        g, b, sp = cspn_inputs(gen, batch, h, w, with_sparse, negative=0.2)
+        with torch.no_grad():
+            *inputs, k = halo.first_segment_inputs(g, b, sp, mesh=make_mesh(spatial=spatial),
+                                                   steps=STEPS, halo=halo_k, channel_first=True)
+        del g, b, sp
+        n, _, he, _ = inputs[0].shape
+        if (spatial, batch, halo_k, with_sparse) == (2, KITTI_SHAPE[0], None, True):
+            timed_inputs = (inputs, k)  # kitti_sharded's b4 train step
+        if (n, he, k, with_sparse) in seen:
+            continue
+        seen.add((n, he, k, with_sparse))
+        ct = torch.randn(n, he, w, device="cuda", generator=gen)
+        fwd_launches, bwd_launches = cspn_halo_cuda.cuda_launches(k, with_sparse)
+        label = (f"[{n},8,{he},{w}] (S={spatial}, b{batch}) K={k} "
+                 f"{'with' if with_sparse else 'without'} keep, {fwd_launches} / {bwd_launches} "
+                 "CUDA launches")
+        ts = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
+        before = (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)
+        got = cspn_halo_cuda.cspn2d_halo_segment(*ts, k)
+        got_grads = torch.autograd.grad(got, [t for t in ts if t is not None], ct)
+        want = cspn_ref.halo_segment_reference(*inputs, k)
+        want_grads = plain_halo_vjp(*inputs, ct, k)
+        torch.cuda.synchronize()
+        if (cspn_halo_cuda.launches - before[0], cspn_halo_cuda.bwd_launches - before[1]) != (1, 1):
+            raise AssertionError(f"cspn2d_halo_segment {label}: not one run of each kernel")
+        max_err["cspn2d_halo_seg"] = max(max_err["cspn2d_halo_seg"],
+                                         _check_close(f"cspn2d_halo_seg {label}", got, want))
+        names = ("d gates", "d base") + (("d keep",) if with_sparse else ()) + ("d x",)
+        for what, a, e in zip(names, got_grads, want_grads):
+            max_err["cspn2d_halo_seg_bwd"] = max(max_err["cspn2d_halo_seg_bwd"], _check_close(
+                f"cspn2d_halo_seg_bwd {label} {what}", a, e))
+        del got, got_grads, want, want_grads, ts, inputs
+
+    (gates, base, keep, x), k = timed_inputs
+    n, _, he, _ = gates.shape
+    ct = torch.randn(n, he, w, device="cuda", generator=gen)
+    px = n * he * w
+    fwd_launches, bwd_launches = cspn_halo_cuda.cuda_launches(k, True)
+    timed = {
+        "cspn2d_halo_seg": (
+            time_ms(lambda: cspn_halo_cuda._launch(gates, base, keep, x, k)),
+            time_ms(lambda: cspn_ref.halo_segment_reference(gates, base, keep, x, k)),
+            # read 8 gates, base, keep, x; write 1; 8 FMA + the keep product
+            # and the base add per pixel per step
+            12 * px * 4, 18 * k * px, 290, fwd_launches),
+        "cspn2d_halo_seg_bwd": (
+            time_ms(lambda: cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)),
+            time_ms(lambda: plain_halo_vjp(gates, base, keep, x, ct, k)),
+            # read 8 gates, base, keep, x, cotangent; write 8 + 3; the replay's
+            # 17 flops a step, the reverse step's 33, fold and epilogue 24
+            23 * px * 4, (17 * (k - 1) + 33 * k + 24) * px, 398, bwd_launches),
+    }
+    rows = []
+    for kname, (ms, plain_ms, bytes_moved, ops, tpu_line, cuda_launches) in timed.items():
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
+        log(f"  {kname} [{n},8,{he},{w}] K={k} with keep ({cuda_launches} CUDA launches): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+            f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"cspn_tpu_torch/csrc/{kname}.cu",
+            "replaces": f"cspn_tpu/ops/cspn_pallas.py:{tpu_line}",
+            "launches": None,
+            "max_abs_err": max_err[kname],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes a CSPN segment
+            "timed_shape": [n, 8, he, w],
+            "timed_k": k,
+            "cuda_launches_per_segment": cuda_launches,
+        })
+    # the cost model's constants (parallel/halo.py), measured here
+    rows[0]["ps_per_px_step"] = rows[0]["ms"] * 1e9 / (k * px)
+    rows[0]["segment_fixed_us"] = segment_fixed_s() * 1e6
+    log(f"  choose_halo's constants: the forward segment {rows[0]['ps_per_px_step']:.4f} ps per "
+        f"pixel-step at K={k}; {rows[0]['segment_fixed_us']:.2f} us of host time per segment "
+        f"beyond its stencil (in-process S=2, [1,16,32]) on {name}")
+    return rows
+
+
 def served_rate(srv, reqs, name: str) -> float:
     """Frames/s of SERVE_WINDOW requests to `srv`, cycling through `reqs`,
     by the host's clock (DepthServer.predict returns host arrays, so each
@@ -1103,7 +1289,7 @@ def train_slice(name: str, kernel_ms: dict) -> dict:
             results[label] = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
     finally:
         torch.backends.cudnn.deterministic = False
-    check_against_oracle(*(results[k] for k in models))
+    check_against_oracle(*(results[k] for k in ("kernel", "plain", "float64")))
     del models, results
 
     # the step split in both decoder forms from the same weights, in turns
@@ -1303,7 +1489,7 @@ def stereo_train_slice(name: str, kernel_ms: dict) -> dict:
             results[label] = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
     finally:
         torch.backends.cudnn.deterministic = False
-    check_against_oracle(*(results[k] for k in models))
+    check_against_oracle(*(results[k] for k in ("kernel", "plain", "float64")))
     del models, results
 
     def loss_fn(out, d):
@@ -1481,7 +1667,7 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
             results[label] = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
     finally:
         torch.backends.cudnn.deterministic = False
-    check_against_oracle(*(results[k] for k in models))
+    check_against_oracle(*(results[k] for k in ("kernel", "plain", "float64")))
     del models, results
 
     torch.cuda.reset_peak_memory_stats()
@@ -1492,6 +1678,260 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
         f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the 2D "
         f"CSPN forward + cspn2d_bwd {100 * cspn_share:.2f}% of the step (their phase-3 times); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {name}")
+    return launches
+
+
+def check_sharded_op(name: str) -> None:
+    """Phase 11, op level: cspn2d_spatial at kitti_benchmark's b4 (24
+    steps) on in-process meshes of S = 2 and 4, with the cost model's K and
+    with K = 8 (three segments, two halo refreshes), both norms, with and
+    without sparse, against cspn2d (the unsharded kernels), forward and
+    backward under a random cotangent; exact segment-kernel launches and
+    exchanges; then the sharded (each K) and unsharded forward, and forward
+    + backward, timed at 8sum with sparse."""
+    from cspn_tpu_torch.ops.cspn import cspn2d
+    from cspn_tpu_torch.parallel import cspn2d_spatial, exchange_counts, halo, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, h, w = KITTI_SHAPE
+    zero = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def runs(mesh, halo_k, s, norm):
+        return {
+            "sharded": lambda g, b: cspn2d_spatial(g, b, s, mesh=mesh, steps=STEPS, norm_type=norm,
+                                                   halo=halo_k, channel_first=True),
+            "unsharded": lambda g, b: cspn2d(g, b, s, steps=STEPS, norm_type=norm,
+                                             channel_first=True),
+        }
+
+    for spatial, halo_k, norm, with_sparse in itertools.product(
+            SPATIAL, (None, HALO_K), ("8sum", "8sum_abs"), (True, False)):
+        mesh = make_mesh(spatial=spatial)
+        k = halo.effective_halo(halo_k, STEPS, h // spatial, w, n)
+        rounds = -(-STEPS // k)
+        expected = {
+            "sharded": (dict(zero, cspn2d_halo_seg=rounds, cspn2d_halo_seg_bwd=rounds),
+                        exchange_counts.expected_ppermutes_2d(STEPS, k, with_sparse) // 2),
+            "unsharded": (dict(zero, cspn2d_fwd=1, cspn2d_bwd=1), 0),
+        }
+        g, b, s = cspn_inputs(gen, n, h, w, with_sparse, negative=0.2)
+        ct = torch.randn(n, h, w, device="cuda", generator=gen)
+        outs = {}
+        for label, fn in runs(mesh, halo_k, s, norm).items():
+            gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            reset_launches()
+            out = fn(gk, bk)
+            grads = torch.autograd.grad(out, (gk, bk), ct)
+            torch.cuda.synchronize()
+            outs[label] = (out.detach(), *grads)
+            if (read_launches(), halo.exchanges) != expected[label]:
+                raise AssertionError(f"{label} S={spatial} K={k}: launched {read_launches()}, "
+                                     f"{halo.exchanges} exchanges; expected {expected[label]}")
+        case = (f"cspn2d_spatial S={spatial} K={k} ({rounds} segments) {norm} "
+                f"{'with' if with_sparse else 'without'} sparse [{n},{h},{w}]")
+        for what, a, e in zip(("out", "d guidance", "d blur"), outs["sharded"], outs["unsharded"]):
+            _check_close(f"{case} vs cspn2d, {what}", a, e)
+        del outs
+
+    g, b, s = cspn_inputs(gen, n, h, w, True)
+    ct = torch.randn(n, h, w, device="cuda", generator=gen)
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn(g, b)
+
+    def fwd_bwd(fn):
+        gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        torch.autograd.grad(fn(gk, bk), (gk, bk), ct)
+
+    for spatial, halo_k in itertools.product(SPATIAL, (None, HALO_K)):
+        k = halo.effective_halo(halo_k, STEPS, h // spatial, w, n)
+        t = {f"{label}_{kind}_ms": time_ms(lambda: run(fn), reps=5, warmup=1)
+             for label, fn in runs(make_mesh(spatial=spatial), halo_k, s, "8sum").items()
+             for kind, run in (("fwd", fwd), ("fwd_bwd", fwd_bwd))}
+        log(f"  S={spatial} K={k} at [{n},{h},{w}], 8sum with sparse: sharded forward "
+            f"{t['sharded_fwd_ms']:.4f} ms, forward + backward {t['sharded_fwd_bwd_ms']:.4f} ms; "
+            f"unsharded (cspn2d_tiled; cspn2d_fwd + cspn2d_bwd) {t['unsharded_fwd_ms']:.4f} ms, "
+            f"{t['unsharded_fwd_bwd_ms']:.4f} ms on {name}")
+    log("  every case within tolerance; launches and exchanges exact")
+
+
+def sharded_kitti_slice(name: str) -> dict:
+    """Phase 11, the depth model: kitti_benchmark's ResNet-18 CSPN-UNet with
+    its CSPN rows over an in-process mesh of S = 2 (CSPNUNet(spatial_mesh=)),
+    against the unsharded model with the same weights: eval forwards at b1
+    and b4 through make_eval_step, one b4 train step through
+    make_train_step (phase 5's rule against the unsharded float32 and the
+    float64 step); both timed.  Returns the kernels' launches on the
+    sharded model's runs."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.models.unet import cspn_unet_resnet18
+    from cspn_tpu_torch.parallel import exchange_counts, halo, make_mesh
+    from cspn_tpu_torch.train.evaluate import build_model, make_eval_step
+    from cspn_tpu_torch.train.loop import make_train_step
+    from cspn_tpu_torch.train.loss import masked_l1_loss
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.utils.profiling import calibrated_model, train_step_split_ms
+
+    cfg = _kitti_cfg()
+    h, w = cfg.data.crop_hw
+    mesh = make_mesh(spatial=2)
+    model = calibrated_model(cfg, calib_batch=KITTI_BUCKETS[-1])
+    sharded = cspn_unet_resnet18(cspn_steps=cfg.model.cspn_steps,
+                                 cspn_norm_type=cfg.model.cspn_norm_type, spatial_mesh=mesh).cuda()
+    sharded.load_state_dict(model.state_dict())
+    sharded.eval()
+    per_fwd = d2s_per_forward(sharded)
+    ds = SyntheticDepthDataset(length=KITTI_BUCKETS[-1], hw=(h, w), n_sample=cfg.data.n_sample,
+                               seed=3, split="val")
+    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(len(ds))])).cuda()
+    gt = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(len(ds))])).cuda()
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def expect(launches, pairs, want, k, label):
+        want = dict(dict.fromkeys(KERNEL_NAMES, 0), **want)
+        want_pairs = exchange_counts.expected_ppermutes_2d(STEPS, k, True) // 2
+        log(f"  {label}: launches {launches}, {pairs} exchanges (expected {want}, {want_pairs})")
+        if launches != want or pairs != want_pairs:
+            raise AssertionError(f"{label}: launched {launches}, {pairs} exchanges")
+        for kname, v in launches.items():
+            total[kname] += v
+
+    step_s, step_u = make_eval_step(sharded), make_eval_step(model)
+    for b in KITTI_BUCKETS:
+        k = halo.effective_halo(None, STEPS, h // 2, w, b)
+        rounds = -(-STEPS // k)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = step_s(x[:b], gt[:b])[0]
+        torch.cuda.synchronize()
+        expect(read_launches(), halo.exchanges, {"cspn2d_halo_seg": rounds, "d2s": per_fwd}, k,
+               f"sharded eval b{b} (K={k})")
+        want = step_u(x[:b], gt[:b])[0]
+        if got.shape != (b, h, w) or not torch.isfinite(got).all():
+            raise AssertionError(f"sharded eval b{b}: shape {tuple(got.shape)} or non-finite")
+        _check_close(f"sharded vs unsharded eval forward b{b}", got, want)
+    with torch.inference_mode():
+        fwd = {label: time_ms(lambda: m(x), reps=5, warmup=1)
+               for label, m in (("sharded", sharded), ("unsharded", model),
+                                ("unsharded again", model), ("sharded again", sharded))}
+    log(f"  b{len(x)} eval forward, sharded (S=2) / unsharded: " + ", ".join(
+        f"{label} {ms:.3f} ms" for label, ms in fwd.items()) + f" on {name}")
+
+    # one b4 train step: sharded, unsharded float32, unsharded float64 (the
+    # oracle), from the same weights, deterministic cuDNN, the ground truth
+    # 1 to 2 from each prediction (phase 9)
+    models = {"kernel": sharded, "plain": build_model(cfg, train=True, device="cuda", seed=None),
+              "float64": build_model(_kitti_cfg(backend="reference"), train=True, device="cuda",
+                                     seed=None).to(torch.float64)}
+    for m in models.values():
+        m.load_state_dict(model.state_dict())
+        m.train()
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    k = halo.effective_halo(None, STEPS, h // 2, w, len(x))
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            pred = sharded(x)
+        side = torch.where(torch.rand(pred.shape, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+        depth = pred + side * (1.0 + torch.rand(pred.shape, device="cuda", generator=gen))
+        for label, m in models.items():
+            dt = next(m.parameters()).dtype
+            step = make_train_step(m, make_optimizer(m.parameters()))
+            torch.cuda.synchronize()
+            reset_launches()
+            loss, _ = step(x.to(dt), depth.to(dt))
+            torch.cuda.synchronize()
+            if label == "kernel":
+                rounds = -(-STEPS // k)
+                expect(read_launches(), halo.exchanges,
+                       {"cspn2d_halo_seg": rounds, "cspn2d_halo_seg_bwd": rounds, "d2s": per_fwd,
+                        "s2d": per_fwd}, k, f"sharded train step b{len(x)} (K={k})")
+            results[label] = (loss.item(), {n_: p.grad for n_, p in m.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check_against_oracle(results["kernel"], results["plain"], results["float64"])
+    del models["float64"], results
+    for label in ("sharded", "unsharded", "unsharded", "sharded"):
+        m = models["kernel" if label == "sharded" else "plain"]
+        split = train_step_split_ms(m, make_optimizer(m.parameters()), masked_l1_loss, x, depth)
+        log(f"  b{len(x)} train step, {label}: {split['step']:.3f} ms (forward + loss "
+            f"{split['forward']:.3f}, backward {split['backward']:.3f}, optimizer "
+            f"{split['optimizer']:.3f}) on {name}")
+    return total
+
+
+def sharded_stereo_slice(name: str) -> dict:
+    """Phase 11, the stereo model: PSMNetCSPN at StereoConfig width with the
+    cost volume's D (48) over an in-process mesh of S = 2, one b4 train step
+    through make_stereo_train_step against the unsharded float32 and
+    float64 steps (phase 5's rule); both timed.  Returns the kernels'
+    launches on the sharded step."""
+    from cspn_tpu_torch.models.stereo import PSMNetCSPN, smooth_l1_disparity_loss
+    from cspn_tpu_torch.parallel import exchange_counts, halo, make_mesh
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.train.stereo_loop import StereoConfig, build_stereo_model, make_stereo_train_step
+    from cspn_tpu_torch.utils.profiling import stereo_batch, train_step_split_ms
+
+    cfg = StereoConfig()
+    mesh = make_mesh(spatial=2)
+
+    def optimizer(m):
+        return make_optimizer(m.parameters(), cfg.lr, momentum=0.9, weight_decay=1e-4,
+                              nesterov=False)
+
+    plain = build_stereo_model(cfg, train=True, device="cuda", seed=0)
+    with torch.device("cuda"):
+        sharded = PSMNetCSPN(max_disp=cfg.max_disp, features=cfg.features,
+                             cspn_steps=cfg.cspn_steps, spatial_mesh=mesh)
+    oracle = build_stereo_model(cfg, train=True, device="cuda", seed=None,
+                                cspn_backend="reference").to(torch.float64)
+    models = {"kernel": sharded, "plain": plain, "float64": oracle}
+    for m in (sharded, oracle):
+        m.load_state_dict(plain.state_dict())
+        m.train()
+    left, right, disp = stereo_batch(cfg, cfg.batch_size, seed=0)
+    d = cfg.max_disp // 4
+    (_, d_ext, *plane), k = stereo_segment()  # the K phase 3 checked the 3D kernels at
+    if (d_ext - 2 * k, *plane) != (d // 2, left.shape[1] // 4, left.shape[2] // 4):
+        raise AssertionError(f"STEREO_SHAPE {STEREO_SHAPE} is not this model's volume")
+    rounds = -(-STEPS // k)
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, m in models.items():
+            dt = next(m.parameters()).dtype
+            step = make_stereo_train_step(m, optimizer(m), cfg.max_disp)
+            torch.cuda.synchronize()
+            reset_launches()
+            loss, _ = step(left.to(dt), right.to(dt), disp.to(dt))
+            torch.cuda.synchronize()
+            if label == "kernel":
+                launches, pairs = read_launches(), halo.exchanges
+                want = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn3d_fwd=rounds, cspn3d_bwd=rounds)
+                want_pairs = exchange_counts.expected_ppermutes_nd(STEPS, k) // 2
+                log(f"  sharded stereo train step b{cfg.batch_size} (D={d} over S=2, K={k}): "
+                    f"launches {launches}, {pairs} exchanges (expected {want}, {want_pairs})")
+                if launches != want or pairs != want_pairs:
+                    raise AssertionError(f"sharded stereo step: launched {launches}, {pairs} "
+                                         "exchanges")
+            results[label] = (loss.item(), {n_: p.grad for n_, p in m.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check_against_oracle(results["kernel"], results["plain"], results["float64"])
+    del models, results, oracle
+
+    def loss_fn(out, dd):
+        return smooth_l1_disparity_loss(out, dd, cfg.max_disp)
+
+    for label in ("sharded", "unsharded", "unsharded", "sharded"):
+        m = sharded if label == "sharded" else plain
+        split = train_step_split_ms(m, optimizer(m), loss_fn, (left, right), disp)
+        log(f"  stereo b{cfg.batch_size} train step, {label}: {split['step']:.3f} ms (forward + "
+            f"loss {split['forward']:.3f}, backward {split['backward']:.3f}, optimizer "
+            f"{split['optimizer']:.3f}) on {name}")
     return launches
 
 
@@ -1565,16 +2005,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from cspn_tpu_torch import autotune_convs
     from cspn_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    autotune_convs("cuda")  # the entry points' conv policy, before the first convolution
-    log(f"[1/10] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
+    log(f"[1/11] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -1582,41 +2019,46 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/10] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/11] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/10] kernels against their plain versions")
+    log("[3/11] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
-            check_paddle2d_kernel(name), check_step_probe(name)]
+            check_paddle2d_kernel(name), check_step_probe(name), *check_halo_seg_kernels(name)]
     tiled["fwd_routes"] = time_fwd_routes(name)
     kernel_ms = {r["name"]: r["ms"] for r in rows}
     train_ms = {tuple(r["shape"]): r["train_kept_ms"] for r in tiled["fwd_routes"]}
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/10] nyu_eval served through DepthServer")
+    log("[4/11] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/10] nyu_train trained through Trainer.fit")
+    log("[5/11] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/10] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/11] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/10] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/11] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/10] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/11] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/10] kitti_benchmark trained through Trainer.fit")
+    log("[9/11] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/10] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/11] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
+
+    log("[11/11] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    check_sharded_op(name)
+    by_path["kitti_sharded"] = sharded_kitti_slice(name)
+    by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

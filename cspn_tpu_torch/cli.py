@@ -12,8 +12,9 @@ All run on `--device` (default cuda).  The stereo subcommands train on the
 synthetic stereo pairs unless --train-list names a Scene Flow manifest.
 The NYU/KITTI file datasets, export
 and the other subcommands wait for later slices (ROADMAP.md Queue 1), as do
-the train flags that raise: --dtype other than float32 (Queue 1 item 12),
---grad-reduce-dtype and a --mesh-* larger than 1 (items 8-9).
+the train flags that raise: --dtype other than float32 (Queue 1 item 3),
+--grad-reduce-dtype and a --mesh-* larger than 1 (item 2, data-parallel
+training).  --tf32 computes float32 convolutions in TF32 (default off).
 """
 
 from __future__ import annotations
@@ -40,6 +41,13 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--best-model-dir", default=None,
                    help="directory of <checkpoint>.pt (a torch.save state dict)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_tf32(p)
+
+
+def _add_tf32(p: argparse.ArgumentParser):
+    p.add_argument("--tf32", action="store_true",
+                   help="float32 convolutions and matmuls in TF32 on the card (default: IEEE "
+                        "float32; cspn_tpu_torch.set_conv_policy)")
 
 
 def _add_train_overrides(p: argparse.ArgumentParser):
@@ -133,7 +141,7 @@ def cmd_train(args):
 
         pretrained = load_torch_encoder_params(cfg.pretrained_path)
     trainer = Trainer(cfg, train_loader, val_loader, pretrained_params=pretrained,
-                      device=args.device)
+                      device=args.device, tf32=args.tf32)
     if cfg.resume:
         trainer.resume("best_model")
     with trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext():
@@ -144,7 +152,7 @@ def cmd_eval(args):
     from cspn_tpu_torch.train.evaluate import run_eval
 
     return run_eval(_build_config(args), runs=args.runs, max_batches=args.max_batches,
-                    device=args.device)
+                    device=args.device, tf32=args.tf32)
 
 
 def cmd_infer(args):
@@ -158,7 +166,7 @@ def cmd_infer(args):
 
     cfg = _build_config(args)
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    srv = load_server(cfg, buckets=buckets, device=args.device)
+    srv = load_server(cfg, buckets=buckets, device=args.device, tf32=args.tf32)
     ds = build_dataset(cfg, "val", seed=args.seed)
     h, w = ds[0]["rgbd"].shape[:2]
     srv.warmup(h, w)
@@ -218,7 +226,7 @@ def cmd_train_stereo(args):
     from cspn_tpu_torch.train.stereo_loop import StereoTrainer
 
     cfg, train_loader, val_loader = _build_stereo(args)
-    return StereoTrainer(cfg, train_loader, val_loader, device=args.device).fit()
+    return StereoTrainer(cfg, train_loader, val_loader, device=args.device, tf32=args.tf32).fit()
 
 
 def cmd_eval_stereo(args):
@@ -227,7 +235,7 @@ def cmd_eval_stereo(args):
     from cspn_tpu_torch.train.stereo_loop import StereoTrainer
 
     cfg, _, val_loader = _build_stereo(args)
-    trainer = StereoTrainer(cfg, val_loader, val_loader, device=args.device)
+    trainer = StereoTrainer(cfg, val_loader, val_loader, device=args.device, tf32=args.tf32)
     return trainer.run_eval(checkpoint=args.checkpoint, dump_images=args.dump_images)
 
 
@@ -279,6 +287,7 @@ def _add_stereo_args(p: argparse.ArgumentParser):
     p.add_argument("--root-dir", default=".")
     p.add_argument("--save-dir", default="result/stereo_cspn")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _add_tf32(p)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,6 +1,7 @@
 // The 2D CSPN forward's prep and step kernels, shared by cspn2d_fwd.cu
-// (the forward) and cspn2d_bwd.cu (its replay).  See cspn2d_fwd.cu for the
-// function they compute.
+// (the forward) and cspn2d_bwd.cu (its replay), and the backward's reverse
+// step, shared by cspn2d_bwd.cu and cspn2d_halo_seg_bwd.cu.  See
+// cspn2d_fwd.cu for the function they compute.
 
 #pragma once
 
@@ -94,6 +95,43 @@ __global__ void step_kernel(const float* __restrict__ gates,  // [N,8,H,W]
     if (inside(qi, qj, h, w)) acc = fmaf(g_px[d * hw], x_img[qi * w + qj], acc);
   }
   y[n * hw + idx] = acc;
+}
+
+// One reverse step: v = d x_{t+1} -> v_out = d x_t, accumulating the base
+// and gate cotangents of pixel p from x = x_t.
+__global__ void reverse_step_kernel(const float* __restrict__ gates,  // [N,8,H,W]
+                                    const float* __restrict__ x,      // x_t [N,H,W]
+                                    const float* __restrict__ v,      // [N,H,W]
+                                    float* __restrict__ v_out,        // [N,H,W]
+                                    float* __restrict__ gbar,         // [N,8,H,W]
+                                    float* __restrict__ bbar,         // [N,H,W]
+                                    int h, int w) {
+  const int hw = h * w;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= hw) return;
+  const long long n = blockIdx.y;
+  const int i = idx / w;
+  const int j = idx - i * w;
+  const float* x_img = x + n * hw;
+  const float* v_img = v + n * hw;
+  const float* g_img = gates + n * 8 * hw;
+  float* gb_px = gbar + n * 8 * hw + idx;
+  const float vp = v_img[idx];
+  bbar[n * hw + idx] += vp;
+  float acc = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    const int qi = i + kDy[d];
+    const int qj = j + kDx[d];
+    if (inside(qi, qj, h, w)) gb_px[d * hw] = fmaf(vp, x_img[qi * w + qj], gb_px[d * hw]);
+    const int ri = i - kDy[d];
+    const int rj = j - kDx[d];
+    if (inside(ri, rj, h, w)) {
+      const int r = ri * w + rj;
+      acc = fmaf(g_img[d * hw + r], v_img[r], acc);
+    }
+  }
+  v_out[n * hw + idx] = acc;
 }
 
 }  // namespace

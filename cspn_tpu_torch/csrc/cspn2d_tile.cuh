@@ -1,6 +1,7 @@
 // The K-step tile stencil shared by cspn2d_tiled.cu (the pytorch-semantics
-// 2D CSPN, PERF row 3) and paddle2d.cu (the paddle-semantics 2D CSPN, PERF
-// row 6).  See those files for the function each computes.
+// 2D CSPN, PERF row 3), cspn2d_halo_seg.cu (its K-step segment on a
+// halo-extended row block, PERF row 4) and paddle2d.cu (the paddle-semantics
+// 2D CSPN, PERF row 6).  See those files for the function each computes.
 //
 // One block owns a kTile x kTile interior of one map and computes it on the
 // interior extended by a kHalo-deep ring on all four sides (kExt x kExt).
@@ -42,13 +43,17 @@ __host__ __device__ constexpr int raster_dx(int d) { return (d < 4 ? d : d + 1) 
 // Runs k <= kHalo steps on the tile (blockIdx.x, blockIdx.y) of map
 // blockIdx.z, reading x_in and writing the interior of x_out.
 //   kPaddle = false (pytorch semantics, reference gate order):
-//     y = sum_d g_d x[p + off_d] + base            (g = keep * gate_d, from prep)
+//     y = sum_d g_d x[p + off_d] + base            (g = keep * gate_d)
 //   kPaddle = true (paddle semantics, raster gate order):
 //     y = c x[p] + sum_d w_d x[p + off_d],  c = 1 - sum_d w_d
 // gates [M,8,H,W], base [M,H,W] (null for paddle), x_in/x_out [M,H,W].
+// keep [M,H,W] is folded into each pixel's gates as they are loaded (the
+// halo segment's anchoring); null means 1, the gates as they are (the
+// tiled forward's prep has folded keep already; paddle has none).
 template <bool kPaddle>
 __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
                                            const float* __restrict__ base,
+                                           const float* __restrict__ keep,
                                            const float* __restrict__ x_in,
                                            float* __restrict__ x_out, int h, int w,
                                            int k) {
@@ -77,10 +82,11 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
     for (int d = 0; d < 8; ++d) g[p][d] = 0.0f;
     if (i >= 0 && i < h && j >= 0 && j < w) {
       const long long q = (long long)i * w + j;
+      const float kp = keep != nullptr ? keep[map * hw + q] : 1.0f;
       float sum = 0.0f;
 #pragma unroll
       for (int d = 0; d < 8; ++d) {
-        g[p][d] = g_map[d * hw + q];
+        g[p][d] = kp * g_map[d * hw + q];
         sum += g[p][d];
       }
       e[p] = kPaddle ? 1.0f - sum : base[map * hw + q];
@@ -121,10 +127,10 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
 
 // Runs `steps` steps as ceil(steps / kHalo) tile launches of `kernel`,
 // ping-ponging so that the last launch writes `out`.  kernel(gates, base,
-// x_in, x_out, h, w, k).  Returns the first launch error, else 0.
+// keep, x_in, x_out, h, w, k).  Returns the first launch error, else 0.
 template <typename Kernel>
-int launch_tiles(Kernel kernel, const float* gates, const float* base, const float* x0,
-                 float* out, float* x_scratch, int m, int h, int w, int steps,
+int launch_tiles(Kernel kernel, const float* gates, const float* base, const float* keep,
+                 const float* x0, float* out, float* x_scratch, int m, int h, int w, int steps,
                  cudaStream_t s) {
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, m);
   const dim3 block(kExt, kTileRows);
@@ -133,7 +139,7 @@ int launch_tiles(Kernel kernel, const float* gates, const float* base, const flo
   for (int l = 0; l < launches; ++l) {
     const int k = (l + 1) * kHalo <= steps ? kHalo : steps - l * kHalo;
     float* dst = ((launches - 1 - l) % 2 == 0) ? out : x_scratch;
-    kernel<<<grid, block, 0, s>>>(gates, base, src, dst, h, w, k);
+    kernel<<<grid, block, 0, s>>>(gates, base, keep, src, dst, h, w, k);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;

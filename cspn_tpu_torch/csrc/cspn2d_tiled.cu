@@ -46,9 +46,9 @@ namespace {
 
 __global__ void __launch_bounds__(kExt * kTileRows)
     cspn2d_tiled_kernel(const float* __restrict__ gates, const float* __restrict__ base,
-                        const float* __restrict__ x_in, float* __restrict__ x_out, int h,
-                        int w, int k) {
-  tile_steps<false>(gates, base, x_in, x_out, h, w, k);
+                        const float* __restrict__ keep, const float* __restrict__ x_in,
+                        float* __restrict__ x_out, int h, int w, int k) {
+  tile_steps<false>(gates, base, keep, x_in, x_out, h, w, k);
 }
 
 }  // namespace
@@ -74,6 +74,7 @@ extern "C" int cspn2d_tiled_f32(const float* guid, const float* blur, const floa
                                         norm_abs);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_tiles(cspn2d_tiled_kernel, gate_scratch, base_scratch, blur, out, x_scratch, n,
-                      h, w, steps, s);
+  // prep has folded keep into gate_scratch
+  return launch_tiles(cspn2d_tiled_kernel, gate_scratch, base_scratch, nullptr, blur, out,
+                      x_scratch, n, h, w, steps, s);
 }

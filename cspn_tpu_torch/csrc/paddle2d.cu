@@ -45,9 +45,9 @@ namespace {
 
 __global__ void __launch_bounds__(kExt * kTileRows)
     paddle2d_kernel(const float* __restrict__ gates, const float* __restrict__ base,
-                    const float* __restrict__ x_in, float* __restrict__ x_out, int h, int w,
-                    int k) {
-  tile_steps<true>(gates, base, x_in, x_out, h, w, k);
+                    const float* __restrict__ keep, const float* __restrict__ x_in,
+                    float* __restrict__ x_out, int h, int w, int k) {
+  tile_steps<true>(gates, base, keep, x_in, x_out, h, w, k);
 }
 
 }  // namespace
@@ -65,5 +65,6 @@ extern "C" int paddle2d_f32(const float* gates, const float* x0, float* out, flo
     return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * h * w,
                                             cudaMemcpyDeviceToDevice, s));
   }
-  return launch_tiles(paddle2d_kernel, gates, nullptr, x0, out, x_scratch, m, h, w, steps, s);
+  return launch_tiles(paddle2d_kernel, gates, nullptr, nullptr, x0, out, x_scratch, m, h, w, steps,
+                      s);
 }

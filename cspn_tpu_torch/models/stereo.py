@@ -7,7 +7,8 @@ cspn_tpu/models/stereo.py; BASELINE config 5).
     -> 3D conv hourglass                                [N,C,D/4,H/4,W/4]
     -> cost head (1 ch) + 3D guidance head (26 ch), one fused conv
     -> 3D CSPN refinement (ops/cspn.py:cspn_nd: the Hopper kernels on
-       CUDA tensors, paddle semantics)                  [N,1,D/4,H/4,W/4]
+       CUDA tensors, paddle semantics; with a spatial mesh, D split over it,
+       parallel/halo.py:cspn_nd_spatial)               [N,1,D/4,H/4,W/4]
     -> trilinear upsample (ops/resize.py)               [N,D,H,W]
     -> softmax disparity regression                     [N,H,W]
 
@@ -33,6 +34,7 @@ from torch import nn
 from cspn_tpu_torch.models.resnet import conv, he_normal_
 from cspn_tpu_torch.ops.cspn import cspn_nd
 from cspn_tpu_torch.ops.resize import resize_trilinear
+from cspn_tpu_torch.parallel.halo import cspn_nd_spatial
 
 # PSMNetCSPN.forward's stages, in order (utils/profiling.py times each)
 STAGES = ("feature extractor", "cost volume", "hourglass", "heads", "3D CSPN",
@@ -132,7 +134,10 @@ class PSMNetCSPN(nn.Module):
     `generator` seeds the JAX package's init of every conv (he_normal, the
     two heads lecun_normal); without one the convs keep PyTorch's default
     init.  `guidance_zero_init` zeroes the 26-gate guidance head (the CSPN
-    is then an exact identity).  `cspn_backend` is ops/cspn.py's."""
+    is then an exact identity).  `cspn_backend` is ops/cspn.py's.
+    `spatial_mesh` (parallel/mesh.py:make_mesh) runs the 3D CSPN with the
+    cost volume's D axis split over the mesh and halo exchange
+    (`spatial_halo` K; None: the cost model's), as the JAX model does."""
 
     def __init__(
         self,
@@ -143,6 +148,7 @@ class PSMNetCSPN(nn.Module):
         guidance_zero_init: bool = False,
         dtype=None,
         spatial_mesh=None,
+        spatial_halo: int | None = None,
         cspn_backend: str = "auto",
         generator: torch.Generator | None = None,
     ):
@@ -151,14 +157,12 @@ class PSMNetCSPN(nn.Module):
             raise NotImplementedError(
                 f"dtype {dtype!r} is not ported yet (ROADMAP.md Queue 1 item 12: bf16 mixed "
                 "precision); the stereo model runs float32")
-        if spatial_mesh is not None:
-            raise NotImplementedError(
-                "spatial_mesh is not ported yet (ROADMAP.md Queue 1 item 9: spatial sharding); "
-                "the stereo model runs on one device")
         self.max_disp = max_disp
         self.cspn_steps = cspn_steps
         self.use_cspn = use_cspn
         self.cspn_backend = cspn_backend
+        self.spatial_mesh = spatial_mesh
+        self.spatial_halo = spatial_halo
         self.feature = StereoFeatureExtractor(features)
         self.hourglass = Hourglass3D(2 * features, features)
         self.cost_head = conv3d(features, 1)
@@ -196,7 +200,11 @@ class PSMNetCSPN(nn.Module):
         heads = heads.to(torch.promote_types(heads.dtype, torch.float32))
         logits = heads[:, :1]
         mark(STAGES[3])
-        if self.use_cspn:
+        if self.use_cspn and self.spatial_mesh is not None:
+            logits = cspn_nd_spatial(heads[:, 1:], logits, mesh=self.spatial_mesh, kernel_size=3,
+                                     steps=self.cspn_steps, halo=self.spatial_halo,
+                                     channel_first=True)
+        elif self.use_cspn:
             logits = cspn_nd(heads[:, 1:], logits, kernel_size=3, steps=self.cspn_steps,
                              backend=self.cspn_backend, channel_first=True)
         mark(STAGES[4])

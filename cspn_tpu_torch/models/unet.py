@@ -3,9 +3,11 @@ cspn_tpu/models/unet.py).
 
 NCHW PyTorch form of cspn_pytorch/models/torch_resnet_cspn_nyu.py's
 `ResNet` (:278-376), with geometry derived from the input shape, the 2D
-CSPN through ops/cspn.py (the Hopper kernel on CUDA tensors), a no-CSPN
-baseline, resnet18..152 trunks, and the decoder in its subpixel form by
-default (models/decoder.py; `subpixel=False` is the plain unpool + conv).
+CSPN through ops/cspn.py (the Hopper kernel on CUDA tensors) or, with a
+`spatial_mesh`, with its rows split over the mesh (parallel/halo.py), a
+no-CSPN baseline, resnet18..152 trunks, and the decoder in its subpixel
+form by default (models/decoder.py; `subpixel=False` is the plain unpool +
+conv).
 
 Input: [N, H, W, 4] RGBD, as in the JAX package; channel 3 is the sparse
 depth used for anchoring.  Output: [N, H, W] dense depth.  Inside, NCHW.
@@ -27,6 +29,7 @@ from cspn_tpu_torch.models.decoder import (
 )
 from cspn_tpu_torch.models.resnet import ResNetEncoder, init_weights
 from cspn_tpu_torch.ops.cspn import cspn2d
+from cspn_tpu_torch.parallel.halo import cspn2d_spatial
 
 
 def ceil_half_chain(h: int, w: int, n: int = 5) -> list[tuple[int, int]]:
@@ -48,7 +51,10 @@ class CSPNUNet(ResNetEncoder):
     package's he_normal init of every conv (models/resnet.init_weights);
     without one the convs keep PyTorch's default init.  `subpixel` picks
     the decoder's form (models/decoder.py); both hold the same parameters
-    under the same keys."""
+    under the same keys.  `spatial_mesh` (parallel/mesh.py:make_mesh) runs
+    the CSPN with the image rows split over the mesh and halo exchange
+    (`spatial_halo` K; None: the cost model's), in place of `cspn_backend`
+    and `cspn_io_dtype`, as the JAX model does."""
 
     def __init__(
         self,
@@ -61,6 +67,8 @@ class CSPNUNet(ResNetEncoder):
         cspn_io_dtype=None,
         generator: torch.Generator | None = None,
         subpixel: bool = True,
+        spatial_mesh=None,
+        spatial_halo: int | None = None,
     ):
         super().__init__(block, layers)
         e = self.expansion
@@ -71,6 +79,8 @@ class CSPNUNet(ResNetEncoder):
         self.use_cspn = use_cspn
         self.cspn_backend = cspn_backend
         self.cspn_io_dtype = cspn_io_dtype
+        self.spatial_mesh = spatial_mesh
+        self.spatial_halo = spatial_halo
         self.gud_up_proj_layer1 = GudiUpProj(512 * e, 256 * e, subpixel)
         self.gud_up_proj_layer2 = GudiUpProjCat(256 * e, 128 * e, 128 * e, subpixel)
         self.gud_up_proj_layer3 = GudiUpProjCat(128 * e, 64 * e, 64 * e, subpixel)
@@ -106,6 +116,17 @@ class CSPNUNet(ResNetEncoder):
             heads = subpixel_unpool_conv(d, w_heads, *sizes[0])
         else:
             heads = F.conv2d(unpool2x(d, *sizes[0]), w_heads, padding=1)
+        if self.spatial_mesh is not None:
+            return cspn2d_spatial(
+                heads[:, 1:],
+                heads[:, 0],
+                sparse_depth,
+                mesh=self.spatial_mesh,
+                steps=self.cspn_steps,
+                norm_type=self.cspn_norm_type,
+                halo=self.spatial_halo,
+                channel_first=True,
+            )
         return cspn2d(
             heads[:, 1:],
             heads[:, 0].contiguous(),

@@ -63,6 +63,14 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "paddle2d.cu",
         {"paddle2d_f32": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p]},
     ),
+    "cspn2d_halo_seg": (
+        "cspn2d_halo_seg.cu",
+        {"cspn2d_halo_seg_f32": [_c_void_p] * 6 + [_c_int] * 6 + [_c_void_p]},
+    ),
+    "cspn2d_halo_seg_bwd": (
+        "cspn2d_halo_seg_bwd.cu",
+        {"cspn2d_halo_seg_bwd_f32": [_c_void_p] * 12 + [_c_int] * 4 + [_c_void_p]},
+    ),
     "step_probe": (
         "step_probe.cu",
         {"step_probe": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p]},

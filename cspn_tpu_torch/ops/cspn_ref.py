@@ -15,8 +15,9 @@ Two families, as in the JAX package:
    gates in the kernels' channel-first layout.
 
 This module is the plain version of the Hopper kernels in ops/cspn_cuda.py
-(2D) and ops/cspn3d_cuda.py (3D): the CPU path runs it, and chip_smoke.py
-holds the kernels against it on the card.  Everything here is
+(2D), ops/cspn_halo_cuda.py (the sharded 2D CSPN's segment,
+`halo_segment_reference`) and ops/cspn3d_cuda.py (3D): the CPU path runs
+it, and chip_smoke.py holds the kernels against it on the card.  Everything here is
 autograd-native and runs on any device.
 
 Layout, as in the JAX package: guidance [N, H, W, 8] (channels last),
@@ -113,6 +114,30 @@ def cspn2d_reference(
     gates, center = normalize_affinity_2d(guidance, norm_type)
     mask = torch.sign(sparse_depth) if sparse_depth is not None else None
     return propagate_2d(gates, center, blur_depth, mask, steps)
+
+
+def halo_segment_reference(
+    gates_cf: torch.Tensor,
+    base: torch.Tensor,
+    keep: torch.Tensor | None,
+    x: torch.Tensor,
+    k_steps: int,
+) -> torch.Tensor:
+    """`k_steps` fixed-gate steps on one halo-extended row block (the
+    spatially sharded CSPN's local segment; counterpart of
+    cspn_pallas.py:_halo_segment_ref).  One step:
+
+        y = sum_d gates_d * x[p + offset_d]      (zero beyond the block)
+        x = keep * y + base                      (y + base without keep)
+
+    gates_cf [n, 8, He, W] normalized gather-form gates (reference order);
+    base, keep, x [n, He, W].  Any float dtype, autograd-native.  The plain
+    version of the kernels in ops/cspn_halo_cuda.py."""
+    for _ in range(k_steps):
+        y = sum(gates_cf[:, d] * shift(x, off, axes=(-2, -1))
+                for d, off in enumerate(OFFSETS_2D_REFERENCE))
+        x = keep * y + base if keep is not None else y + base
+    return x
 
 
 # --- parity helpers (reference cspn.py:175-194; unused by its forward path

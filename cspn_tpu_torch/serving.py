@@ -105,12 +105,14 @@ class DepthServer:
 
 
 def load_server(cfg: RunConfig, checkpoint: str = "best_model",
-                buckets: tuple[int, ...] = (1, 8, 32, 128), device=None) -> DepthServer:
+                buckets: tuple[int, ...] = (1, 8, 32, 128), device=None,
+                tf32: bool = False) -> DepthServer:
     """A DepthServer over `load_eval_state(cfg, ...)` at the preset's float32,
-    with cuDNN's algorithm timing on a card (`autotune_convs`)."""
-    from cspn_tpu_torch import autotune_convs, resolve_device
+    with the convolution policy set for the card first (`set_conv_policy`:
+    cuDNN's algorithm timing, TF32 only with `tf32`)."""
+    from cspn_tpu_torch import resolve_device, set_conv_policy
     from cspn_tpu_torch.train.evaluate import load_eval_state
 
-    autotune_convs(resolve_device(device))
+    set_conv_policy(resolve_device(device), tf32=tf32)
     model = load_eval_state(cfg, checkpoint, device=device)
     return DepthServer(model, buckets=buckets)

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from cspn_tpu_torch import autotune_convs, resolve_device
+from cspn_tpu_torch import resolve_device, set_conv_policy
 from cspn_tpu_torch.config import RunConfig
 from cspn_tpu_torch.data import batches
 from cspn_tpu_torch.models.convert import load_jax_variables
@@ -106,8 +106,11 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
 
 
 def run_eval(cfg: RunConfig, runs: int = 5, checkpoint: str = "best_model",
-             max_batches: int | None = None, device=None, jax_variables=None) -> dict:
-    autotune_convs(resolve_device(device))
+             max_batches: int | None = None, device=None, jax_variables=None,
+             tf32: bool = False) -> dict:
+    """`runs` passes over the val split (module docstring); `tf32` is the
+    convolution policy's (cspn_tpu_torch.set_conv_policy)."""
+    set_conv_policy(resolve_device(device), tf32=tf32)
     model = load_eval_state(cfg, checkpoint, device=device, jax_variables=jax_variables)
     eval_step = make_eval_step(model, cfg.optim.loss)
     dev = next(model.parameters()).device

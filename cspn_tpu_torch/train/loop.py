@@ -12,8 +12,12 @@ reference train.py).
     plateau LR on val MAE.
 
 One device.  Data-parallel training (the JAX package's GSPMD and
-grad-reduce-dtype shard_map steps) and spatial sharding are not ported:
-`grad_reduce_dtype` and a mesh of more than one device raise.
+grad-reduce-dtype shard_map steps) is not ported: `grad_reduce_dtype` and
+a mesh of more than one device raise.  A mesh's spatial axis is a
+data-parallel concern here too: the JAX Trainer hands its mesh to no model
+(it replicates the batch over 'spatial'); a spatially sharded model is one
+a caller builds with `CSPNUNet(spatial_mesh=...)` and drives through
+`make_train_step`.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from cspn_tpu_torch import autotune_convs, resolve_device
+from cspn_tpu_torch import resolve_device, set_conv_policy
 from cspn_tpu_torch.config import RunConfig
 from cspn_tpu_torch.train import checkpoint as ckpt_lib
 from cspn_tpu_torch.train.evaluate import build_model, make_eval_step
@@ -35,8 +39,8 @@ from cspn_tpu_torch.train.state import TrainState, make_optimizer, partial_resto
 from cspn_tpu_torch.utils.profiling import StepTimer
 
 _PARALLEL_TODO = (
-    "is not ported yet (ROADMAP.md Queue 1 items 8-9: data-parallel and "
-    "spatially sharded training); the port trains on one device"
+    "is not ported yet (ROADMAP.md Queue 1 item 2: data-parallel training); "
+    "the port trains on one device"
 )
 
 
@@ -81,10 +85,11 @@ class _DeviceAverager:
 
 class Trainer:
     def __init__(self, cfg: RunConfig, train_loader, val_loader, pretrained_params=None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, tf32: bool = False):
         """`pretrained_params`: a state dict (e.g. models/torch_import.py's)
         merged into the initialized model by name and shape.  `seed` seeds
-        the model's init (the JAX package inits from PRNGKey(0))."""
+        the model's init (the JAX package inits from PRNGKey(0)).  `tf32`:
+        the convolution policy's (cspn_tpu_torch.set_conv_policy)."""
         if cfg.optim.grad_reduce_dtype:
             raise NotImplementedError(f"grad_reduce_dtype {_PARALLEL_TODO}")
         if (cfg.mesh_data or 1) != 1 or cfg.mesh_spatial != 1:
@@ -94,7 +99,7 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = resolve_device(device)
-        autotune_convs(self.device)
+        set_conv_policy(self.device, tf32=tf32)
         model = build_model(cfg, train=True, device=self.device, seed=seed)
         if pretrained_params is not None:
             partial_restore(model, pretrained_params, verbose=True)

@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cspn_tpu_torch import autotune_convs, resolve_device
+from cspn_tpu_torch import resolve_device, set_conv_policy
 from cspn_tpu_torch.models.stereo import PSMNetCSPN, end_point_error, smooth_l1_disparity_loss
 from cspn_tpu_torch.train import checkpoint as ckpt_lib
 from cspn_tpu_torch.train.state import make_optimizer
@@ -123,14 +123,16 @@ def make_stereo_eval_step(model: PSMNetCSPN, max_disp: float):
 
 
 class StereoTrainer:
-    def __init__(self, cfg: StereoConfig, train_loader, val_loader, device=None, seed: int = 0):
+    def __init__(self, cfg: StereoConfig, train_loader, val_loader, device=None, seed: int = 0,
+                 tf32: bool = False):
         """`seed` seeds the model's init (the JAX package inits from
-        PRNGKey(0))."""
+        PRNGKey(0)); `tf32` is the convolution policy's
+        (cspn_tpu_torch.set_conv_policy)."""
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = resolve_device(device)
-        autotune_convs(self.device)
+        set_conv_policy(self.device, tf32=tf32)
         self.model = build_stereo_model(cfg, train=True, device=self.device, seed=seed)
         params = [p for k, p in self.model.named_parameters()
                   if cfg.train_only is None or cfg.train_only in k]

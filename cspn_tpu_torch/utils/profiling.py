@@ -3,7 +3,8 @@
 torch.profiler).
 
     python -m cspn_tpu_torch.utils.profiling [--stereo | --kitti] [--train]
-        [--decoder subpixel|plain] [--batch N] [--reps 5] [--cudnn-heuristic] [--out FILE.json]
+        [--decoder subpixel|plain] [--batch N] [--reps 5] [--cudnn-heuristic] [--tf32]
+        [--out FILE.json]
 
   - `StepTimer`: per-step time (CUDA events on the card, the wall clock on
     the CPU) with a warm-up skip, median and frames/s;
@@ -37,8 +38,9 @@ events between them; `--stereo --train` splits a stereo train step.
 Prints the tables with the card's name and power limit and the peak device
 memory (with and without the first calls' cuDNN algorithm search), and
 writes them to `--out` as JSON.  The convolution policy is the entry
-points' (`cspn_tpu_torch.autotune_convs`: cuDNN times its algorithms), set
-before the first convolution; `--cudnn-heuristic` turns it off.
+points' (`cspn_tpu_torch.set_conv_policy`: cuDNN times its algorithms,
+IEEE float32), set before the first convolution; `--cudnn-heuristic`
+turns the timing off and `--tf32` turns TF32 on.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from cspn_tpu_torch import autotune_convs
+from cspn_tpu_torch import set_conv_policy
 from cspn_tpu_torch.config import PRESETS, RunConfig
 from cspn_tpu_torch.data import SyntheticDepthDataset
 from cspn_tpu_torch.train.evaluate import build_model, calibrate_bn_stats
@@ -407,6 +409,10 @@ def _warm_kinds(fn, reps: int):
     return kinds, top, {"peak_gib": max(first, warm), "warm_peak_gib": warm}
 
 
+def _precision(args) -> str:
+    return f"float32 (TF32 {'on' if args.tf32 else 'off'})"
+
+
 def _stereo(args, card: str) -> dict:
     from cspn_tpu_torch.models.stereo import smooth_l1_disparity_loss
     from cspn_tpu_torch.train.stereo_loop import (
@@ -421,9 +427,9 @@ def _stereo(args, card: str) -> dict:
     left, right, disp = stereo_batch(cfg, n)
     result = {"card": card, "batch": n, "hw": STEREO_HW, "max_disp": cfg.max_disp,
               "features": cfg.features, "cspn_steps": cfg.cspn_steps,
-              "cudnn_benchmark": not args.cudnn_heuristic}
+              "cudnn_benchmark": not args.cudnn_heuristic, "tf32": args.tf32}
     what = (f"PSMNetCSPN max_disp {cfg.max_disp}, features {cfg.features}, {cfg.cspn_steps} CSPN "
-            f"steps, batch {n}, {STEREO_HW[0]}x{STEREO_HW[1]}, float32 (TF32 off), "
+            f"steps, batch {n}, {STEREO_HW[0]}x{STEREO_HW[1]}, {_precision(args)}, "
             f"cudnn.benchmark={not args.cudnn_heuristic} on {card}")
     if args.train:
         model = build_stereo_model(cfg, train=True, device="cuda", seed=0)
@@ -469,7 +475,7 @@ def _depth(args, card: str) -> dict:
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(batch)])).cuda()
     subpixel = args.decoder == "subpixel"
     result = {"card": card, "batch": batch, "hw": hw, "decoder": args.decoder, "run": run,
-              "cudnn_benchmark": not args.cudnn_heuristic}
+              "cudnn_benchmark": not args.cudnn_heuristic, "tf32": args.tf32}
     form = f"{args.decoder} decoder, cudnn.benchmark={not args.cudnn_heuristic}"
     if args.train:
         from cspn_tpu_torch.train.loop import make_train_step
@@ -485,7 +491,7 @@ def _depth(args, card: str) -> dict:
         step = make_train_step(model, optimizer)
         kinds, top, mem = _warm_kinds(lambda: step(x, depth), args.reps)
         _print_tables(f"{run} train step, batch {batch}, {hw[0]}x{hw[1]}, {form}, "
-                      f"float32 (TF32 off) on {card}", "train step", "phase", split, "step", kinds,
+                      f"{_precision(args)} on {card}", "train step", "phase", split, "step", kinds,
                       top)
         return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
     model = calibrated_model(cfg, calib_batch=batch)
@@ -500,8 +506,8 @@ def _depth(args, card: str) -> dict:
             model(x)
 
     kinds, top, mem = _warm_kinds(forward, args.reps)
-    _print_tables(f"{run} forward, batch {batch}, {hw[0]}x{hw[1]}, {form}, float32 "
-                  f"(TF32 off) on {card}", "forward", "module", modules, "forward", kinds, top)
+    _print_tables(f"{run} forward, batch {batch}, {hw[0]}x{hw[1]}, {form}, "
+                  f"{_precision(args)} on {card}", "forward", "module", modules, "forward", kinds, top)
     return dict(result, modules_ms=modules, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
 
 
@@ -521,17 +527,18 @@ def main(argv=None) -> int:
                    help="profile kitti_benchmark (ResNet-18, 352x1216) instead of nyu_eval/nyu_train")
     p.add_argument("--cudnn-heuristic", action="store_true",
                    help="let cuDNN's heuristic pick the conv algorithms instead of timing them "
-                        "(cspn_tpu_torch.autotune_convs off)")
+                        "(cspn_tpu_torch.set_conv_policy's autotune off)")
+    p.add_argument("--tf32", action="store_true",
+                   help="float32 convolutions and matmuls in TF32, as the entry points' --tf32")
     p.add_argument("--out", default=None, help="write the tables here as JSON")
     args = p.parse_args(argv)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    autotune_convs("cuda", on=not args.cudnn_heuristic)  # before the first convolution
+    # before the first convolution
+    set_conv_policy("cuda", autotune=not args.cudnn_heuristic, tf32=args.tf32)
     torch.cuda.reset_peak_memory_stats()
     result = _stereo(args, card) if args.stereo else _depth(args, card)
     print(f"peak device memory {result['memory']['peak_gib']:.3f} GiB (cuDNN's algorithm search "

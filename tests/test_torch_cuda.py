@@ -1,5 +1,6 @@
 """The CUDA kernels -- the 2D CSPN forward (per-step and tiled) and
-backward, the paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
+backward, the sharded 2D CSPN's segment and its backward, the
+paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
 the subpixel decoder's depth-to-space and its adjoint, the step-body probe
 -- against their plain versions, on the card.
 
@@ -197,6 +198,7 @@ def test_entry_points_on_the_card_turn_on_cudnn_timing(gen, monkeypatch, tmp_pat
     assert torch.backends.cudnn.benchmark is False
     Trainer(cfg, None, None, device="cuda")
     assert torch.backends.cudnn.benchmark is True
+    assert not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
 
 
 def test_model_on_the_card_uses_the_kernel(gen):
@@ -550,3 +552,116 @@ def test_step_probe_measures_every_pair(gen):
         ("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
     assert all(r["blocks"] == torch.cuda.get_device_properties(0).multi_processor_count
                for r in results)
+
+
+# --- the sharded CSPN's segment (csrc/cspn2d_halo_seg.cu, _bwd.cu) --------
+
+
+def _segment(gen, n, he, w, with_keep):
+    gates = torch.randn(n, 8, he, w, device="cuda", generator=gen) / 4
+    base = torch.randn(n, he, w, device="cuda", generator=gen)
+    keep = None
+    if with_keep:
+        mask = torch.sign(torch.randn(n, he, w, device="cuda", generator=gen))
+        keep = 1.0 - torch.where(torch.rand(n, he, w, device="cuda", generator=gen) < 0.2, mask, 0.0)
+    x = torch.randn(n, he, w, device="cuda", generator=gen)
+    return gates, base, keep, x
+
+
+@pytest.mark.parametrize("with_keep", [True, False])
+@pytest.mark.parametrize("k_steps", [0, 1, 8, 11])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 12, 20), (3, 41, 70), (2, 192, 1216)])
+def test_halo_segment_kernels_match_plain(gen, shape, k_steps, with_keep):
+    """Forward and every gradient of the segment against the plain version
+    and its autograd under a random cotangent; K = 11 takes two tile
+    launches."""
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+
+    inputs = _segment(gen, *shape, with_keep)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    outs = {}
+    for label, fn in (("kernel", cspn_halo_cuda.cspn2d_halo_segment),
+                      ("plain", cspn_ref.halo_segment_reference)):
+        ts = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
+        before = (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)
+        out = fn(*ts, k_steps)
+        leaves = [t for t in ts if t is not None]
+        grads = torch.autograd.grad(out, leaves, ct, allow_unused=True)  # K = 0: out is x
+        grads = [torch.zeros_like(t) if d is None else d for t, d in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        n = int(label == "kernel")
+        assert (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches) == (before[0] + n,
+                                                                           before[1] + n)
+        outs[label] = (out, *grads)
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+def test_halo_segment_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+
+    gates, base, keep, x = _segment(gen, 2, 12, 20, True)
+    with pytest.raises(TypeError, match="float32"):
+        cspn_halo_cuda.cspn2d_halo_segment(gates.double(), base, keep, x, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cspn_halo_cuda.cspn2d_halo_segment(gates, base, keep, x.transpose(1, 2).contiguous()
+                                           .transpose(1, 2), 2)
+    with pytest.raises(ValueError, match=r"\[n,8,He,W\]"):
+        cspn_halo_cuda.cspn2d_halo_segment(gates[:, :7].contiguous(), base, keep, x, 2)
+    with pytest.raises(ValueError, match=r"must be \[2,12,20\]"):
+        cspn_halo_cuda.cspn2d_halo_segment(gates, base, keep[:, :11].contiguous(), x, 2)
+
+
+@pytest.mark.parametrize("spatial", [2, 4])
+def test_sharded_cspn_on_the_card_runs_the_segment_kernels(gen, spatial):
+    """cspn2d_spatial on the in-process mesh: one forward and one backward
+    kernel run per segment, and the result and gradients are the unsharded
+    plain CSPN's within 1e-4 x max."""
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+    from cspn_tpu_torch.parallel import cspn2d_spatial, halo, make_mesh
+
+    g, b, s = _inputs(gen, 2, 64, 96)
+    ct = torch.randn(2, 64, 96, device="cuda", generator=gen)
+    steps, k = 24, 8
+    want = _grads(lambda g, b, s: _plain(g, b, s, steps, "8sum"), g, b, s, ct)
+    before = (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)
+    got = _grads(lambda g, b, s: cspn2d_spatial(g, b, s, mesh=make_mesh(spatial=spatial),
+                                                steps=steps, halo=k, channel_first=True), g, b, s, ct)
+    torch.cuda.synchronize()
+    assert (cspn_halo_cuda.launches - before[0], cspn_halo_cuda.bwd_launches - before[1]) == (3, 3)
+    assert halo.effective_halo(k, steps, 64 // spatial, 96, 2) == k
+    for a, x in zip(got, want):
+        assert (a - x).abs().max().item() <= TOL * x.abs().max().item()
+
+
+def test_sharded_models_on_the_card_use_the_kernels(gen):
+    """A sharded resnet18 CSPN-UNet and PSMNetCSPN (S = 2) give the
+    unsharded models' outputs on the card, through the segment kernels and
+    the 3D kernels."""
+    from cspn_tpu_torch.models import unet
+    from cspn_tpu_torch.models.stereo import PSMNetCSPN
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+    from cspn_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(spatial=2)
+    x = torch.randn(2, 64, 96, 4, device="cuda", generator=gen)
+    depth = [unet.cspn_unet_resnet18(cspn_steps=8, spatial_mesh=m, spatial_halo=4,
+                                     generator=torch.Generator().manual_seed(0)).cuda().eval()
+             for m in (None, mesh)]
+    before = cspn_halo_cuda.launches
+    with torch.inference_mode():
+        want, got = (m(x) for m in depth)
+    assert cspn_halo_cuda.launches == before + 2
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+    with torch.device("cuda"):
+        stereo = [PSMNetCSPN(max_disp=32, features=8, cspn_steps=4, spatial_mesh=m,
+                             generator=torch.Generator("cuda").manual_seed(0)).eval()
+                  for m in (None, mesh)]
+    left, right = (torch.randn(2, 32, 48, 3, device="cuda", generator=gen) for _ in range(2))
+    before = cspn3d_cuda.launches
+    with torch.inference_mode():
+        want, got = (m(left, right) for m in stereo)
+    assert cspn3d_cuda.launches > before + 1
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()

@@ -71,9 +71,10 @@ def test_kitti_batches_pick_their_forward_kernel():
 def test_builders_turn_on_cudnn_timing_only_for_the_card(monkeypatch):
     """cuDNN's heuristic alone picks FFT convs ~25x slower than timed ones
     at kitti_benchmark's batch 4.  The conv policy is the entry points'
-    (autotune_convs): it sets cuDNN's algorithm timing for a CUDA device
-    only, and the model builders leave it as they find it."""
-    from cspn_tpu_torch import autotune_convs
+    (set_conv_policy): it sets cuDNN's algorithm timing and TF32 (off
+    unless asked, where PyTorch's own default computes convs in TF32) for a
+    CUDA device only, and the model builders leave it as they find it."""
+    from cspn_tpu_torch import set_conv_policy
     from cspn_tpu_torch.train.evaluate import build_model
     from cspn_tpu_torch.train.stereo_loop import StereoConfig, build_stereo_model
 
@@ -81,55 +82,95 @@ def test_builders_turn_on_cudnn_timing_only_for_the_card(monkeypatch):
         build_model(PRESETS["synthetic_smoke"], device="cpu")
         build_stereo_model(StereoConfig(max_disp=8, features=4, cspn_steps=1), device="cpu")
 
+    def policy():
+        return (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     build_both()
-    assert torch.backends.cudnn.benchmark is False
-    autotune_convs("cpu")
-    assert torch.backends.cudnn.benchmark is False
-    autotune_convs(torch.device("cuda", 0))
-    assert torch.backends.cudnn.benchmark is True
+    assert policy() == (False, True, True)
+    set_conv_policy("cpu")
+    assert policy() == (False, True, True)
+    set_conv_policy(torch.device("cuda", 0))
+    assert policy() == (True, False, False)
     build_both()
-    assert torch.backends.cudnn.benchmark is True
-    autotune_convs("cuda", on=False)
-    assert torch.backends.cudnn.benchmark is False
+    assert policy() == (True, False, False)
+    set_conv_policy("cuda", autotune=False, tf32=True)
+    assert policy() == (False, True, True)
 
 
 class _Built(Exception):
     pass
 
 
-def test_entry_points_set_the_conv_policy_before_building_the_model(monkeypatch):
-    """Trainer, StereoTrainer, run_eval and load_server each set the conv
-    policy for their device before their first model exists (cuDNN keeps
-    the algorithm it first chose for a shape)."""
+def _record_policy_and_stop_at_the_build(monkeypatch):
+    """Replace the conv policy with a recorder and every model builder of
+    the entry points with one that records and raises _Built."""
     import cspn_tpu_torch
     from cspn_tpu_torch.train import evaluate, loop, stereo_loop
-    from cspn_tpu_torch.serving import load_server
 
     calls = []
 
-    def policy(device, on=True):
-        calls.append(("policy", torch.device(device).type))
+    def policy(device, *, autotune=True, tf32=False):
+        calls.append(("policy", torch.device(device).type, autotune, tf32))
 
     def build(*args, **kwargs):
         calls.append(("build",))
         raise _Built
 
     for mod in (cspn_tpu_torch, loop, stereo_loop, evaluate):
-        monkeypatch.setattr(mod, "autotune_convs", policy)
+        monkeypatch.setattr(mod, "set_conv_policy", policy)
     for mod, fn in ((loop, "build_model"), (stereo_loop, "build_stereo_model"),
                     (evaluate, "load_eval_state")):
         monkeypatch.setattr(mod, fn, build)
+    return calls
+
+
+def test_entry_points_set_the_conv_policy_before_building_the_model(monkeypatch):
+    """Trainer, StereoTrainer, run_eval and load_server each set the conv
+    policy for their device before their first model exists (cuDNN keeps
+    the algorithm it first chose for a shape): cuDNN's timing on, and TF32
+    off unless the caller asks for it."""
+    from cspn_tpu_torch.train import evaluate, loop, stereo_loop
+    from cspn_tpu_torch.serving import load_server
+
+    calls = _record_policy_and_stop_at_the_build(monkeypatch)
     entry_points = (
-        lambda: loop.Trainer(PRESETS["synthetic_smoke"], None, None, device="cpu"),
-        lambda: stereo_loop.StereoTrainer(stereo_loop.StereoConfig(), None, None, device="cpu"),
-        lambda: evaluate.run_eval(PRESETS["synthetic_smoke"], device="cpu"),
-        lambda: load_server(PRESETS["synthetic_smoke"], device="cpu"),
+        lambda **kw: loop.Trainer(PRESETS["synthetic_smoke"], None, None, device="cpu", **kw),
+        lambda **kw: stereo_loop.StereoTrainer(stereo_loop.StereoConfig(), None, None,
+                                               device="cpu", **kw),
+        lambda **kw: evaluate.run_eval(PRESETS["synthetic_smoke"], device="cpu", **kw),
+        lambda **kw: load_server(PRESETS["synthetic_smoke"], device="cpu", **kw),
     )
     for entry in entry_points:
-        calls.clear()
-        try:
-            entry()
-        except _Built:
-            pass
-        assert calls == [("policy", "cpu"), ("build",)]
+        for kw, tf32 in (({}, False), ({"tf32": True}, True)):
+            calls.clear()
+            try:
+                entry(**kw)
+            except _Built:
+                pass
+            assert calls == [("policy", "cpu", True, tf32), ("build",)]
+
+
+def test_cli_tf32_switch_reaches_the_policy(monkeypatch, tmp_path):
+    """`--tf32` on train, eval, infer, train-stereo and eval-stereo is the
+    one switch: without it every subcommand sets TF32 off, with it on."""
+    from cspn_tpu_torch import cli
+
+    calls = _record_policy_and_stop_at_the_build(monkeypatch)
+    depth = ["--preset", "synthetic_smoke", "--dataset", "synthetic", "--device", "cpu"]
+    stereo = ["--device", "cpu", "--max-disp", "8", "--height", "16", "--width", "24",
+              "--train-size", "4", "--save-dir", str(tmp_path)]
+    commands = (["train", *depth, "--save-dir", str(tmp_path)], ["eval", *depth],
+                ["infer", *depth], ["train-stereo", *stereo], ["eval-stereo", *stereo])
+    for argv in commands:
+        for extra, tf32 in (([], False), (["--tf32"], True)):
+            calls.clear()
+            args = cli.build_parser().parse_args(argv + extra)
+            try:
+                args.fn(args)
+            except _Built:
+                pass
+            assert calls == [("policy", "cpu", True, tf32), ("build",)], argv + extra
