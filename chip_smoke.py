@@ -64,7 +64,16 @@ Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
 plain versions at the stereo shape [4,48,64,128] (and an odd [2,5,13,17]
 with C=2, all-zero gates in a corner, and the sharded stereo path's
-segment: its S = 2 blocks stacked, D / 2 + 2K deep, K steps), and the
+segment: its S = 2 blocks stacked, D / 2 + 2K deep, K steps), the states
+a training forward keeps for the backward too, and the backward run twice
+on them bit for bit; it times both at every path's shape (stereo b4,
+demo3d, the sharded segment; cspn3d_path_shapes), counts their CUDA
+launches per call with torch.profiler and holds them to 1 forward, 2
+backward, splits the backward's two kernels, fits the forward's device
+time as fixed + per volume-step (through 4 and 24 steps) beside the same
+slope on a grid with one warp of work a block (BARRIER_SHAPE: the grid
+barrier and a step's latency), and fits the sharded segment's per
+voxel-step cost (choose_halo's 3D constant); and the
 depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
 shapes, an odd one with C=1, and in float64 and bfloat16; and it times
@@ -123,6 +132,10 @@ STEREO_SHAPE = (4, 48, 64, 128)  # N*C, D, H, W: the stereo model's b4 quarter-r
 STEREO_EVAL_FRAMES = 8
 STEREO_TRAIN_FRAMES = 16  # 4 train steps of batch 4
 STEPS = 24
+# a 3D volume that gives the sweep a full grid with one warp of work a block
+# (132 blocks of 4 x 32 voxels on an H100): its per-step slope is the grid
+# barrier and one step's latency
+BARRIER_SHAPE = (1, 4, 33, 128)
 # the depth-to-space calls of a b8 nyu_eval forward (ResNet-50, 228x304):
 # (stage, input [N, 4C, H, W], crop, calls per forward); layers 1-4 run it
 # for conv1 and sc_conv1, the fused 9-channel head once
@@ -461,9 +474,68 @@ def cspn3d_cases():
             (f"sharded segment (S=2, K={k})", seg_shape, k, False))
 
 
+def cspn3d_path_shapes():
+    """(path, (M, D, H, W), steps) of every path that runs the 3D kernels:
+    the stereo b4 volume (stereo_eval, stereo_train), the demo's
+    (demo3d) and the sharded stereo segment (stereo_sharded) at its K."""
+    seg_shape, k = stereo_segment()
+    return (("stereo b4", STEREO_SHAPE, STEPS), ("demo3d", (3, 48, 64, 128), STEPS),
+            (f"stereo_sharded segment (K={k})", seg_shape, k))
+
+
+def cspn3d_step_fit(shape, lo: int = 4, hi: int = STEPS) -> tuple[float, float]:
+    """The forward's device time as fixed + steps x per-step cost, fitted
+    through `lo` and `hi` steps (CUDA events, median of 21 each).  Returns
+    (fixed ms: the launch and the load of the gates, per volume-step us:
+    one step's work and one grid barrier)."""
+    from cspn_tpu_torch.ops import cspn3d_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m, d, h, w = shape
+    gates, x0 = gates3d(gen, m, d, h, w), torch.randn(shape, device="cuda", generator=gen)
+    t_hi, t_lo = (time_ms(lambda: cspn3d_cuda._launch(gates, x0, n)) for n in (hi, lo))
+    per_step_ms = (t_hi - t_lo) / (hi - lo)
+    return t_lo - lo * per_step_ms, per_step_ms * 1e3 / m
+
+
+def cspn3d_profile(fn, reps: int = 5) -> dict:
+    """The 3D kernels' CUDA launches in one call of `fn`, by kernel, with
+    their device ms a call (torch.profiler over `reps` calls): the launches
+    counted here, not taken from the wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        for key in ("cspn3d_fwd_sweep_kernel", "cspn3d_adj_sweep_kernel", "cspn3d_gate_grad_kernel"):
+            if key in e.key:
+                us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                k = found.setdefault(key, {"launches": 0.0, "ms": 0.0})
+                k["launches"] += e.count / reps
+                k["ms"] += us / 1e3 / reps
+    return found
+
+
+def cspn3d_launches_per_call(fn, want: int, what: str) -> tuple[int, dict]:
+    """The CUDA launches of one call of `fn` (cspn3d_profile), held to
+    `want` (ops/cspn3d_cuda.py:cuda_launches_per_call)."""
+    found = cspn3d_profile(fn)
+    counted = sum(k["launches"] for k in found.values())
+    if counted != want:
+        raise AssertionError(f"{what}: {counted} CUDA launches a call, expected {want}: {found}")
+    return int(counted), found
+
+
 def check_cspn3d_kernel(name: str) -> dict:
-    """Phase 3: the 3D CSPN forward kernel against its plain version."""
+    """Phase 3: the 3D CSPN forward kernel against its plain version, and
+    its times at every path's shape."""
     from cspn_tpu_torch.ops import cspn3d_cuda, cspn_ref
+    from cspn_tpu_torch.parallel import halo
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     max_err = 0.0
@@ -475,6 +547,17 @@ def check_cspn3d_kernel(name: str) -> dict:
         torch.cuda.synchronize()
         max_err = max(max_err, _check_close(f"cspn3d_fwd {label} [{m},26,{d},{h},{w}] steps={steps}",
                                             got, want))
+        # the states a training forward keeps for the backward
+        out, states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)
+        want_states = [x0]
+        for _ in range(steps - 1):
+            want_states.append(cspn_ref.propagate_nd_reference(gates, want_states[-1], 1))
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise AssertionError(f"cspn3d_fwd {label}: keeping the states changed the output")
+        if steps > 1:
+            max_err = max(max_err, _check_close(f"cspn3d_fwd {label} kept states x_1..x_{steps - 1}",
+                                                states, torch.stack(want_states[1:])))
     guide, feat = stereo_volume_inputs(gen, 2)
     got = cspn3d_cuda.cspn3d_cuda(guide, feat, steps=STEPS)
     want = cspn_ref.cspn_nd_reference(guide, feat, steps=STEPS)
@@ -482,19 +565,53 @@ def check_cspn3d_kernel(name: str) -> dict:
     max_err = max(max_err, _check_close(f"cspn3d_fwd odd [2,5,13,17] C=2 (cspn_nd) steps={STEPS}",
                                         got, want))
 
+    by_shape = {}
+    for label, (m, d, h, w), steps in cspn3d_path_shapes():
+        gates = gates3d(gen, m, d, h, w)
+        x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        plan = cspn3d_cuda.device_plan(gates.device, d, h, w)
+        # without states (eval, serving): two state buffers in turn; kept
+        # (training): x_1..x_{T-1} written for the backward
+        ms = time_ms(lambda: cspn3d_cuda._launch(gates, x0, steps))
+        kept = time_ms(lambda: cspn3d_cuda._launch(gates, x0, steps, keep_states=True))
+        by_shape[label] = {"shape": [m, 26, d, h, w], "steps": steps, "ms": ms, "kept_states_ms": kept}
+        log(f"  cspn3d_fwd {label} [{m},26,{d},{h},{w}] steps={steps}: {ms:.4f} ms, keeping its "
+            f"states {kept:.4f} ms; {plan.blocks} blocks of {cspn3d_cuda.SLAB}x{plan.cols} voxels, "
+            f"gate planes {plan.n_smem} in shared memory, {plan.n_l2} from L2 on {name}")
     m, d, h, w = STEREO_SHAPE
     gates = gates3d(gen, m, d, h, w)
     x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
-    kernel_ms = time_ms(lambda: cspn3d_cuda._launch(gates, x0, STEPS))
+    kernel_ms, kept_ms = by_shape["stereo b4"]["ms"], by_shape["stereo b4"]["kept_states_ms"]
     plain_ms = time_ms(lambda: cspn_ref.propagate_nd_reference(gates, x0, STEPS), reps=5, warmup=1)
+    fwd_launches, _ = cspn3d_launches_per_call(lambda: cspn3d_cuda._launch(gates, x0, STEPS),
+                                               cspn3d_cuda.cuda_launches_per_call(STEPS)[0],
+                                               "cspn3d_fwd at the stereo b4 volume")
+    fixed_ms, step_us = cspn3d_step_fit(STEREO_SHAPE)
+    # a full grid with one warp of work a block: the barrier and a step's latency
+    barrier_us = cspn3d_step_fit(BARRIER_SHAPE)[1]
+    # choose_halo's 3D terms on the sharded stereo segment: per voxel-step
+    # (T3D_STEP_S_PER_VOX) and the segment's fixed cost beside the model's
+    # reload of 26 + 3 planes
+    seg_shape, k = stereo_segment()
+    seg_fixed_ms, seg_us = cspn3d_step_fit(seg_shape)
+    seg_voxels = seg_shape[1] * seg_shape[2] * seg_shape[3]
+    seg_ps = seg_us * 1e6 / seg_voxels
+    reload_ms = 29 * seg_shape[0] * seg_voxels * 4 / halo.HBM_BPS * 1e3
+    log(f"  cspn3d_fwd sharded segment {list(seg_shape)} (K={k}): fitted through 4 and {STEPS} steps "
+        f"{seg_fixed_ms:.4f} ms fixed (the model's reload {reload_ms:.4f}) + {seg_us:.3f} us a "
+        f"volume-step = {seg_ps:.2f} ps per voxel-step (choose_halo's T3D_STEP_S_PER_VOX "
+        f"{halo.T3D_STEP_S_PER_VOX * 1e12:.2f}) on {name}")
     voxels = m * d * h * w
     bytes_moved = 28 * voxels * 4  # read 26 gates + x0, write 1
     ops = (54 * STEPS + 26) * voxels  # 27 FMA per voxel per step, the centre sum once
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn3d_fwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms "
-        f"({kernel_ms * 1e9 / (STEPS * voxels):.4f} ps per voxel-step, choose_halo's 3D "
-        f"constant), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    log(f"  cspn3d_fwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms (keeping its "
+        f"states {kept_ms:.4f}; {kernel_ms * 1e9 / (STEPS * voxels):.4f} ps per voxel-step), "
+        f"{fwd_launches} CUDA launch per call (torch.profiler); fitted through 4 and {STEPS} steps "
+        f"{fixed_ms:.4f} ms fixed + {step_us:.3f} us a volume-step, of which the grid barrier and "
+        f"a step's latency {barrier_us:.3f} us (the same slope on {BARRIER_SHAPE}, one warp a "
+        f"block); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, "
+        f"operations {ops_ms:.4f} ms) on {name}")
     return {
         "name": "cspn3d_fwd",
         "route": "cuda",
@@ -507,6 +624,14 @@ def check_cspn3d_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes a 24-step 3D CSPN
+        "kept_states_ms": kept_ms,  # the training forward, which keeps x_1..x_{T-1}
+        "cuda_launches_per_call": fwd_launches,  # counted by torch.profiler in this run
+        "fixed_ms": fixed_ms,
+        "volume_step_us": step_us,
+        "barrier_us": barrier_us,
+        "segment_voxel_step_ps": seg_ps,
+        "segment_fixed_ms": seg_fixed_ms,
+        "ms_by_path": by_shape,
     }
 
 
@@ -520,7 +645,8 @@ def plain_vjp3d(gates, x0, ct, steps=STEPS):
 
 def check_cspn3d_bwd_kernel(name: str) -> dict:
     """Phase 3: the 3D CSPN backward kernel against autograd of the plain
-    version, under a random cotangent."""
+    version, under a random cotangent, and its times at every path's
+    shape."""
     from cspn_tpu_torch.ops import cspn3d_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -547,22 +673,47 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
         max_err = max(max_err, _check_close(
             f"cspn3d_bwd odd [2,5,13,17] C=2 (cspn_nd) steps={STEPS} {what}", a, b))
 
-    m, d, h, w = STEREO_SHAPE
-    gates = gates3d(gen, m, d, h, w)
-    x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
-    ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
-    kernel_ms = time_ms(lambda: cspn3d_cuda._launch_bwd(gates, x0, ct, STEPS))
+    by_shape = {}
+    for label, (m, d, h, w), steps in cspn3d_path_shapes():
+        gates = gates3d(gen, m, d, h, w)
+        x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
+        ms = time_ms(lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps))
+        counted, split = cspn3d_launches_per_call(
+            lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps),
+            cspn3d_cuda.cuda_launches_per_call(steps)[1], f"cspn3d_bwd {label}")
+        by_shape[label] = {"shape": [m, 26, d, h, w], "steps": steps, "ms": ms,
+                           "cuda_launches_per_call": counted,
+                           "split_ms": {k: v["ms"] for k, v in split.items()}}
+        log(f"  cspn3d_bwd {label} [{m},26,{d},{h},{w}] steps={steps}: {ms:.4f} ms on the "
+            f"forward's states; {counted} CUDA launches a call, by torch.profiler reverse sweep "
+            f"{split['cspn3d_adj_sweep_kernel']['ms']:.4f} ms, gate cotangents "
+            f"{split['cspn3d_gate_grad_kernel']['ms']:.4f} ms on {name}")
+        if label == "stereo b4":
+            # deterministic: gather form, no atomics
+            again = cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)
+            first = cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("cspn3d_bwd is not deterministic on the same states")
+            main = (gates, x0, ct)
+    gates, x0, ct = main
+    kernel_ms = by_shape["stereo b4"]["ms"]
     plain_ms = time_ms(lambda: plain_vjp3d(gates, x0, ct), reps=5, warmup=1)
+    m, d, h, w = STEREO_SHAPE
     voxels = m * d * h * w
     # read 26 gates + x0 + cotangent, write 26 + 1; per voxel 54 flops per
-    # replay step, per reverse step and per step of gate cotangents, and
-    # the centre and cbar sums
+    # step of the forward, per reverse step and per step of gate
+    # cotangents, and the centre and cbar sums (the function's own work:
+    # the forward's kept states are a choice of this design)
     bytes_moved = 55 * voxels * 4
     ops = (54 * (STEPS - 1) + 54 * STEPS + 54 * STEPS + 52) * voxels
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn3d_bwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, plain "
-        f"(forward + autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    bwd_launches = by_shape["stereo b4"]["cuda_launches_per_call"]
+    log(f"  cspn3d_bwd [{m},26,{d},{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, "
+        f"{bwd_launches} CUDA launches per call (torch.profiler), bit-identical when run twice; plain (forward + "
+        f"autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, "
+        f"operations {ops_ms:.4f} ms) on {name}")
     return {
         "name": "cspn3d_bwd",
         "route": "cuda",
@@ -575,6 +726,8 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this VJP
+        "cuda_launches_per_call": bwd_launches,  # counted by torch.profiler in this run
+        "ms_by_path": by_shape,
     }
 
 
@@ -1498,7 +1651,7 @@ def stereo_train_slice(name: str, kernel_ms: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     split = train_step_split_ms(model_k, optimizer(model_k), loss_fn, (left, right), disp)
     n = left.shape[0]
-    cspn_share = (kernel_ms["cspn3d_fwd"] + kernel_ms["cspn3d_bwd"]) / split["step"]
+    cspn_share = (kernel_ms["cspn3d_fwd_kept"] + kernel_ms["cspn3d_bwd"]) / split["step"]
     log(f"  stereo train step (batch {n}, median of 5, CUDA events): {split['step']:.3f} ms = "
         f"{n * 1e3 / split['step']:.2f} frames/s; forward + loss {split['forward']:.3f} ms, "
         f"backward {split['backward']:.3f} ms, optimizer {split['optimizer']:.3f} ms; the two 3D "
@@ -2028,6 +2181,7 @@ def main() -> int:
             check_paddle2d_kernel(name), check_step_probe(name), *check_halo_seg_kernels(name)]
     tiled["fwd_routes"] = time_fwd_routes(name)
     kernel_ms = {r["name"]: r["ms"] for r in rows}
+    kernel_ms["cspn3d_fwd_kept"] = rows[2]["kept_states_ms"]  # the training forward
     train_ms = {tuple(r["shape"]): r["train_kept_ms"] for r in tiled["fwd_routes"]}
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])

@@ -3,94 +3,67 @@
 //
 // Replaces the TPU kernel cspn_tpu/ops/cspn3d_pallas.py:_bwd3_kernel,
 // launched there by affinity_propagate3d_fused_bwd.  Given the normalized
-// gates w [M,26,D,H,W], x_0 and the cotangent v_T of x_T it returns
-// (wbar, x0bar), what autograd of `steps` plain steps
-// (ops/cspn_ref.py:propagate_nd_reference) returns.  With
+// gates w [M,26,D,H,W], x_0, the forward's states x_1..x_{T-1} and the
+// cotangent v_T of x_T it returns (wbar, x0bar), what autograd of `steps`
+// plain steps (ops/cspn_ref.py:propagate_nd_reference) returns.  With
 // c = 1 - sum_d w_d (all 26 gates, border ones too):
 //
 //   reverse   v_t[q]   = c[q] v_{t+1}[q] + sum_d w_d[q - off_d] v_{t+1}[q - off_d]
 //   gates     wbar_d[p] = sum_t v_{t+1}[p] (x_t[p + off_d] - x_t[p])
-//             (= sum_t v_{t+1} x_t[p + off_d] - cbar, cbar = sum_t v_{t+1} x_t,
-//              with x_t[p + off_d] = 0 outside the volume)
+//             (x_t[p + off_d] = 0 outside the volume)
 //   x0bar     = v_0
 //
-// Every launch is in gather form: a thread writes only its own voxel, so
+// Both launches are in gather form: a thread writes only its own voxel, so
 // there are no atomics and the result is deterministic.
 //
 // What bounds it on this card.  The fused op must read 26 gate planes, x_0
 // and the cotangent and write 26 + 1 planes: 55 f32 planes, 346 MB for the
 // stereo model's b4 48x64x128 volume, 0.103 ms at the H100 SXM's
-// 3.35 TB/s.  Its arithmetic, ~54 flops per voxel per replay step, 54 per
-// reverse step and 54 per step of gate cotangents (~6.1 GFLOP at 24
-// steps, 0.091 ms at 67 TFLOP/s of f32), is below that: bytes bound it.
+// 3.35 TB/s.  Its arithmetic, ~54 flops per voxel per step of the forward,
+// of the reverse sweep and of the gate cotangents (~6.1 GFLOP at 24 steps,
+// 0.091 ms at 67 TFLOP/s of f32), is below that: bytes bound it.  The
+// first version of this file replayed the forward (23 launches), wrote
+// the centre weight (one launch) and ran one launch per reverse step, each
+// rereading 26 gate planes around its voxels: 49 launches, ~9.5 GB at b4,
+// 3.84 ms on an H100.
 //
-// What this design does about it: little, on purpose; it is the simple,
-// correct first version.  The TPU kernel checkpoints every <= 4 steps
-// because of VMEM; here every state is kept: a replay writes x_1..x_{T-1}
-// (23 planes at 24 steps, 145 MB at b4) with the forward's step kernel, a
-// `center` launch writes c, and the T reverse launches write every
-// v_1..v_{T-1} (145 MB) and v_0 = x0bar.  The gate cotangents are NOT
-// accumulated in device memory on every reverse step, which would read and
-// write the 26 wbar planes T times (~330 MB a step, about two thirds of the
-// backward's bytes): one last launch walks t = 0..T-1 per voxel with 26
-// register accumulators, reading v_{t+1}[p] and x_t around p, and writes
-// each wbar plane once.  So the traffic is ~23 replay steps of 28 planes,
-// 24 reverse steps of 29 planes and ~75 planes for the gate cotangents,
-// ~9.5 GB at b4, ~27x the bound.  Not carried over: the TPU kernel's
-// lane-unshifted gate layout, its XLA-side centre input and its H/W
-// padding.  What it leaves open: fusing K reverse steps per launch, and
-// bf16 gates.
+// What this design does about it.  Two launches.  (1) The reverse sweep is
+// the forward's persistent cooperative kernel run as its adjoint
+// (cspn3d_common.cuh:sweep): a block reads, once per volume, the gates
+// w_d[q - off_d] that its voxels q gather (the transposed stencil) into
+// shared memory and sums its voxels' own gates into c, then steps v_T ->
+// v_0 with one grid barrier a step, writing v_1..v_{T-1} and x0bar.  There
+// is no replay: the forward kept x_1..x_{T-1} (ops/cspn3d_cuda.py keeps
+// them when a backward will follow), and no centre launch.  (2) The gate
+// cotangents are one gather pass: a thread walks t = 0..T-1 for its voxel
+// with 26 register accumulators, reading v_{t+1}[p] and x_t around p, and
+// writes each wbar plane once (~75 planes, 466 MB at b4); 26 accumulators
+// a voxel would not fit beside the window in the sweep.  On an H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 3) the b4 backward takes 1.32 ms, 2.9x
+// faster than the 49-launch version and 13x its bound: the reverse sweep
+// 0.86 ms, the gate pass 0.42 ms.  Not carried over: the TPU kernel's
+// lane-unshifted gate layout, its XLA-side centre input, its H/W padding
+// and its checkpoints every <= 4 steps (VMEM).  What it leaves open: bf16
+// gates, and folding the gate cotangents into the sweep.
 
-#include "cspn3d_common.cuh"  // kThreads3d, kGates3d, off_*, inside3, cspn3d_step_kernel
+#include "cspn3d_common.cuh"  // sweep, launch_sweep, CSPN3D_FOR_SMEM_PLANES, off_*, inside3
 
 namespace {
 
-// c[p] = 1 - sum_d w_d[p], summed in the forward step's order.
-__global__ void cspn3d_center_kernel(const float* __restrict__ gates,  // [M,26,D,H,W]
-                                     float* __restrict__ center,       // [M,D,H,W]
-                                     long long vol) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= vol) return;
-  const long long m = blockIdx.y;
-  const float* g = gates + m * kGates3d * vol + idx;
-  float gsum = 0.0f;
-#pragma unroll
-  for (int dd = 0; dd < kGates3d; ++dd) gsum += g[dd * vol];
-  center[m * vol + idx] = 1.0f - gsum;
-}
-
-// One reverse step v = v_{t+1} -> v_out = v_t.
-__global__ void cspn3d_adjoint_step_kernel(const float* __restrict__ gates,   // [M,26,D,H,W]
-                                           const float* __restrict__ center,  // [M,D,H,W]
-                                           const float* __restrict__ v,       // [M,D,H,W]
-                                           float* __restrict__ v_out,         // [M,D,H,W]
-                                           int d, int h, int w) {
-  const long long vol = (long long)d * h * w;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= vol) return;
-  const long long m = blockIdx.y;
-  const int k = (int)(idx % w);
-  const long long r = idx / w;
-  const int j = (int)(r % h);
-  const int i = (int)(r / h);
-  const float* vm = v + m * vol;
-  const float* gm = gates + m * kGates3d * vol;
-  float acc = center[m * vol + idx] * vm[idx];
-#pragma unroll
-  for (int dd = 0; dd < kGates3d; ++dd) {
-    const int z = i - off_z(dd), yy = j - off_y(dd), xx = k - off_x(dd);
-    if (inside3(z, yy, xx, d, h, w)) {
-      const long long q = ((long long)z * h + yy) * w + xx;
-      acc = fmaf(gm[dd * vol + q], vm[q], acc);
-    }
-  }
-  v_out[m * vol + idx] = acc;
+template <int kSmem, bool kLoop>
+__global__ void __launch_bounds__(kSweepThreads, 1)
+    cspn3d_adj_sweep_kernel(const float* __restrict__ gates, const float* ct, float* x0bar,
+                            float* vs, int m, int d, int h, int w, int steps, int nslots,
+                            int parts, int cols) {
+  sweep<kSmem, true, kLoop>(gates, ct, x0bar, vs, m, d, h, w, steps, nslots, parts, cols);
 }
 
 // wbar_d[p] = sum_t v_{t+1}[p] (x_t[p + off_d] - x_t[p]), 26 accumulators
 // per voxel; x_0 = x0, x_t = states[t-1]; v_{t+1} = vs[t] for t < T-1 and
 // ct for t = T-1.
-__global__ void cspn3d_gate_grad_kernel(const float* __restrict__ x0,      // [M,D,H,W]
+// Four blocks an SM (64 registers a thread): each thread's walk over t
+// waits on device memory at every step, and the warps in flight hide it.
+__global__ void __launch_bounds__(kThreads3d, 4) cspn3d_gate_grad_kernel(const float* __restrict__ x0,      // [M,D,H,W]
                                         const float* __restrict__ states,  // [T-1,M,D,H,W]
                                         const float* __restrict__ vs,      // [T-1,M,D,H,W]
                                         const float* __restrict__ ct,      // [M,D,H,W]
@@ -126,19 +99,31 @@ __global__ void cspn3d_gate_grad_kernel(const float* __restrict__ x0,      // [M
   for (int dd = 0; dd < kGates3d; ++dd) out[dd * vol] = acc[dd];
 }
 
+cudaError_t launch_adjoint(int n_smem, const float* gates, const float* ct, float* x0bar,
+                           float* vs, int m, int d, int h, int w, int steps, int grid, int parts,
+                           int cols, cudaStream_t s) {
+  const bool loop = grid < (d + kSlab - 1) / kSlab * parts;
+#define CSPN3D_ADJ(S, L)                                                                   \
+  launch_sweep(cspn3d_adj_sweep_kernel<S, L>, S, gates, ct, x0bar, vs, m, d, h, w, steps, \
+               steps - 1, grid, parts, cols, s)
+  CSPN3D_FOR_SMEM_PLANES(loop, n_smem, CSPN3D_ADJ)
+#undef CSPN3D_ADJ
+}
+
 }  // namespace
 
 // Runs the whole backward on `stream`.  The caller allocates every buffer
 // (contiguous f32):
-//   gates [m,26,d,h,w], x0/ct [m,d,h,w] (inputs),
+//   gates [m,26,d,h,w], x0/ct [m,d,h,w], states [max(steps-1,0),m,d,h,w]
+//   (the forward's x_1..x_{T-1}) (inputs),
 //   wbar [m,26,d,h,w], x0bar [m,d,h,w] (outputs),
-//   center [m,d,h,w], states/vs [max(steps-1,0),m,d,h,w] (scratch).
-// Launches: steps == 0: a copy and a memset; else steps-1 replay steps, one
-// centre launch, steps reverse steps and one gate-cotangent launch.
-// Returns the first CUDA error of a launch or copy, else 0.
-extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* ct,
-                              float* wbar, float* x0bar, float* center, float* states,
-                              float* vs, int m, int d, int h, int w, int steps,
+//   vs [max(steps-1,0),m,d,h,w] (scratch: v_1..v_{T-1}).
+// (grid, parts, cols, n_smem) is plan_volume's plan.  Launches: steps == 0:
+// a copy and a memset; else the reverse sweep (cooperative) and the
+// gate-cotangent pass.  Returns the first CUDA error, else 0.
+extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* states,
+                              const float* ct, float* wbar, float* x0bar, float* vs, int m, int d,
+                              int h, int w, int steps, int grid, int parts, int cols, int n_smem,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long vol = (long long)d * h * w;
@@ -149,24 +134,9 @@ extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* 
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaMemsetAsync(wbar, 0, sizeof(float) * kGates3d * plane, s));
   }
-  const dim3 grid((unsigned)((vol + kThreads3d - 1) / kThreads3d), m);
-  // replay: states[t-1] = x_t for t = 1 .. steps-1
-  auto state = [&](int t) -> const float* { return t == 0 ? x0 : states + (t - 1) * plane; };
-  for (int t = 1; t < steps; ++t) {
-    cspn3d_step_kernel<<<grid, kThreads3d, 0, s>>>(gates, state(t - 1), states + (t - 1) * plane,
-                                                   d, h, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  cspn3d_center_kernel<<<grid, kThreads3d, 0, s>>>(gates, center, vol);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // reverse sweep: vs[t-1] = v_t for t = steps-1 .. 1, then x0bar = v_0
-  const float* v = ct;
-  for (int t = steps - 1; t >= 0; --t) {
-    float* v_out = t == 0 ? x0bar : vs + (t - 1) * plane;
-    cspn3d_adjoint_step_kernel<<<grid, kThreads3d, 0, s>>>(gates, center, v, v_out, d, h, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    v = v_out;
-  }
-  cspn3d_gate_grad_kernel<<<grid, kThreads3d, 0, s>>>(x0, states, vs, ct, wbar, m, d, h, w, steps);
+  err = launch_adjoint(n_smem, gates, ct, x0bar, vs, m, d, h, w, steps, grid, parts, cols, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 pass_grid((unsigned)((vol + kThreads3d - 1) / kThreads3d), m);
+  cspn3d_gate_grad_kernel<<<pass_grid, kThreads3d, 0, s>>>(x0, states, vs, ct, wbar, m, d, h, w, steps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,45 +18,89 @@
 // x_0 and write one plane: 28 f32 planes, 176 MB for the stereo model's
 // b4 48x64x128 volume, 0.053 ms at the H100 SXM's 3.35 TB/s.  Its
 // arithmetic is ~54 flops per voxel per step (27 FMA), 2.0 GFLOP at 24
-// steps, 0.030 ms at 67 TFLOP/s of f32: bytes bound it.
+// steps, 0.030 ms at 67 TFLOP/s of f32: bytes bound the function.  A
+// schedule that rereads the gates at every step (one launch per step, the
+// first version of this file) moves 24x those bytes, since the 164 MB of
+// b4 gates exceed the 50 MB L2: 1.58 ms on an H100.
 //
-// What this design does about it: little, on purpose; it is the simple,
-// correct first version.  One launch per step, one thread per voxel with
-// neighbouring W on neighbouring addresses, ping-ponging two [M,D,H,W]
-// buffers; the centre weight is summed in registers from the 26 gates the
-// step reads anyway, so there is no prep launch.  Each step rereads the 26
-// gate planes (164 MB at b4, more than the 50 MB L2), so the traffic is
-// ~24x the fused bound, ~4.2 GB, about 1.3 ms at best.  Not carried over
-// from the TPU kernel: the lane-unshifted gates, the XLA-side centre sum,
-// the H/W padding to 8/128 and the K-step H-tile segments; one design
-// covers every size.  What it leaves open: bf16 gate storage (the TPU
-// kernel's default, half the gate bytes) and K steps per launch on tiles
-// with a K-deep halo, which divide the gate traffic by K.
+// What this design does about it.  The gates stay on chip across steps,
+// as the TPU kernel keeps a volume in VMEM for all of them: one stereo
+// volume's 26 gate planes are 40.9 MB, ~310 KB per SM, against 227 KB of
+// shared memory per SM.  One persistent cooperative launch
+// (cspn3d_common.cuh:sweep) runs the whole forward: each of ~132 blocks owns
+// a brick of 4 z-planes x ~745 columns of every volume and reads its
+// gates from HBM once per volume, 18 planes (and the centre weight) into
+// shared memory and, at the stereo shape, 8 planes left in device memory
+// that each step reads from L2.  Each step a thread marches up its column
+// with the 3x3x3 window of the state in registers: one plane of three rows
+// loaded a voxel, the rows' sides taken from the neighbouring lanes; it
+// writes the next state, and the grid synchronizes.  A forward that a
+// backward follows keeps its states (x_1..x_{T-1}), and the backward reads
+// them in place of a replay; any other forward writes them into two
+// buffers in turn, which stay in L2.  A volume with more bricks than the
+// card has SMs runs on a looping instantiation, where a block takes
+// several bricks and reads every gate from L2 or HBM at each step: one
+// deeper than 4 x SMs, or one whose z-plane exceeds what 132 bricks' centre
+// weights in shared memory cover (at D = 48 over ~160 K columns, e.g. the
+// stereo model at 1600x1920; at 1080x1920 a brick a block still holds
+// its centre weights, every gate read from L2).  On an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 3) the b4 forward takes 0.78 ms, 2.0x faster
+// than the per-step version and 15x its bound: 96 volume-steps of ~7 us,
+// of which ~4 us is the grid barrier and a step's latency (the slope on a
+// grid with one warp of work a block), the rest the stencil and the 8
+// planes read from L2.  Not carried
+// over from the TPU kernel: its lane-unshifted gates, H/W padding to 8/128
+// and K-step H-tile segments.  What it leaves open: bf16 gate storage (the
+// TPU kernel's default; it changes the function, and would keep all 26
+// planes on chip), fewer barriers (several steps a barrier on bricks with a
+// halo), and the gate normalization in front of the kernel (several
+// PyTorch passes).
 
-#include "cspn3d_common.cuh"  // kThreads3d, cspn3d_step_kernel
+#include "cspn3d_common.cuh"  // sweep, launch_sweep, CSPN3D_FOR_SMEM_PLANES
 
-// Runs the whole forward on `stream`: `steps` step launches.  The caller
-// allocates every buffer (contiguous f32): gates [m,26,d,h,w],
-// x0/out/x_scratch [m,d,h,w].  Returns cudaGetLastError() after the first
-// launch that fails, else 0.
-extern "C" int cspn3d_fwd_f32(const float* gates, const float* x0, float* out,
-                              float* x_scratch, int m, int d, int h, int w,
-                              int steps, void* stream) {
+namespace {
+
+template <int kSmem, bool kLoop>
+__global__ void __launch_bounds__(kSweepThreads, 1)
+    cspn3d_fwd_sweep_kernel(const float* __restrict__ gates, const float* x0, float* out,
+                            float* states, int m, int d, int h, int w, int steps, int nslots,
+                            int parts, int cols) {
+  sweep<kSmem, false, kLoop>(gates, x0, out, states, m, d, h, w, steps, nslots, parts, cols);
+}
+
+}  // namespace
+
+// The device's SM count and the shared memory a block may opt in to, for
+// ops/cspn3d_cuda.py:plan_volume.
+extern "C" int cspn3d_device_limits(int* sms, int* smem_optin) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(err);
+}
+
+// Runs the whole forward on `stream`: one cooperative launch (a copy when
+// steps == 0).  The caller allocates every buffer (contiguous f32): gates
+// [m,26,d,h,w], x0/out [m,d,h,w], states [nslots,m,d,h,w]: nslots =
+// steps-1 keeps x_1..x_{T-1} for the backward, nslots = 2 (or steps-1 if
+// less) lets them go, two buffers in turn.  (grid, parts, cols, n_smem) is
+// plan_volume's plan.
+// Returns the launch's cudaError_t, else 0.
+extern "C" int cspn3d_fwd_f32(const float* gates, const float* x0, float* out, float* states,
+                              int m, int d, int h, int w, int steps, int nslots, int grid,
+                              int parts, int cols, int n_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long vol = (long long)d * h * w;
   if (steps <= 0) {
-    return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * vol,
+    return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * d * h * w,
                                             cudaMemcpyDeviceToDevice, s));
   }
-  const dim3 grid((unsigned)((vol + kThreads3d - 1) / kThreads3d), m);
-  // ping-pong so that the last step writes `out`
-  const float* src = x0;
-  for (int t = 0; t < steps; ++t) {
-    float* dst = ((steps - 1 - t) % 2 == 0) ? out : x_scratch;
-    cspn3d_step_kernel<<<grid, kThreads3d, 0, s>>>(gates, src, dst, d, h, w);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    src = dst;
-  }
-  return 0;
+  const bool loop = grid < (d + kSlab - 1) / kSlab * parts;
+#define CSPN3D_FWD(S, L)                                                                   \
+  launch_sweep(cspn3d_fwd_sweep_kernel<S, L>, S, gates, x0, out, states, m, d, h, w, steps, \
+               nslots, grid, parts, cols, s)
+  CSPN3D_FOR_SMEM_PLANES(loop, n_smem, CSPN3D_FWD)
+#undef CSPN3D_FWD
 }

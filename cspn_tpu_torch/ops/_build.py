@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
+_c_int_p = ctypes.POINTER(ctypes.c_int)
 
 # library name -> (source file, {C function: argtypes}); every function
 # returns a cudaError_t as int
@@ -45,11 +46,12 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "cspn3d_fwd": (
         "cspn3d_fwd.cu",
-        {"cspn3d_fwd_f32": [_c_void_p] * 4 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn3d_fwd_f32": [_c_void_p] * 4 + [_c_int] * 10 + [_c_void_p],
+         "cspn3d_device_limits": [_c_int_p] * 2},
     ),
     "cspn3d_bwd": (
         "cspn3d_bwd.cu",
-        {"cspn3d_bwd_f32": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn3d_bwd_f32": [_c_void_p] * 7 + [_c_int] * 9 + [_c_void_p]},
     ),
     "d2s": (
         "d2s.cu",

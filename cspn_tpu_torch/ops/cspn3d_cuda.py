@@ -4,34 +4,144 @@ _seg_kernel, affinity_propagate3d_fused_bwd and its _bwd3_kernel, wired
 together by cspn_pallas.py:_cspn3d_fused_vjp).
 
 The kernels are hand-written CUDA C++ in csrc/cspn3d_fwd.cu and
-csrc/cspn3d_bwd.cu (their headers say what bounds them and what the design
-leaves open), built by ops/_build.py and called through ctypes on PyTorch's
-current stream.  They run `steps` propagation steps on fixed normalized
-gates; the abs and per-group sum-normalization around them stay plain
-PyTorch (autograd gives their quotient-rule backward), as JAX leaves them
-to XLA (cspn3d_pallas.py:558-564, cspn_pallas.py:1520-1536).
+csrc/cspn3d_bwd.cu around the persistent sweep of csrc/cspn3d_common.cuh
+(their headers say what bounds them and what the design leaves open),
+built by ops/_build.py and called through ctypes on PyTorch's current
+stream.  They run `steps` propagation steps on fixed normalized gates; the
+abs and per-group sum-normalization around them stay plain PyTorch
+(autograd gives their quotient-rule backward), as JAX leaves them to XLA
+(cspn3d_pallas.py:558-564, cspn_pallas.py:1520-1536).
 
 `propagate3d` is the kernels' wrapper.  A tensor on the CPU goes to their
 plain version (ops/cspn_ref.py:propagate_nd_reference, autograd-native)
 because it lies on the CPU; a CUDA tensor goes to the kernels or raises,
-forward and backward.  There is no fallback between the two.
+forward and backward.  There is no fallback between the two.  A forward
+that a backward will follow keeps its states x_1..x_{T-1} for the
+backward kernel, which has no replay; any other forward writes its states
+into two buffers in turn.
 
-`launches` counts the forward kernel's runs (one per forward: `steps` step
-launches on the card); `bwd_launches` counts the backward kernel's runs
-(one per backward: `steps - 1` replay steps, a centre launch, `steps`
-reverse steps and one gate-cotangent launch).
+`launches` counts the forward kernel's runs and `bwd_launches` the
+backward kernel's, one per wrapper call; `cuda_launches_per_call` says how
+many CUDA launches each call should make (chip_smoke.py and the card-only
+tests count them with torch.profiler and hold them to it).  `plan_volume`
+is the partition the sweep runs: which voxels each block owns and where
+their gates live.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
 
 N_GATES = 26
+SWEEP_THREADS = 768  # csrc/cspn3d_common.cuh: kSweepThreads
+# the gate planes in shared memory the sweep is built for (CSPN3D_FOR_SMEM_PLANES)
+SMEM_PLANES = tuple(range(26, -1, -2))
+SLAB = 4  # kSlab: z-planes a brick spans
+MAX_VOXELS = 1 << 31  # per volume: the sweep's voxel indices are ints (cspn3d_common.cuh)
 
 launches = 0
 bwd_launches = 0
+
+_limits: dict[int, tuple[int, int]] = {}
+
+
+def cuda_launches_per_call(steps: int) -> tuple[int, int]:
+    """CUDA kernel launches one forward and one backward call should make:
+    the forward's persistent sweep; the backward's reverse sweep and its
+    gate-cotangent pass.  At steps == 0 both are copies (and a memset)."""
+    return (1, 2) if steps > 0 else (0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumePlan:
+    """The persistent sweep's partition of one [d, h, w] volume into
+    `slabs` x `parts` bricks, run by `blocks` blocks: brick b spans the
+    z-planes [s*SLAB, (s+1)*SLAB) of slab s = b // parts and, in them, the
+    columns (flattened y, x) [p*cols, (p+1)*cols) of part p = b % parts;
+    block k runs bricks k, k + blocks, ...  With a brick a block, `n_smem`
+    of its 26 gate planes sit in shared memory (beside the centre weight)
+    and `n_l2` are read from L2 at each step; a plan with more bricks than
+    blocks (`loops`) keeps nothing in shared memory and reads all 26."""
+
+    d: int
+    hw: int
+    slabs: int
+    parts: int
+    cols: int
+    blocks: int
+    n_smem: int
+    n_l2: int
+
+    @property
+    def bricks(self) -> int:
+        return self.slabs * self.parts
+
+    @property
+    def loops(self) -> bool:
+        return self.bricks > self.blocks
+
+    @property
+    def smem_bytes(self) -> int:
+        return 0 if self.loops else 4 * (self.n_smem + 1) * SLAB * self.cols
+
+    def owned(self, block: int) -> list[int]:
+        """The flat voxel indices block `block` owns, brick by brick."""
+        voxels = []
+        for b in range(block, self.bricks, self.blocks):
+            s, p = divmod(b, self.parts)
+            cols = range(p * self.cols, min((p + 1) * self.cols, self.hw))
+            voxels += [z * self.hw + c for z in range(s * SLAB, min((s + 1) * SLAB, self.d))
+                       for c in cols]
+        return voxels
+
+
+def plan_volume(d: int, h: int, w: int, sms: int, smem_bytes: int) -> VolumePlan:
+    """The partition csrc/cspn3d_common.cuh:sweep runs for a [d, h, w]
+    volume on a card with `sms` SMs and `smem_bytes` of shared memory per
+    block: slabs of SLAB z-planes, each cut into as many parts of columns
+    as the SMs allow, one block per SM.  A part takes at least a warp's
+    columns and at most the columns whose centre weights fit shared
+    memory; where that leaves more bricks than SMs (a volume over 4 x SMs
+    deep, or one too wide), a block runs several and reads every gate from
+    L2.  Else shared memory holds the brick's centre weight and the most
+    gate planes of SMEM_PLANES that fit beside it, L2 the rest."""
+    hw = h * w
+    voxels = d * hw
+    if voxels <= 0:
+        raise ValueError(f"empty volume {d}x{h}x{w}")
+    if voxels >= MAX_VOXELS:
+        raise ValueError(f"{voxels} voxels per volume exceed the 3D kernels' int indices")
+    max_cols = smem_bytes // (4 * SLAB) // 32 * 32
+    if max_cols < 32:
+        raise ValueError(f"{smem_bytes} B of shared memory hold no warp's centre weights")
+    slabs = -(-d // SLAB)
+    cols = min(max(-(-hw // max(sms // slabs, 1)), min(hw, 32)), max_cols)
+    parts = -(-hw // cols)
+    fit = smem_bytes // (4 * SLAB * cols) - 1 if slabs * parts <= sms else 0
+    n_smem = max(n for n in SMEM_PLANES if n <= fit)
+    return VolumePlan(d=d, hw=hw, slabs=slabs, parts=parts, cols=cols,
+                      blocks=min(slabs * parts, sms), n_smem=n_smem, n_l2=N_GATES - n_smem)
+
+
+def device_plan(device: torch.device, d: int, h: int, w: int) -> VolumePlan:
+    """plan_volume on `device`'s SM count and shared memory (cached)."""
+    from cspn_tpu_torch.ops import _build
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _limits:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            err = _build.load("cspn3d_fwd").cspn3d_device_limits(ctypes.byref(sms),
+                                                                 ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"cspn3d_device_limits failed: cudaError_t {err}")
+        _limits[index] = (sms.value, smem.value)
+    return plan_volume(d, h, w, *_limits[index])
 
 
 def _check_inputs(gates, x0):
@@ -41,7 +151,7 @@ def _check_inputs(gates, x0):
         raise ValueError(f"gates must be [M,26,D,H,W], got {tuple(gates.shape)}")
     m, _, d, h, w = gates.shape
     if m > 65535:
-        raise ValueError(f"{m} volumes exceed the kernel's grid limit 65535")
+        raise ValueError(f"{m} volumes exceed the gate-cotangent pass's grid limit 65535")
     for name, t in (("gates", gates), ("x0", x0)):
         if t.device != gates.device:
             raise ValueError(f"{name} on {t.device}, gates on {gates.device}")
@@ -53,70 +163,89 @@ def _check_inputs(gates, x0):
         raise ValueError(f"x0 must be [{m},{d},{h},{w}], got {tuple(x0.shape)}")
 
 
-def _launch(gates, x0, steps: int) -> torch.Tensor:
-    """Run the forward kernel on checked inputs; returns [M, D, H, W] f32."""
+def _launch(gates, x0, steps: int, keep_states: bool = False):
+    """Run the forward kernel on checked inputs.  Returns (out [M,D,H,W],
+    states [steps-1,M,D,H,W] = x_1..x_{T-1} if keep_states else None).  A
+    forward that keeps no states writes them into two buffers in turn."""
     global launches
     from cspn_tpu_torch.ops import _build
 
     lib = _build.load("cspn3d_fwd")
     m, _, d, h, w = gates.shape
+    plan = device_plan(gates.device, d, h, w)
     out = torch.empty_like(x0)
-    x_scratch = torch.empty_like(x0)
+    nslots = max(int(steps) - 1, 0)  # x_1 .. x_{T-1}
+    if not keep_states:
+        nslots = min(nslots, 2)
+    states = x0.new_empty((nslots, m, d, h, w))
     with torch.cuda.device(gates.device):  # the runtime launches on the current device
         err = lib.cspn3d_fwd_f32(
-            gates.data_ptr(), x0.data_ptr(), out.data_ptr(), x_scratch.data_ptr(),
-            m, d, h, w, int(steps), torch.cuda.current_stream(gates.device).cuda_stream,
+            gates.data_ptr(), x0.data_ptr(), out.data_ptr(), states.data_ptr(),
+            m, d, h, w, int(steps), nslots, plan.blocks, plan.parts, plan.cols, plan.n_smem,
+            torch.cuda.current_stream(gates.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"cspn3d_fwd_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"cspn3d_fwd_f32 launch failed: cudaError_t {err} ({plan})")
     launches += 1
-    return out
+    return out, (states if keep_states else None)
 
 
-def _launch_bwd(gates, x0, ct, steps: int):
-    """Run the backward kernel on checked inputs and the cotangent `ct` of
-    the output; returns (d gates [M,26,D,H,W], d x0 [M,D,H,W])."""
+def _launch_bwd(gates, x0, states, ct, steps: int):
+    """Run the backward kernel on checked inputs, the forward's kept
+    `states` (x_1..x_{T-1}) and the cotangent `ct` of the output; returns
+    (d gates [M,26,D,H,W], d x0 [M,D,H,W])."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
     if ct.dtype != torch.float32 or ct.device != x0.device or ct.shape != x0.shape:
         raise ValueError(f"the cotangent must be float32 {tuple(x0.shape)} on {x0.device}, "
                          f"got {ct.dtype} {tuple(ct.shape)} on {ct.device}")
-    lib = _build.load("cspn3d_bwd")
     m, _, d, h, w = gates.shape
+    if tuple(states.shape) != (max(int(steps) - 1, 0), m, d, h, w):
+        raise ValueError(f"states must be the forward's [{max(int(steps) - 1, 0)},{m},{d},{h},{w}], "
+                         f"got {tuple(states.shape)}")
+    lib = _build.load("cspn3d_bwd")
+    plan = device_plan(gates.device, d, h, w)
     wbar = torch.empty_like(gates)
     x0bar = torch.empty_like(x0)
-    center = torch.empty_like(x0)
-    # x_1 .. x_{T-1} and v_1 .. v_{T-1}
-    states = x0.new_empty((max(int(steps) - 1, 0), m, d, h, w))
-    vs = torch.empty_like(states)
+    vs = torch.empty_like(states)  # v_1 .. v_{T-1}
     with torch.cuda.device(gates.device):
         err = lib.cspn3d_bwd_f32(
-            gates.data_ptr(), x0.data_ptr(), ct.data_ptr(), wbar.data_ptr(), x0bar.data_ptr(),
-            center.data_ptr(), states.data_ptr(), vs.data_ptr(),
-            m, d, h, w, int(steps), torch.cuda.current_stream(gates.device).cuda_stream,
+            gates.data_ptr(), x0.data_ptr(), states.data_ptr(), ct.data_ptr(), wbar.data_ptr(),
+            x0bar.data_ptr(), vs.data_ptr(), m, d, h, w, int(steps), plan.blocks, plan.parts,
+            plan.cols, plan.n_smem, torch.cuda.current_stream(gates.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"cspn3d_bwd_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"cspn3d_bwd_f32 launch failed: cudaError_t {err} ({plan})")
     bwd_launches += 1
     return wbar, x0bar
 
 
 class _Propagate3d(torch.autograd.Function):
-    """Forward and backward are the CUDA kernels: the exact adjoint at the
-    fixed gates the forward saved."""
+    """The forward that a backward will follow: the forward kernel, keeping
+    its states x_1..x_{T-1}; the backward kernel is the exact adjoint at the
+    fixed gates, on those states."""
 
     @staticmethod
     def forward(ctx, gates, x0, steps):
-        ctx.save_for_backward(gates, x0)
+        out, states = _launch(gates, x0, steps, keep_states=True)
+        ctx.save_for_backward(gates, x0, states)
         ctx.steps = steps
-        return _launch(gates, x0, steps)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        gates, x0 = ctx.saved_tensors
-        wbar, x0bar = _launch_bwd(gates, x0, grad_out.contiguous(), ctx.steps)
+        gates, x0, states = ctx.saved_tensors
+        wbar, x0bar = _launch_bwd(gates, x0, states, grad_out.contiguous(), ctx.steps)
         return wbar, x0bar, None
+
+
+def _run(gates, x0, steps: int) -> torch.Tensor:
+    """The kernels on checked inputs: a forward that a backward will follow
+    keeps its states for it; any other forward keeps none."""
+    if torch.is_grad_enabled() and (gates.requires_grad or x0.requires_grad):
+        return _Propagate3d.apply(gates, x0, steps)
+    return _launch(gates, x0, steps)[0]
 
 
 def propagate3d(gates: torch.Tensor, x0: torch.Tensor, *, steps: int = 24) -> torch.Tensor:
@@ -132,7 +261,7 @@ def propagate3d(gates: torch.Tensor, x0: torch.Tensor, *, steps: int = 24) -> to
     if gates.device.type == "cpu":
         return cspn_ref.propagate_nd_reference(gates, x0, steps)
     _check_inputs(gates, x0)
-    return _Propagate3d.apply(gates, x0, steps)
+    return _run(gates, x0, steps)
 
 
 def cspn3d_cuda(

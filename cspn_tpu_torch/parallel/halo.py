@@ -51,8 +51,12 @@ exchanges = 0
 # per pixel-step: cspn2d_halo_seg on the KITTI b4 S = 2 segment, K = 24 on
 # [8,8,224,1216] (chip_smoke.py phase 3; 8.8-10.0 ps at K = 8 on [4,8,192,1216])
 T2D_STEP_S_PER_PX = 6.3e-12
-# per voxel-step: cspn3d_fwd, 24 steps on [4,26,48,64,128] (chip_smoke.py phase 3)
-T3D_STEP_S_PER_VOX = 41.8e-12
+# per voxel-step: cspn3d_fwd fitted as fixed + per step (chip_smoke.py
+# phase 3), the median of four fits: 18.0 and 19.5 ps through 4 and 24 steps
+# on [4,26,48,64,128], 19.3 and 24.1 ps through 4 and 8 on the sharded
+# stereo segment [8,26,40,64,128].  The fixed part is the gates' load, the
+# reload term below.
+T3D_STEP_S_PER_VOX = 19.4e-12
 HBM_BPS = 3.35e12  # NVIDIA's data sheet, H100 SXM
 # host time of a segment beyond its stencil: the exchange's copies, the
 # wrapper and its launches, eager PyTorch (chip_smoke.py:segment_fixed_s,

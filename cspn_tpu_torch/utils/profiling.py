@@ -34,7 +34,9 @@ features 32, 24 steps; seeded random weights, BN statistics calibrated on
 one synthetic batch) on synthetic 256x512 pairs, batch 4 by default, and
 times each stage of a forward (models/stereo.py:STAGES: feature extractor,
 cost volume, hourglass, heads, 3D CSPN, upsample + regression) with CUDA
-events between them; `--stereo --train` splits a stereo train step.
+events between them; `--stereo --train` splits a stereo train step and
+times the 3D CSPN's gate normalization and relayouts around its kernels
+(`cspn3d_glue_ms`).
 Prints the tables with the card's name and power limit and the peak device
 memory (with and without the first calls' cuDNN algorithm search), and
 writes them to `--out` as JSON.  The convolution policy is the entry
@@ -255,8 +257,8 @@ def _kind(kernel: str) -> str:
     if "step_probe" in k:
         return "step_probe"
     # the 3D kernels first: their names hold the 2D ones' substrings
-    if "cspn3d_" in k:  # in a train step the step kernel is also the backward's replay
-        return "cspn3d_fwd" if "cspn3d_step_kernel" in k else "cspn3d_bwd"
+    if "cspn3d_" in k:  # the forward's sweep; the backward's reverse sweep and gate pass
+        return "cspn3d_fwd" if "cspn3d_fwd_sweep_kernel" in k else "cspn3d_bwd"
     if "reverse_step_kernel" in k or "epilogue_kernel" in k or "unshift_kernel" in k:
         return "cspn2d_bwd"
     if "prep_kernel" in k or "step_kernel" in k:  # in a train step also the backward's replay
@@ -381,6 +383,47 @@ def stereo_stage_times_ms(model, left, right, reps: int = 5) -> dict[str, float]
     return out
 
 
+def cspn3d_glue_ms(n: int, d: int, h: int, w: int, steps: int, reps: int = 5) -> dict[str, float]:
+    """The stereo model's 3D CSPN as models/stereo.py calls it (the 26
+    guidance channels and the logits of its [n, 27, d, h, w] heads, channels
+    first) forward and backward, against its two kernels alone on the same
+    gates: the difference is the gate normalization (abs, sum, quotient and
+    their backward) and the relayouts around the kernels.  CUDA events,
+    median of `reps`."""
+    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads = torch.randn(n, 27, d, h, w, device="cuda", generator=gen)
+    ct = torch.randn(n, 1, d, h, w, device="cuda", generator=gen)
+    gates = cspn_ref.normalize_gates_nd(heads[:, 1:].movedim(1, -1), 26)
+    gates = gates.permute(0, 4, 5, 1, 2, 3).flatten(0, 1).contiguous()
+    x0, ct0 = heads[:, 0].contiguous(), ct[:, 0].contiguous()
+
+    def module():
+        hd = heads.detach().requires_grad_(True)
+        out = cspn3d_cuda.cspn3d_cuda(hd[:, 1:], hd[:, :1], steps=steps, channel_first=True)
+        torch.autograd.grad(out, hd, ct)
+
+    def kernels():
+        states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
+        cspn3d_cuda._launch_bwd(gates, x0, states, ct0, steps)
+
+    out = {}
+    for name, fn in (("module_ms", module), ("kernels_ms", kernels)):
+        fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = statistics.median(times)
+    out["glue_ms"] = out["module_ms"] - out["kernels_ms"]
+    return out
+
+
 def _print_tables(title: str, what: str, by: str, table: dict, total: str, kinds: dict,
                   top: list) -> None:
     """Print `table` (device ms by `by`, shares of table[total]), then the
@@ -443,7 +486,13 @@ def _stereo(args, card: str) -> dict:
         step = make_stereo_train_step(model, optimizer, cfg.max_disp)
         kinds, top, mem = _warm_kinds(lambda: step(left, right, disp), args.reps)
         _print_tables(f"stereo train step, {what}", "train step", "phase", split, "step", kinds, top)
-        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem)
+        glue = cspn3d_glue_ms(n, cfg.max_disp // 4, STEREO_HW[0] // 4, STEREO_HW[1] // 4,
+                              cfg.cspn_steps, args.reps)
+        print(f"3D CSPN forward + backward as the model calls it: {glue['module_ms']:.3f} ms, its "
+              f"two kernels {glue['kernels_ms']:.3f} ms, the gate normalization and relayouts "
+              f"{glue['glue_ms']:.3f} ms ({100 * glue['glue_ms'] / split['step']:.2f}% of the step)")
+        return dict(result, phases_ms=split, kernel_kinds_ms=kinds, top_kernels_ms=top, memory=mem,
+                    cspn3d_glue_ms=glue)
     model = calibrated_stereo_model(cfg)
     stages = stereo_stage_times_ms(model, left, right, args.reps)
 

@@ -183,14 +183,15 @@ def test_resize_refuses_downsampling():
 
 
 def test_kernel_kinds_name_the_3d_kernels_first():
-    """Profiler kernel names of the 3D kernels hold the 2D kernels'
-    substrings (`step_kernel`); they are classified as 3D."""
+    """The 3D kernels' profiler names are classified as 3D before the 2D
+    kinds' substrings are tried: the forward's sweep as the forward, the
+    reverse sweep (every instantiation) and the gate pass as the backward."""
     from cspn_tpu_torch.utils import profiling
 
     kinds = [profiling._kind(k) for k in (
-        "void (anonymous namespace)::cspn3d_step_kernel(float const*, float const*, float*, int, int, int)",
-        "void (anonymous namespace)::cspn3d_adjoint_step_kernel(float const*, float const*, float const*, float*, int, int, int)",
-        "void (anonymous namespace)::cspn3d_center_kernel(float const*, float*, long long)",
+        "void (anonymous namespace)::cspn3d_fwd_sweep_kernel<8>(float const*, float const*, float*, float*, float*, int, int, int, int, int, int, int)",
+        "void (anonymous namespace)::cspn3d_adj_sweep_kernel<8>(float const*, float const*, float*, float*, float*, int, int, int, int, int, int, int)",
+        "void (anonymous namespace)::cspn3d_adj_sweep_kernel<16>(float const*, float const*, float*, float*, float*, int, int, int, int, int, int, int)",
         "void (anonymous namespace)::cspn3d_gate_grad_kernel(float const*, float const*, float const*, float const*, float*, int, int, int, int, int)",
         "void (anonymous namespace)::step_kernel(float const*, float const*, float const*, float*, int, int)",
         "void (anonymous namespace)::reverse_step_kernel(float const*, float const*, int, int)",

@@ -230,8 +230,20 @@ def _gates3d(gen, m, d, h, w, zero_corner=False):
     return a / a.sum(1, keepdim=True).clamp_min(1e-12)
 
 
+def _plain_grads3d(gates, x0, ct, steps):
+    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    want = cspn_ref.propagate_nd_reference(gp, xp, steps)
+    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True)
+    return want, (torch.zeros_like(gates) if want_grads[0] is None else want_grads[0],
+                  want_grads[1])
+
+
+# volumes smaller than one block (the first two), odd ones, the stereo b4
+# volume, the sharded stereo segment (S = 2, K = 8: D / 2 + 2K deep), and one
+# whose gates exceed the chip: 20 of its 26 planes are read from L2 each step
 @pytest.mark.parametrize("steps", [0, 1, 2, 24])
-@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (4, 5, 13, 17), (2, 12, 16, 32), (4, 48, 64, 128)])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 2, 3, 4), (4, 5, 13, 17), (2, 12, 16, 32),
+                                   (4, 48, 64, 128), (8, 40, 64, 128), (1, 96, 64, 128)])
 def test_cspn3d_kernels_match_plain(gen, shape, steps):
     gates = _gates3d(gen, *shape, zero_corner=True)
     x0 = torch.randn(shape, device="cuda", generator=gen)
@@ -242,13 +254,109 @@ def test_cspn3d_kernels_match_plain(gen, shape, steps):
     got_grads = torch.autograd.grad(got, (gk, xk), ct)
     torch.cuda.synchronize()
     assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
-    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
-    want = cspn_ref.propagate_nd_reference(gp, xp, steps)
-    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True)
-    want_grads = (torch.zeros_like(gates) if want_grads[0] is None else want_grads[0], want_grads[1])
+    want, want_grads = _plain_grads3d(gates, x0, ct, steps)
     for a, b in ((got, want), *zip(got_grads, want_grads)):
         assert a.shape == b.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("case", ["stereo", "stereo zero-gates corner", "sharded segment"])
+def test_cspn3d_kernels_at_the_paths_cases(gen, case):
+    """chip_smoke.py's cspn3d_cases(): the stereo b4 volume with and without
+    all-zero gates in a corner, and the sharded stereo segment at the cost
+    model's K; the forward's kept states too."""
+    from cspn_tpu_torch.parallel import halo
+
+    m, d, h, w = 4, 48, 64, 128
+    steps = 24
+    if case == "sharded segment":
+        steps = halo.effective_halo(None, 24, d // 2, h * w, m, n_gate_planes=26,
+                                    t_step=halo.T3D_STEP_S_PER_VOX)
+        m, d = 2 * m, d // 2 + 2 * steps
+    shape = (m, d, h, w)
+    g = torch.randn(m, 26, d, h, w, device="cuda", generator=gen)
+    if case == "stereo zero-gates corner":
+        g[0, :, :4, :6, :8] = 0.0
+    gates = g.abs() / g.abs().sum(1, keepdim=True).clamp_min(1e-12)
+    x0 = torch.randn(shape, device="cuda", generator=gen)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    out, states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)
+    got_grads = cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)
+    torch.cuda.synchronize()
+    want, want_grads = _plain_grads3d(gates, x0, ct, steps)
+    want_states = [x0]
+    for _ in range(steps - 1):
+        want_states.append(cspn_ref.propagate_nd_reference(gates, want_states[-1], 1))
+    for a, b in ((out, want), (states, torch.stack(want_states[1:])), *zip(got_grads, want_grads)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+
+
+# past one brick a block: the stereo model's volume at 1080x1920 and
+# max_disp 192 (6.2 M voxels, every gate read from L2), a wider one whose
+# columns exceed what a block's shared memory holds (168 bricks on 132
+# blocks), and one deeper than 4 x SMs (150 slabs)
+@pytest.mark.parametrize("shape, steps", [((1, 48, 270, 480), 3), ((1, 48, 400, 480), 2),
+                                          ((2, 600, 8, 16), 5)])
+def test_cspn3d_kernels_on_large_volumes(gen, shape, steps):
+    gates = _gates3d(gen, *shape, zero_corner=True)
+    x0 = torch.randn(shape, device="cuda", generator=gen)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    out, states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)
+    unkept, _ = cspn3d_cuda._launch(gates, x0, steps)
+    got_grads = cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, unkept)
+    want, want_grads = _plain_grads3d(gates, x0, ct, steps)
+    for a, b in ((out, want), *zip(got_grads, want_grads)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+
+
+def test_cspn3d_forward_without_states_matches_kept(gen):
+    """A forward that keeps no states runs them through two buffers in turn;
+    its output is the kept forward's, bit for bit."""
+    gates = _gates3d(gen, 4, 48, 64, 128)
+    x0 = torch.randn(4, 48, 64, 128, device="cuda", generator=gen)
+    for steps in (2, 3, 24):
+        kept, states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)
+        out, none = cspn3d_cuda._launch(gates, x0, steps)
+        torch.cuda.synchronize()
+        assert none is None and states.shape[0] == steps - 1 and torch.equal(out, kept)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 24])
+def test_cspn3d_cuda_launches_per_call(gen, steps):
+    """One CUDA launch a forward, two a backward (the reverse sweep and the
+    gate-cotangent pass), counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gates = _gates3d(gen, 2, 12, 16, 32)
+    x0 = torch.randn(2, 12, 16, 32, device="cuda", generator=gen)
+    ct = torch.randn(2, 12, 16, 32, device="cuda", generator=gen)
+    states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
+    torch.cuda.synchronize()
+    counts = []
+    for fn in (lambda: cspn3d_cuda._launch(gates, x0, steps),
+               lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages() if "cspn3d_" in e.key))
+    assert tuple(counts) == cspn3d_cuda.cuda_launches_per_call(steps)
+
+
+def test_cspn3d_backward_on_the_same_states_is_bit_identical(gen):
+    """Gather form, no atomics: two backwards on the forward's kept states
+    agree bit for bit."""
+    gates = _gates3d(gen, 4, 48, 64, 128)
+    x0 = torch.randn(4, 48, 64, 128, device="cuda", generator=gen)
+    ct = torch.randn(4, 48, 64, 128, device="cuda", generator=gen)
+    states = cspn3d_cuda._launch(gates, x0, 24, keep_states=True)[1]
+    first = cspn3d_cuda._launch_bwd(gates, x0, states, ct, 24)
+    second = cspn3d_cuda._launch_bwd(gates, x0, states, ct, 24)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("channels", [1, 2])
