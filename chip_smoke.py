@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --routes-of CHECKOUT   # only the 2D CSPN timing
 
-Drives cspn_tpu_torch's main paths on the card and fails (non-zero exit) if
-any phase fails:
+With --routes-of it only times the 2D CSPN kernels of the cspn_tpu_torch
+in CHECKOUT (time_fwd_routes; "." for this one), so that one harness times
+two trees in turns.  Without arguments it drives cspn_tpu_torch's main
+paths on the card and fails (non-zero exit) if any phase fails:
 
   1. device: a CUDA card is required; prints its name and power limit and
      sets the entry points' default conv policy (set_conv_policy: cuDNN's
@@ -76,11 +79,18 @@ barrier and a step's latency), and fits the sharded segment's per
 voxel-step cost (choose_halo's 3D constant); and the
 depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
-shapes, an odd one with C=1, and in float64 and bfloat16; and it times
-both 2D CSPN forwards and both ways to run a train step's 2D CSPN at the
-paths' shapes (FWD_ROUTE_SHAPES), the times ops/cspn_cuda.py:use_tiled is
-set from; and the sharded CSPN's segment kernels (`cspn2d_halo_seg`, its
-backward) against the plain segment on the inputs cspn2d_spatial hands
+shapes, an odd one with C=1, and in float64 and bfloat16; it holds the 2D
+CSPN's tiled forward and backward at both norms, with and without sparse,
+at NYU b8, an odd shape, KITTI b4 and a ragged shape, and at their edges
+(1-row and 1-column maps, sides no multiple of the tile, 1, 7, 9 and 24
+steps): the tiled forward equal to the per-step kernel value for value,
+the backward on the forward's kept states equal to its replay and to a
+second run bit for bit; it counts their CUDA launches a call with
+torch.profiler and holds them to ops/cspn_cuda.py:cuda_launches_per_call;
+it times both 2D CSPN forwards, the backward on both routes and both ways
+to run a train step's 2D CSPN at the paths' shapes (FWD_ROUTE_SHAPES;
+the times ops/cspn_cuda.py:use_tiled is set from); and the sharded CSPN's segment
+kernels (`cspn2d_halo_seg`, its backward) against the plain segment on the inputs cspn2d_spatial hands
 them at every shape, K and keep of the paths that run them (phase 11's
 op and models; halo_seg_cases), timed at the b4 train step's, with the
 cost model's constants (parallel/halo.py:choose_halo).  Every path's run starts with all eleven
@@ -92,6 +102,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import itertools
 import json
@@ -104,8 +115,6 @@ import time
 
 import numpy as np
 import torch
-
-from cspn_tpu_torch import set_conv_policy
 
 # (name substring, memory bytes/s, f32 non-tensor-core FLOP/s): NVIDIA's data
 # sheets, dense rates at the full power limit; first match wins
@@ -347,82 +356,159 @@ def check_cspn_kernel(name: str) -> dict:
     }
 
 
-def plain_vjp(g_cf, b, s, ct, norm="8sum"):
+def plain_vjp(g_cf, b, s, ct, norm="8sum", steps=STEPS):
     """The backward kernel's plain version: autograd of the plain forward."""
     from cspn_tpu_torch.ops import cspn_ref
 
     g_cf, b = g_cf.detach().requires_grad_(True), b.detach().requires_grad_(True)
-    out = cspn_ref.cspn2d_reference(g_cf.movedim(1, -1), b, s, steps=STEPS, norm_type=norm)
+    out = cspn_ref.cspn2d_reference(g_cf.movedim(1, -1), b, s, steps=steps, norm_type=norm)
     return torch.autograd.grad(out, (g_cf, b), ct)
+
+
+# the 2D CSPN kernels' cases (label, (N, H, W), with sparse, norm): both
+# norms, with and without sparse, at NYU b8 (MAIN_SHAPE), an odd shape,
+# kitti_benchmark's training batch and a ragged shape; the tiled forward and
+# the backward are each held at every one
+CSPN2D_CASES = tuple(
+    (f"{label} {norm}{'' if sparse else ' no-sparse'}", shape, sparse, norm)
+    for label, shape in (("main", MAIN_SHAPE), ("odd 3x13x17", (3, 13, 17)),
+                         ("kitti b4", KITTI_SHAPE), ("ragged", KITTI_RAGGED))
+    for norm in ("8sum", "8sum_abs") for sparse in (True, False))
+# the tile kernels' edges: 1-row and 1-column maps, sides no multiple of the
+# tile (ops/cspn_cuda.py:TILE), every launch split of `steps`
+CSPN2D_EDGE_SHAPES = ((2, 1, 300), (2, 300, 1), (3, 97, 145))
+CSPN2D_EDGE_STEPS = (1, 7, 9, 24)
+
+
+def cspn2d_bwd_routes(g, b, s, ct, norm, steps=STEPS):
+    """The backward kernel on both routes: on the states the per-step
+    forward kept, twice, and replaying them; fails unless the three are bit
+    for bit the same.  Returns the kept route's (d guidance, d blur)."""
+    from cspn_tpu_torch.ops import cspn_cuda
+
+    kept = cspn_cuda._launch(g, b, s, steps, norm, keep_states=True)[1:]
+    first = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm, kept)
+    second = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm, kept)
+    replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, x) for a, x in zip(first, second)):
+        raise AssertionError("cspn2d_bwd: a second backward on the same states differs")
+    if not all(torch.equal(a, x) for a, x in zip(first, replayed)):
+        raise AssertionError("cspn2d_bwd: the kept states give other values than the replay")
+    return first
+
+
+def bwd_floors(name: str, n: int, h: int, w: int) -> tuple[float, str, float]:
+    """cspn2d_bwd's byte floors at [n,8,h,w] and STEPS steps: the function's
+    (20 planes: 8 guidance, blur, sparse, cotangent read, 8 + 1 written; the
+    replay route's) as (bound ms, bound by), and the kept-states route's (the
+    23 states x_1..x_{T-1} read too) in ms.  Operations per pixel: the
+    replay's 17 a step, the reverse step's 33, ~110 in prep and epilogue."""
+    ops = (17 * (STEPS - 1) + 33 * STEPS + 110) * n * h * w
+    bound_ms, bound_by, _, _ = bound(name, 20 * n * h * w * 4, ops)
+    kept_ms = bound(name, (20 + STEPS - 1) * n * h * w * 4, ops)[0]
+    return bound_ms, bound_by, kept_ms
+
+
+def check_2d_edges(name: str) -> float:
+    """Phase 3: the tile kernels at their edges (CSPN2D_EDGE_SHAPES x
+    CSPN2D_EDGE_STEPS, the norms and sparse in turn): the tiled forward
+    equal to the per-step kernel value for value and within KERNEL_TOL of
+    the plain version, the backward on both routes bit for bit the same
+    (cspn2d_bwd_routes) and within KERNEL_TOL of autograd of the plain
+    version.  Returns the largest error."""
+    from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    max_err = 0.0
+    for i, ((n, h, w), steps) in enumerate(itertools.product(CSPN2D_EDGE_SHAPES,
+                                                              CSPN2D_EDGE_STEPS)):
+        norm, with_sparse = ("8sum", "8sum_abs")[i % 2], i % 3 != 2
+        g, b, s = cspn_inputs(gen, n, h, w, with_sparse, n_sample=max(h * w // 50, 1), negative=0.2)
+        g[0, :, :5, :5] = 0.0  # zero gates: the 0/0 guard
+        ct = torch.randn(n, h, w, device="cuda", generator=gen)
+        label = f"[{n},8,{h},{w}] steps={steps} {norm}{'' if with_sparse else ' no-sparse'}"
+        got = cspn_cuda._launch_tiled(g, b, s, steps, norm)
+        per_step = cspn_cuda._launch(g, b, s, steps, norm)
+        want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=steps, norm_type=norm)
+        torch.cuda.synchronize()
+        if not torch.equal(got, per_step):
+            raise AssertionError(f"cspn2d_tiled {label}: values differ from the per-step kernel's")
+        max_err = max(max_err, _check_close(f"cspn2d_tiled edge {label}", got, want, quiet=True))
+        grads = cspn2d_bwd_routes(g, b, s, ct, norm, steps)
+        for what, a, x in zip(("dguidance", "dblur"), grads, plain_vjp(g, b, s, ct, norm, steps)):
+            max_err = max(max_err, _check_close(f"cspn2d_bwd edge {label} {what}", a, x,
+                                                quiet=True))
+    log(f"  cspn2d_tiled and cspn2d_bwd at {len(CSPN2D_EDGE_SHAPES) * len(CSPN2D_EDGE_STEPS)} "
+        f"edge cases {CSPN2D_EDGE_SHAPES} x steps {CSPN2D_EDGE_STEPS}: the forward equal to the "
+        f"per-step kernel's, both routes of the backward bit for bit the same, max|err| "
+        f"{max_err:.3e} (tol {KERNEL_TOL:g} x max|plain|)")
+    return max_err
 
 
 def check_cspn_bwd_kernel(name: str) -> dict:
     """Phase 3: the CSPN backward kernel against autograd of the plain
-    version, under a random cotangent and with negative sparse samples;
-    through autograd (the per-step forward keeps its states) and on its own
-    (prep and replay), value for value the same."""
+    version, under a random cotangent and with negative sparse samples, at
+    every CSPN2D_CASES case: through autograd (the per-step forward keeps
+    its states), and on both routes (cspn2d_bwd_routes: twice on the kept
+    states, replaying them), bit for bit the same; then timed at NYU b8 on
+    both routes beside each route's byte floor, its CUDA launches a call
+    counted by torch.profiler."""
     from cspn_tpu_torch.ops import cspn_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     n, h, w = MAIN_SHAPE
-    cases = [
-        ("main 8sum", (n, h, w), True, "8sum"),
-        ("main 8sum_abs", (n, h, w), True, "8sum_abs"),
-        ("main no-sparse", (n, h, w), False, "8sum"),
-        ("odd 3x13x17", (3, 13, 17), True, "8sum"),
-    ]
     max_err = 0.0
-    for label, (cn, ch, cw), with_sparse, norm in cases:
+    for label, (cn, ch, cw), with_sparse, norm in CSPN2D_CASES:
         g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
         g[0, :, :6, :6] = 0.0  # zero gates: the 0/0 guard
         ct = torch.randn(cn, ch, cw, device="cuda", generator=gen)
         gk, bk = g.clone().requires_grad_(True), b.clone().requires_grad_(True)
         out = cspn_cuda.cspn2d_cuda(gk, bk, s, steps=STEPS, norm_type=norm, channel_first=True)
         got = torch.autograd.grad(out, (gk, bk), ct)
-        replayed = cspn_cuda._launch_bwd(g, b, s, ct, STEPS, norm)
+        routes = cspn2d_bwd_routes(g, b, s, ct, norm)
         want = plain_vjp(g, b, s, ct, norm)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, r) for a, r in zip(got, replayed)):
-            raise AssertionError(f"cspn2d_bwd {label}: the kept states give other values than "
-                                 "the replay")
+        if not all(torch.equal(a, r) for a, r in zip(got, routes)):
+            raise AssertionError(f"cspn2d_bwd {label}: autograd gives other values than the kernel")
         for what, a, x in zip(("dguidance", "dblur"), got, want):
-            err = (a - x).abs().max().item()
-            scale = x.abs().max().item()
-            log(f"  cspn2d_bwd {label} [{cn},8,{ch},{cw}] steps={STEPS} {what}: max|err| = "
-                f"{err:.3e} (max|plain| = {scale:.3e}, tol {KERNEL_TOL:g} x max|plain|)")
-            if not (err <= KERNEL_TOL * scale) or not torch.isfinite(a).all():
-                raise AssertionError(f"cspn2d_bwd {label} {what}: max|err| {err:.3e} > "
-                                     f"{KERNEL_TOL * scale:.3e}")
-            max_err = max(max_err, err)
+            max_err = max(max_err, _check_close(
+                f"cspn2d_bwd {label} [{cn},8,{ch},{cw}] steps={STEPS} {what}", a, x))
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
     ct = torch.randn(n, h, w, device="cuda", generator=gen)
-    kernel_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
     kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
     kept_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept))
+    replay_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
     plain_ms = time_ms(lambda: plain_vjp(g, b, s, ct))
-    # read 8 guidance + blur + sparse + cotangent, write 8 + 1; operations
-    # per pixel: the replay's 17 per step, the reverse step's 33, ~110 in
-    # prep and epilogue
-    bytes_moved = 20 * n * h * w * 4
-    ops = (17 * (STEPS - 1) + 33 * STEPS + 110) * n * h * w
-    bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn2d_bwd [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms (given the "
-        f"forward's states {kept_ms:.4f} ms), plain (forward + autograd) {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    want = cspn_cuda.cuda_launches_per_call(STEPS)
+    counted, split = {}, {}
+    for route, fn in (("kept", lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept)),
+                      ("replay", lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))):
+        counted[route], found = launches_per_call(fn, CSPN2D_KERNELS, want[f"cspn2d_bwd_{route}"],
+                                                  f"cspn2d_bwd {route} at NYU b8")
+        split[route] = {k: v["ms"] for k, v in found.items()}
+    bound_ms, bound_by, kept_bound_ms = bwd_floors(name, n, h, w)
+    log(f"  cspn2d_bwd [{n},8,{h},{w}] steps={STEPS}: on the forward's kept states {kept_ms:.4f} ms "
+        f"({counted['kept']} CUDA launches a call, by torch.profiler {split['kept']}), replaying "
+        f"them {replay_ms:.4f} ms ({counted['replay']} CUDA launches); plain (forward + autograd) "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: 20 planes, the replay route's "
+        f"floor), the kept route's floor {kept_bound_ms:.4f} ms (20 + {STEPS - 1} state planes) "
+        f"on {name}")
     return {
         "name": "cspn2d_bwd",
         "route": "cuda",
         "source": "cspn_tpu_torch/csrc/cspn2d_bwd.cu",
         "replaces": "cspn_tpu/ops/cspn_pallas.py:1068",
         "launches": None,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
+        "max_abs_err": max(max_err, check_2d_edges(name)),
+        "ms": kept_ms,  # the paths' route: on the per-step forward's kept states
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this VJP
-        "kept_states_ms": kept_ms,  # given the per-step forward's states: no prep, no replay
+        "replay_ms": replay_ms,  # prep and replay first, as without kept states
+        "kept_bound_ms": kept_bound_ms,
+        "cuda_launches_per_call": counted,  # counted by torch.profiler in this run
     }
 
 
@@ -437,10 +523,12 @@ def gates3d(gen, m, d, h, w, zero_corner=False):
     return a / a.sum(1, keepdim=True).clamp_min(1e-12)
 
 
-def _check_close(label: str, got, want) -> float:
+def _check_close(label: str, got, want, quiet: bool = False) -> float:
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    log(f"  {label}: max|err| = {err:.3e} (max|plain| = {scale:.3e}, tol {KERNEL_TOL:g} x max|plain|)")
+    if not quiet:
+        log(f"  {label}: max|err| = {err:.3e} (max|plain| = {scale:.3e}, tol {KERNEL_TOL:g} x "
+            "max|plain|)")
     if not (err <= KERNEL_TOL * scale) or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: max|err| {err:.3e} > {KERNEL_TOL * scale:.3e}")
     return err
@@ -498,36 +586,52 @@ def cspn3d_step_fit(shape, lo: int = 4, hi: int = STEPS) -> tuple[float, float]:
     return t_lo - lo * per_step_ms, per_step_ms * 1e3 / m
 
 
-def cspn3d_profile(fn, reps: int = 5) -> dict:
-    """The 3D kernels' CUDA launches in one call of `fn`, by kernel, with
-    their device ms a call (torch.profiler over `reps` calls): the launches
-    counted here, not taken from the wrapper."""
+CSPN3D_KERNELS = ("cspn3d_fwd_sweep_kernel", "cspn3d_adj_sweep_kernel", "cspn3d_gate_grad_kernel")
+# the 2D CSPN kernels' CUDA names (csrc/cspn2d_*.cu): the per-step forward's
+# prep and steps (also the backward's replay), the tiled forward, the
+# backward's reverse tiles and epilogue
+CSPN2D_KERNELS = ("prep_kernel", "step_kernel", "cspn2d_tiled_kernel", "reverse_tile_kernel",
+                  "epilogue_kernel")
+
+
+def kernel_profile(fn, keys, reps: int = 5) -> dict:
+    """The CUDA launches in one call of `fn` of each kernel whose name holds
+    one of `keys`, with their device ms a call (torch.profiler over `reps`
+    calls): the launches counted here, not taken from the wrapper."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    # CUPTI allocates its activity buffers on the card: give back what the
+    # caching allocator holds unused, or after phase 3's large plain
+    # autograd graphs a session can come back without device events
+    torch.cuda.empty_cache()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     found = {}
     for e in prof.key_averages():
-        for key in ("cspn3d_fwd_sweep_kernel", "cspn3d_adj_sweep_kernel", "cspn3d_gate_grad_kernel"):
-            if key in e.key:
+        for key in keys:
+            if key in e.key and not (key == "step_kernel" and "reverse_step_kernel" in e.key):
                 us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
                 k = found.setdefault(key, {"launches": 0.0, "ms": 0.0})
                 k["launches"] += e.count / reps
                 k["ms"] += us / 1e3 / reps
+                break
     return found
 
 
-def cspn3d_launches_per_call(fn, want: int, what: str) -> tuple[int, dict]:
-    """The CUDA launches of one call of `fn` (cspn3d_profile), held to
-    `want` (ops/cspn3d_cuda.py:cuda_launches_per_call)."""
-    found = cspn3d_profile(fn)
+def launches_per_call(fn, keys, want: int, what: str) -> tuple[int, dict]:
+    """The CUDA launches of one call of `fn` (kernel_profile), held to
+    `want` (ops/cspn3d_cuda.py, ops/cspn_cuda.py: cuda_launches_per_call)."""
+    found = kernel_profile(fn, keys)
     counted = sum(k["launches"] for k in found.values())
     if counted != want:
-        raise AssertionError(f"{what}: {counted} CUDA launches a call, expected {want}: {found}")
+        free, total = torch.cuda.mem_get_info()
+        raise AssertionError(f"{what}: {counted} CUDA launches a call, expected {want}: {found} "
+                             f"({free / 2**30:.1f} of {total / 2**30:.1f} GiB of device memory "
+                             "free)")
     return int(counted), found
 
 
@@ -583,9 +687,9 @@ def check_cspn3d_kernel(name: str) -> dict:
     x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
     kernel_ms, kept_ms = by_shape["stereo b4"]["ms"], by_shape["stereo b4"]["kept_states_ms"]
     plain_ms = time_ms(lambda: cspn_ref.propagate_nd_reference(gates, x0, STEPS), reps=5, warmup=1)
-    fwd_launches, _ = cspn3d_launches_per_call(lambda: cspn3d_cuda._launch(gates, x0, STEPS),
-                                               cspn3d_cuda.cuda_launches_per_call(STEPS)[0],
-                                               "cspn3d_fwd at the stereo b4 volume")
+    fwd_launches, _ = launches_per_call(lambda: cspn3d_cuda._launch(gates, x0, STEPS),
+                                        CSPN3D_KERNELS, cspn3d_cuda.cuda_launches_per_call(STEPS)[0],
+                                        "cspn3d_fwd at the stereo b4 volume")
     fixed_ms, step_us = cspn3d_step_fit(STEREO_SHAPE)
     # a full grid with one warp of work a block: the barrier and a step's latency
     barrier_us = cspn3d_step_fit(BARRIER_SHAPE)[1]
@@ -680,8 +784,8 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
         ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
         states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
         ms = time_ms(lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps))
-        counted, split = cspn3d_launches_per_call(
-            lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps),
+        counted, split = launches_per_call(
+            lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps), CSPN3D_KERNELS,
             cspn3d_cuda.cuda_launches_per_call(steps)[1], f"cspn3d_bwd {label}")
         by_shape[label] = {"shape": [m, 26, d, h, w], "steps": steps, "ms": ms,
                            "cuda_launches_per_call": counted,
@@ -815,22 +919,19 @@ def check_d2s_kernels(name: str) -> list[dict]:
 
 def check_tiled_kernel(name: str) -> dict:
     """Phase 3: the tiled 2D CSPN forward against its plain version and the
-    per-step kernel's values, at kitti_benchmark's training batch and a
-    ragged shape; cspn2d_cuda's routing there (no backward: tiled; with
-    one: per-step, then cspn2d_bwd, against autograd of the plain version
-    under a random cotangent); then timed beside the per-step kernel at
-    the KITTI batch."""
+    per-step kernel's values at every CSPN2D_CASES case; cspn2d_cuda's
+    routing at kitti_benchmark's training batch (no
+    backward: tiled; with one: per-step, then cspn2d_bwd, against autograd
+    of the plain version under a random cotangent); then timed beside the
+    per-step kernel at the KITTI batch, its CUDA launches a call counted by
+    torch.profiler, and cspn2d_bwd timed there on both routes (the KITTI
+    train step's backward runs on the kept states)."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     n, h, w = KITTI_SHAPE
-    cases = [
-        ("kitti b4 8sum", KITTI_SHAPE, True, "8sum"),
-        ("ragged 8sum_abs", KITTI_RAGGED, True, "8sum_abs"),
-        ("ragged no-sparse", KITTI_RAGGED, False, "8sum"),
-    ]
     max_err = 0.0
-    for label, (cn, ch, cw), with_sparse, norm in cases:
+    for label, (cn, ch, cw), with_sparse, norm in CSPN2D_CASES:
         g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
         g[0, :, :6, :6] = 0.0  # zero gates: the 0/0 guard
         got = cspn_cuda._launch_tiled(g, b, s, STEPS, norm)
@@ -842,7 +943,8 @@ def check_tiled_kernel(name: str) -> dict:
         if not torch.equal(got, per_step):
             raise AssertionError(f"cspn2d_tiled {label}: values differ from the per-step kernel's "
                                  f"(max {(got - per_step).abs().max().item():.3e})")
-    log("  cspn2d_tiled equals the per-step kernel value for value in all three cases")
+    log(f"  cspn2d_tiled equals the per-step kernel value for value in all {len(CSPN2D_CASES)} "
+        "cases")
 
     # through the wrapper: a forward without a backward runs the tiled
     # kernel, one with a backward the per-step kernel and cspn2d_bwd
@@ -868,16 +970,33 @@ def check_tiled_kernel(name: str) -> dict:
     g, b, s = cspn_inputs(gen, n, h, w, True)
     kernel_ms = time_ms(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"))
     per_step_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
-    bwd_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
+    counted, found = launches_per_call(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"),
+                                       CSPN2D_KERNELS,
+                                       cspn_cuda.cuda_launches_per_call(STEPS)["cspn2d_tiled"],
+                                       "cspn2d_tiled at KITTI b4")
+    # the backward at this shape on both routes (the repair of its KITTI
+    # figure: the path runs it on the kept states)
+    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+    bwd_kept_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept))
+    bwd_replay_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
+    bwd_counted = launches_per_call(
+        lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept), CSPN2D_KERNELS,
+        cspn_cuda.cuda_launches_per_call(STEPS)["cspn2d_bwd_kept"], "cspn2d_bwd kept at KITTI b4")[0]
+    bwd_bound_ms, _, bwd_kept_bound_ms = bwd_floors(name, n, h, w)
+    del kept
     g_last = g.movedim(1, -1)
     plain_ms = time_ms(lambda: cspn_ref.cspn2d_reference(g_last, b, s, steps=STEPS), reps=5, warmup=1)
     bytes_moved = 11 * n * h * w * 4  # read 8 guidance + blur + sparse, write 1
     ops = 17 * STEPS * n * h * w
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn2d_tiled [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, per-step kernel "
-        f"(cspn2d_fwd) {per_step_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}; cspn2d_bwd at this "
-        f"shape {bwd_ms:.4f} ms")
+    log(f"  cspn2d_tiled [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms ({counted} CUDA "
+        f"launches a call, by torch.profiler {found}), per-step kernel (cspn2d_fwd) "
+        f"{per_step_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+        f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    log(f"  cspn2d_bwd at [{n},8,{h},{w}] steps={STEPS}: on the forward's kept states "
+        f"{bwd_kept_ms:.4f} ms ({bwd_counted} CUDA launches a call), replaying them "
+        f"{bwd_replay_ms:.4f} ms; bound {bwd_bound_ms:.4f} ms (20 planes, the replay route's "
+        f"floor), the kept route's floor {bwd_kept_bound_ms:.4f} ms on {name}")
     return {
         "name": "cspn2d_tiled",
         "route": "cuda",
@@ -890,18 +1009,32 @@ def check_tiled_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes CSPN
+        "cuda_launches_per_call": counted,  # counted by torch.profiler in this run
         "per_step_ms": per_step_ms,  # cspn2d_fwd.cu on the same inputs
-        "cspn2d_bwd_ms": bwd_ms,  # cspn2d_bwd.cu at this shape: the KITTI train step's backward
+        # cspn2d_bwd.cu at this shape: the KITTI train step's backward
+        "cspn2d_bwd_kept_ms": bwd_kept_ms,
+        "cspn2d_bwd_replay_ms": bwd_replay_ms,
+        "cspn2d_bwd_bound_ms": bwd_bound_ms,
+        "cspn2d_bwd_kept_bound_ms": bwd_kept_bound_ms,
+        "cspn2d_bwd_cuda_launches_per_call": bwd_counted,
     }
 
 
-def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES) -> list[dict]:
-    """At each shape (24 steps, 8sum, 500 samples): both 2D CSPN forward
-    kernels, by CUDA events around one call (`*_ms`) and as the device time
-    of a call among queued ones (`*_queued_ms`); and the two ways to run a
-    train step's forward and backward, the tiled forward then cspn2d_bwd's
-    prep and replay (`train_tiled_ms`), or the per-step forward keeping its
-    states then cspn2d_bwd without them (`train_kept_ms`)."""
+def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = True) -> list[dict]:
+    """At each shape (24 steps, 8sum, 500 samples), each 2D CSPN kernel
+    call and route by CUDA events around one call (`<what>_ms`) and as the
+    device time of a call among queued ones (`<what>_queued_ms`): both
+    forward kernels (`tiled`, `per_step`), the backward on the per-step
+    forward's kept states (`bwd_kept`, the paths' route) and replaying them
+    (`bwd_replay`), and the two ways to run a train step's forward and
+    backward, the tiled forward then the replaying backward
+    (`train_tiled`) or the per-step forward keeping its states then the
+    backward on them (`train_kept`: ops/cspn_cuda.py:use_tiled is set
+    from these); with `count_launches`, the tile kernels' CUDA launches a
+    call, counted by torch.profiler and held to
+    ops/cspn_cuda.py:cuda_launches_per_call.  It drives only the wrappers'
+    `_launch`, `_launch_tiled` and `_launch_bwd`, so that it times any
+    checkout's kernels (--routes-of)."""
     from cspn_tpu_torch.ops import cspn_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -909,27 +1042,62 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES) -> list[dict]:
     for n, h, w in shapes:
         g, b, s = cspn_inputs(gen, n, h, w, True)
         ct = torch.randn(n, h, w, device="cuda", generator=gen)
-        row = {"shape": [n, h, w]}
-        for kernel, fn in (("tiled", cspn_cuda._launch_tiled), ("per_step", cspn_cuda._launch)):
-            row[f"{kernel}_ms"] = time_ms(lambda: fn(g, b, s, STEPS, "8sum"))
-            row[f"{kernel}_queued_ms"] = time_queued_ms(lambda: fn(g, b, s, STEPS, "8sum"))
+        kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
 
         def train_tiled():
             cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum")
             cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum")
 
         def train_kept():
-            kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
-            cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept)
+            states = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+            cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", states)
 
-        row["train_tiled_ms"], row["train_kept_ms"] = time_ms(train_tiled), time_ms(train_kept)
-        log(f"  2D CSPN at [{n},8,{h},{w}] steps={STEPS}: forward cspn2d_tiled {row['tiled_ms']:.4f} "
-            f"ms (queued {row['tiled_queued_ms']:.4f}), cspn2d_fwd {row['per_step_ms']:.4f} ms "
-            f"(queued {row['per_step_queued_ms']:.4f}); forward + backward: tiled + cspn2d_bwd "
-            f"replaying {row['train_tiled_ms']:.4f} ms, per-step keeping its states + cspn2d_bwd "
-            f"{row['train_kept_ms']:.4f} ms on {name}")
+        calls = {
+            "tiled": lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"),
+            "per_step": lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"),
+            "bwd_kept": lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept),
+            "bwd_replay": lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"),
+            "train_tiled": train_tiled,
+            "train_kept": train_kept,
+        }
+        row = {"shape": [n, h, w]}
+        for what, fn in calls.items():
+            row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
+        if count_launches:
+            want = cspn_cuda.cuda_launches_per_call(STEPS)
+            row["cuda_launches_per_call"] = {
+                key: launches_per_call(calls[what], CSPN2D_KERNELS, want[key],
+                                       f"{key} at {[n, h, w]}")[0]
+                for key, what in (("cspn2d_tiled", "tiled"), ("cspn2d_bwd_kept", "bwd_kept"))}
+        del kept, calls
+        log(f"  2D CSPN at [{n},8,{h},{w}] steps={STEPS}, ms by events (queued): "
+            + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
+                        for what in ("tiled", "per_step", "bwd_kept", "bwd_replay", "train_tiled",
+                                     "train_kept"))
+            + (f"; CUDA launches a call {row['cuda_launches_per_call']}" if count_launches else "")
+            + f" on {name}")
         rows.append(row)
     return rows
+
+
+def routes_of(checkout: str) -> int:
+    """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes on the
+    cspn_tpu_torch of CHECKOUT (another tree's kernels built from its own
+    sources, or this one's with "."), without counting launches; prints
+    the card line and one JSON object, and runs nothing else.  One harness
+    times a parent and a change in turns."""
+    root = os.path.abspath(checkout)
+    sys.path.insert(0, root)
+    import cspn_tpu_torch
+
+    if not os.path.abspath(cspn_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"cspn_tpu_torch came from {cspn_tpu_torch.__file__}, not {root}")
+    name, card = torch.cuda.get_device_name(0), card_line()
+    rows = time_fwd_routes(name, count_launches=False)
+    print(card, flush=True)
+    print(json.dumps({"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS,
+                      "fwd_routes": rows}), flush=True)
+    return 0
 
 
 def paddle_inputs(gen, n, h, w, c):
@@ -2153,11 +2321,19 @@ def probe_slice(name: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
+    p.add_argument("--routes-of", metavar="CHECKOUT",
+                   help="only time the 2D CSPN kernels of CHECKOUT's cspn_tpu_torch "
+                        "(time_fwd_routes) and print them")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.routes_of is not None:
+        return routes_of(args.routes_of)
+    from cspn_tpu_torch import set_conv_policy
     from cspn_tpu_torch.ops import _build
 
     t_start = time.perf_counter()

@@ -1,7 +1,7 @@
-// The 2D CSPN forward's prep and step kernels, shared by cspn2d_fwd.cu
-// (the forward) and cspn2d_bwd.cu (its replay), and the backward's reverse
-// step, shared by cspn2d_bwd.cu and cspn2d_halo_seg_bwd.cu.  See
-// cspn2d_fwd.cu for the function they compute.
+// The 2D CSPN forward's prep (fold_pixel) and step kernels, shared by
+// cspn2d_fwd.cu (the forward), cspn2d_tiled.cu (fold_pixel at its tile
+// load) and cspn2d_bwd.cu (its replay), and the reverse step of
+// cspn2d_halo_seg_bwd.cu.  See cspn2d_fwd.cu for the function they compute.
 
 #pragma once
 
@@ -19,8 +19,72 @@ __device__ __forceinline__ bool inside(int i, int j, int h, int w) {
   return i >= 0 && i < h && j >= 0 && j < w;
 }
 
-// keep * gate_d into `gates`, base into `base`: the canvas normalization,
-// the sparse mask and the center term, folded once per forward.
+// Offset d of OFFSETS_2D_REFERENCE as compile-time constants, for register
+// windows indexed by offset (kDy/kDx are the same table in constant memory).
+__host__ __device__ constexpr int ref_dy(int d) { return d < 3 ? 1 : d < 5 ? 0 : -1; }
+__host__ __device__ constexpr int ref_dx(int d) {
+  return d < 3 ? 1 - d : d == 3 ? 1 : d == 4 ? -1 : 6 - d;
+}
+
+// img[i, j] of an h x w plane, 0 outside it.  The load is unconditional
+// (from a clamped address) and the zero a select, so that a thread's loads
+// are all in flight together instead of one branch and one latency each.
+// kReadOnly: through the read-only cache (the plane is not written while
+// the kernel runs).
+template <bool kReadOnly = true>
+__device__ __forceinline__ float load_or_zero(const float* img, int i, int j, int h, int w) {
+  const float* at = img + min(max(i, 0), h - 1) * w + min(max(j, 0), w - 1);
+  const float v = kReadOnly ? __ldg(at) : *at;
+  return inside(i, j, h, w) ? v : 0.0f;
+}
+
+// The raw guidance pixel (i, j) gathers, B_d = g_d[(i, j) + off_d] (0
+// outside the image), from its map's [8,H,W] guidance, into b.
+__device__ __forceinline__ void gather_pixel(const float* __restrict__ g_img, int i, int j, int h,
+                                             int w, float (&b)[8]) {
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    b[d] = load_or_zero(g_img + d * h * w, i + ref_dy(d), j + ref_dx(d), h, w);
+  }
+}
+
+// The canvas normalization, the sparse mask and the centre term of a
+// pixel: its gathered raw guidance g (gather_pixel) becomes keep * gate_d,
+// and base is returned; x0 is its blur value, s its sparse value (ignored
+// without has_sparse).  prep_kernel stores what it computes and the tiled
+// forward keeps it in registers: every operation is an explicit
+// round-to-nearest intrinsic, so no contraction differs between the two
+// and their values are equal.
+__device__ __forceinline__ float fold_pixel(float (&g)[8], float x0, float s, bool has_sparse,
+                                            int norm_abs) {
+  float denom = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    if (norm_abs) g[d] = fabsf(g[d]);
+    denom = __fadd_rn(denom, fabsf(g[d]));
+  }
+  const float div = fmaxf(denom, 1e-30f);
+  float gate_sum = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    g[d] = __fdiv_rn(g[d], div);
+    gate_sum = __fadd_rn(gate_sum, g[d]);
+  }
+  const float center_x0 = __fmul_rn(__fsub_rn(1.0f, gate_sum), x0);
+  float keep = 1.0f;
+  float base = center_x0;
+  if (has_sparse) {
+    const float mask = (s > 0.0f) ? 1.0f : ((s < 0.0f) ? -1.0f : 0.0f);
+    keep = __fsub_rn(1.0f, mask);
+    base = __fadd_rn(__fmul_rn(keep, center_x0), __fmul_rn(mask, x0));
+  }
+#pragma unroll
+  for (int d = 0; d < 8; ++d) g[d] = __fmul_rn(keep, g[d]);
+  return base;
+}
+
+// keep * gate_d into `gates`, base into `base` (gather_pixel, fold_pixel),
+// once per forward.
 __global__ void prep_kernel(const float* __restrict__ guid,    // [N,8,H,W]
                             const float* __restrict__ blur,    // [N,H,W]
                             const float* __restrict__ sparse,  // [N,H,W] or null
@@ -33,43 +97,14 @@ __global__ void prep_kernel(const float* __restrict__ guid,    // [N,8,H,W]
   const long long n = blockIdx.y;
   const int i = idx / w;
   const int j = idx - i * w;
-  const float* g_img = guid + n * 8 * hw;
-
-  float b[8];
-  float denom = 0.0f;
-#pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    const int qi = i + kDy[d];
-    const int qj = j + kDx[d];
-    float v = 0.0f;
-    if (inside(qi, qj, h, w)) {
-      v = g_img[d * hw + qi * w + qj];
-      if (norm_abs) v = fabsf(v);
-    }
-    b[d] = v;
-    denom += fabsf(v);
-  }
-  const float div = fmaxf(denom, 1e-30f);
-  float gate_sum = 0.0f;
-#pragma unroll
-  for (int d = 0; d < 8; ++d) {
-    b[d] = b[d] / div;
-    gate_sum += b[d];
-  }
   const long long p = n * hw + idx;
-  const float x0 = blur[p];
-  const float center_x0 = (1.0f - gate_sum) * x0;
-  float keep = 1.0f;
-  float bs = center_x0;
-  if (sparse != nullptr) {
-    const float s = sparse[p];
-    const float mask = (s > 0.0f) ? 1.0f : ((s < 0.0f) ? -1.0f : 0.0f);
-    keep = 1.0f - mask;
-    bs = keep * center_x0 + mask * x0;
-  }
+  float g[8];
+  gather_pixel(guid + n * 8 * hw, i, j, h, w, g);
+  const float bs = fold_pixel(g, blur[p], sparse != nullptr ? sparse[p] : 0.0f, sparse != nullptr,
+                              norm_abs);
   float* g_out = gates + n * 8 * hw + idx;
 #pragma unroll
-  for (int d = 0; d < 8; ++d) g_out[d * hw] = keep * b[d];
+  for (int d = 0; d < 8; ++d) g_out[d * hw] = g[d];
   base[p] = bs;
 }
 

@@ -1,7 +1,8 @@
-// The K-step tile stencil shared by cspn2d_tiled.cu (the pytorch-semantics
-// 2D CSPN, PERF row 3), cspn2d_halo_seg.cu (its K-step segment on a
-// halo-extended row block, PERF row 4) and paddle2d.cu (the paddle-semantics
-// 2D CSPN, PERF row 6).  See those files for the function each computes.
+// The K-step tile stencil shared by cspn2d_halo_seg.cu (the pytorch-semantics
+// 2D CSPN's K-step segment on a halo-extended row block, PERF row 4) and
+// paddle2d.cu (the paddle-semantics 2D CSPN, PERF row 6).  See those files
+// for the function each computes.  (The tiled forward, PERF row 3, marches its
+// columns in registers instead: cspn2d_march.cuh.)
 //
 // One block owns a kTile x kTile interior of one map and computes it on the
 // interior extended by a kHalo-deep ring on all four sides (kExt x kExt).
@@ -48,8 +49,8 @@ __host__ __device__ constexpr int raster_dx(int d) { return (d < 4 ? d : d + 1) 
 //     y = c x[p] + sum_d w_d x[p + off_d],  c = 1 - sum_d w_d
 // gates [M,8,H,W], base [M,H,W] (null for paddle), x_in/x_out [M,H,W].
 // keep [M,H,W] is folded into each pixel's gates as they are loaded (the
-// halo segment's anchoring); null means 1, the gates as they are (the
-// tiled forward's prep has folded keep already; paddle has none).
+// halo segment's anchoring); null means 1, the gates as they are (paddle
+// has none).
 template <bool kPaddle>
 __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
                                            const float* __restrict__ base,

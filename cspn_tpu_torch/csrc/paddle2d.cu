@@ -31,7 +31,7 @@
 // 0.0036 ms at 67 TFLOP/s of f32, below the 0.0066 ms of bytes.
 //
 // What this design does about it.  The paddle instantiation of the K-step
-// tile stencil of cspn2d_tiled.cu (cspn2d_tile.cuh): 32x32 interiors with
+// tile stencil (cspn2d_tile.cuh) that the halo segment also runs: 32x32 interiors with
 // an 8-deep halo, 8 steps per launch, the 8 gates and the centre weight
 // (summed from them at load, so there is no prep launch) in registers,
 // the state ping-ponging in shared memory.  The TPU kernel keeps the whole

@@ -3,10 +3,12 @@ cspn_tpu/ops/cspn_pallas.py:cspn2d_pallas and its _fwd_kernel and
 _bwd_kernel, and of cspn2d_tiled and its _fwd_dma_kernel).
 
 The kernels are hand-written CUDA C++ in csrc/cspn2d_fwd.cu (one launch
-per step), csrc/cspn2d_tiled.cu (8 steps per launch on halo-extended
-tiles) and csrc/cspn2d_bwd.cu (their headers say what bounds them and what
-the design leaves open), built by ops/_build.py and called through ctypes
-on PyTorch's current stream.
+per step), csrc/cspn2d_tiled.cu (K steps per launch on halo-extended
+tiles, the first launch folding the gates) and csrc/cspn2d_bwd.cu (the
+adjoint as reverse tiles of K steps on the same tiles, then one epilogue
+launch); their headers say what bounds them and what the design leaves
+open.  ops/_build.py builds them; they run through ctypes on
+PyTorch's current stream.
 
 `cspn2d_cuda` is the wrapper.  A tensor on the CPU goes to the kernels'
 plain version (ops/cspn_ref.py, autograd-native) because it lies on the
@@ -17,13 +19,9 @@ adjoint at every size.  `use_tiled` picks the forward: the tiled kernel
 for a forward that no backward follows, the per-step kernel, keeping its
 states for the backward, for one that `cspn2d_bwd` follows.
 
-`launches` counts the per-step forward's runs (one per forward: one
-`prep` launch plus `steps` `step` launches on the card); `tiled_launches`
-counts the tiled forward's runs (one per forward: prep plus
-ceil(steps / 8) tile launches); `bwd_launches` counts the backward
-kernel's runs (one per backward: `steps` reverse steps and two epilogue
-launches, after a prep and `steps - 1` replay steps unless the forward
-kept its states).
+`launches` counts the per-step forward's runs, `tiled_launches` the tiled
+forward's, `bwd_launches` the backward kernel's: one per call each.
+`cuda_launches_per_call` gives the CUDA launches one call makes.
 """
 
 from __future__ import annotations
@@ -39,15 +37,33 @@ launches = 0
 tiled_launches = 0
 bwd_launches = 0
 
-TILE, HALO = 32, 8  # csrc/cspn2d_tile.cuh: kTile (interior side), kHalo (steps per launch)
+# csrc/cspn2d_march.cuh: the tiles of cspn2d_tiled.cu and of cspn2d_bwd.cu's
+# reverse sweep are kExt x kExt extended, an interior of kTile and kHalo
+# steps a launch (K = 12, chosen by timing K = 8 and 12; PERF.md)
+EXT, HALO = 64, 12
+TILE = EXT - 2 * HALO
+
+
+def cuda_launches_per_call(steps: int) -> dict[str, int]:
+    """The CUDA kernel launches of one call of each kernel at `steps`
+    steps (copies and memsets not counted): the per-step forward (prep and
+    a launch a step), the tiled forward (ceil(steps / K) tiles), and the
+    backward on the forward's kept states (ceil(steps / K) reverse tiles
+    and the epilogue) or replaying them (prep and steps - 1 replay steps
+    first)."""
+    if steps <= 0:
+        return {"cspn2d_fwd": 0, "cspn2d_tiled": 0, "cspn2d_bwd_kept": 0, "cspn2d_bwd_replay": 0}
+    tiles = -(-steps // HALO)
+    return {"cspn2d_fwd": 1 + steps, "cspn2d_tiled": tiles, "cspn2d_bwd_kept": tiles + 1,
+            "cspn2d_bwd_replay": steps + tiles + 1}
 
 
 def use_tiled(for_backward: bool) -> bool:
     """The 2D forward's kernel, set from both kernels' times on an H100
-    (chip_smoke.py phase 3; PERF.md).  The tiled kernel is 1.4-2.9x
-    faster than the per-step one at every shape of the paths (NYU b1-b16,
-    KITTI b1-b4, 24 steps), so every forward that no backward follows runs
-    it.  A forward that `cspn2d_bwd` follows runs the per-step kernel,
+    (chip_smoke.py phase 3: time_fwd_routes; PERF.md).  The tiled
+    kernel is 2.2-3.4x faster than the per-step one at every shape of the
+    paths (NYU b1 and b8, KITTI b1 and b4, 24 steps), so every forward
+    that no backward follows runs it.  A forward that `cspn2d_bwd` follows runs the per-step kernel,
     which writes its states x_1..x_{T-1} and folded gates on the way: the
     backward then skips its prep and its T-1 replay steps, which cost more
     than the per-step forward's lag behind the tiled one."""
@@ -56,10 +72,11 @@ def use_tiled(for_backward: bool) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """The tiled kernel's schedule for one h x w map: `grid` (rows, columns)
+    """The tile kernels' schedule for one h x w map: `grid` (rows, columns)
     tiles of `tile` x `tile` interiors, each computed on its interior
     extended by `halo` on every side, in launches of `launch_steps` steps
-    (each at most `halo`)."""
+    (each at most `halo`; the forward runs them in order, the backward's
+    reverse tiles in reverse: the ragged launch first)."""
 
     h: int
     w: int
@@ -152,15 +169,14 @@ def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Te
     lib = _build.load("cspn2d_tiled")
     n, _, h, w = guid_cf.shape
     out = torch.empty_like(blur)
-    gates = torch.empty_like(guid_cf)
-    base = torch.empty_like(blur)
+    folded = blur.new_empty((n, 9, h, w))  # the first launch's keep * gate_d and base
     x_scratch = torch.empty_like(blur)
     with torch.cuda.device(guid_cf.device):
         err = lib.cspn2d_tiled_f32(
             guid_cf.data_ptr(), blur.data_ptr(),
             None if sparse is None else sparse.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
-            n, h, w, int(steps), int(norm_type == "8sum_abs"), TILE, HALO,
+            out.data_ptr(), folded.data_ptr(), x_scratch.data_ptr(),
+            n, h, w, int(steps), int(norm_type == "8sum_abs"),
             torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
     if err != 0:
@@ -171,10 +187,10 @@ def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Te
 
 def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None):
     """Run the backward kernel on checked f32 inputs and the cotangent `ct`
-    of the output; returns (d guidance [N,8,H,W], d blur [N,H,W]).  `kept`
-    is the (folded gates, states) a forward on the same inputs kept
-    (`_launch(..., keep_states=True)`); without it the kernel recomputes
-    them (prep and replay)."""
+    of the output; returns (d guidance [N,8,H,W], d blur [N,H,W]).  `kept` is the (folded gates,
+    states) a forward on the same inputs kept (`_launch(...,
+    keep_states=True)`); without it the kernel recomputes them (prep and
+    replay)."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
@@ -199,7 +215,8 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None
             dguid.data_ptr(), dblur.data_ptr(), gates.data_ptr(), gbar.data_ptr(),
             None if base is None else base.data_ptr(), bbar.data_ptr(), v.data_ptr(),
             states.data_ptr(), n, h, w, int(steps), int(norm_type == "8sum_abs"),
-            int(kept is not None), torch.cuda.current_stream(guid_cf.device).cuda_stream,
+            int(kept is not None),
+            torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cspn2d_bwd_f32 launch failed: cudaError_t {err}")

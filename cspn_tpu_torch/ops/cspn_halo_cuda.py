@@ -27,7 +27,10 @@ from __future__ import annotations
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
-from cspn_tpu_torch.ops.cspn_cuda import HALO, TILE
+
+# csrc/cspn2d_tile.cuh, the tile stencil of this kernel and of paddle2d.cu
+# (ops/cspn_paddle2d_cuda.py): kTile (interior side), kHalo (steps per launch)
+TILE, HALO = 32, 8
 
 launches = 0
 bwd_launches = 0

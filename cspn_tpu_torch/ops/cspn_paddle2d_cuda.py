@@ -3,7 +3,7 @@ cspn_tpu/ops/cspn_pallas.py:_cspn2d_paddle_vjp and its _paddle2d_kernel,
 cspn_nd's 2D branch).
 
 The kernel is hand-written CUDA C++ in csrc/paddle2d.cu (the paddle
-instantiation of the K-step tile stencil of csrc/cspn2d_tiled.cu; its
+instantiation of the K-step tile stencil of csrc/cspn2d_tile.cuh; its
 header says what bounds it), built by ops/_build.py and called through
 ctypes on PyTorch's current stream.  It runs `steps` propagation steps on
 fixed normalized gates; `paddle2d_layout` puts the guide and features into
@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
-from cspn_tpu_torch.ops.cspn_cuda import HALO, TILE
+from cspn_tpu_torch.ops.cspn_halo_cuda import HALO, TILE  # csrc/cspn2d_tile.cuh's
 
 N_GATES = 8
 

@@ -248,8 +248,7 @@ def _kind(kernel: str) -> str:
         return "d2s"
     if "s2d_copy_kernel" in k:
         return "s2d"
-    # the tile kernels (csrc/cspn2d_tiled.cu, csrc/paddle2d.cu) and the probe;
-    # the tiled forward's prep launch is the per-step forward's prep_kernel
+    # the tile kernels (csrc/cspn2d_tiled.cu, csrc/paddle2d.cu) and the probe
     if "cspn2d_tiled_kernel" in k:
         return "cspn2d_tiled"
     if "paddle2d_kernel" in k:
@@ -259,7 +258,9 @@ def _kind(kernel: str) -> str:
     # the 3D kernels first: their names hold the 2D ones' substrings
     if "cspn3d_" in k:  # the forward's sweep; the backward's reverse sweep and gate pass
         return "cspn3d_fwd" if "cspn3d_fwd_sweep_kernel" in k else "cspn3d_bwd"
-    if "reverse_step_kernel" in k or "epilogue_kernel" in k or "unshift_kernel" in k:
+    # the backward's reverse tiles and epilogue; the sharded segment's
+    # backward runs the per-step reverse steps
+    if "reverse_tile_kernel" in k or "reverse_step_kernel" in k or "epilogue_kernel" in k:
         return "cspn2d_bwd"
     if "prep_kernel" in k or "step_kernel" in k:  # in a train step also the backward's replay
         return "cspn2d_fwd"

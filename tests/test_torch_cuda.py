@@ -106,7 +106,8 @@ def _grads(fn, g, b, s, ct):
 @pytest.mark.parametrize("norm_type", ["8sum", "8sum_abs"])
 @pytest.mark.parametrize("with_sparse", [True, False])
 @pytest.mark.parametrize("steps", [0, 1, 2, 24])
-@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 13, 17), (3, 33, 65), (2, 228, 304)])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 13, 17), (3, 33, 65), (2, 228, 304),
+                                   (2, 75, 101), (4, 352, 1216)])
 def test_backward_kernel_matches_plain(gen, shape, steps, with_sparse, norm_type):
     g, b, s = _inputs(gen, *shape, with_sparse)
     g[0, :, :5, :5] = 0.0  # zero gates (and zero guidance) in one corner
@@ -575,6 +576,66 @@ def test_tiled_failed_build_raises(gen, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         cspn_cuda.cspn2d_cuda(g, b, s, steps=4, channel_first=True)
     assert cspn_cuda.tiled_launches == before
+
+
+# --- the redesigned tile kernels at their edges (csrc/cspn2d_march.cuh) ---
+
+# 1-row and 1-column maps, sides that are no multiple of the tile (40),
+# several tiles each way
+EDGE_SHAPES = [(2, 1, 300), (2, 300, 1), (1, 1, 1), (3, 97, 145), (1, 130, 99)]
+
+
+@pytest.mark.parametrize("steps", [1, 7, 9, 24])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_tile_kernels_at_the_edges(gen, shape, steps):
+    """The tiled forward equals the per-step kernel value for value and the
+    plain version within TOL; the backward on the kept states equals the
+    replay and a second run bit for bit, and autograd of the plain version
+    within TOL."""
+    for norm_type, with_sparse in (("8sum", True), ("8sum_abs", False)):
+        g, b, s = _inputs(gen, *shape, with_sparse)
+        g[0, :, :5, :5] = 0.0
+        ct = torch.randn(shape, device="cuda", generator=gen)
+        got = cspn_cuda._launch_tiled(g, b, s, steps, norm_type)
+        out, gates, states = cspn_cuda._launch(g, b, s, steps, norm_type, keep_states=True)
+        kept = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type, (gates, states))
+        again = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type, (gates, states))
+        replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type)
+        torch.cuda.synchronize()
+        assert torch.equal(got, out)
+        want = _plain(g, b, s, steps, norm_type)
+        assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+        assert all(torch.equal(a, x) for a, x in zip(kept, again))
+        assert all(torch.equal(a, x) for a, x in zip(kept, replayed))
+        plain = _grads(lambda g, b, s: _plain(g, b, s, steps, norm_type), g, b, s, ct)
+        for a, x in zip(kept, plain):
+            assert torch.isfinite(a).all()
+            assert (a - x).abs().max().item() <= TOL * max(x.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 9, 24])
+def test_tile_kernels_cuda_launches_per_call(gen, steps):
+    """The CUDA launches of one call, counted by torch.profiler: the tiled
+    forward ceil(steps / K), the backward ceil(steps / K) + 1 on kept
+    states, with prep and steps - 1 replay launches before them without."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, b, s = _inputs(gen, 2, 60, 70)
+    ct = torch.randn(2, 60, 70, device="cuda", generator=gen)
+    _, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum", keep_states=True)
+    torch.cuda.synchronize()
+    calls = {"cspn2d_fwd": lambda: cspn_cuda._launch(g, b, s, steps, "8sum"),
+             "cspn2d_tiled": lambda: cspn_cuda._launch_tiled(g, b, s, steps, "8sum"),
+             "cspn2d_bwd_kept": lambda: cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum",
+                                                              (gates, states)),
+             "cspn2d_bwd_replay": lambda: cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum")}
+    counts = {}
+    for name, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts[name] = sum(e.count for e in prof.key_averages() if "_kernel" in e.key)
+    assert counts == cspn_cuda.cuda_launches_per_call(steps)
 
 
 # --- the paddle-semantics 2D CSPN (csrc/paddle2d.cu) ----------------------

@@ -61,11 +61,11 @@ def test_kitti_benchmark_preset_on_synthetic_frames():
 def test_kitti_batches_pick_their_forward_kernel():
     """The b4 train batch's forward, which cspn2d_bwd follows, runs the
     per-step kernel; the b1 eval batch and both serving buckets run the
-    tiled one, three launches of 8 steps."""
+    tiled one, two launches of 12 steps."""
     cfg = kitti_benchmark_synthetic()
     assert not cspn_cuda.use_tiled(for_backward=True)
     assert cspn_cuda.use_tiled(for_backward=False)
-    assert cspn_cuda.plan_tiles(*KITTI_HW, cfg.model.cspn_steps).launch_steps == (8, 8, 8)
+    assert cspn_cuda.plan_tiles(*KITTI_HW, cfg.model.cspn_steps).launch_steps == (12, 12)
 
 
 def test_builders_turn_on_cudnn_timing_only_for_the_card(monkeypatch):
