@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --routes-of CHECKOUT   # only the 2D CSPN timing
+    python3 chip_smoke.py --steps-of CHECKOUT    # only the train steps and served frames/s
 
-With --routes-of it only times the 2D CSPN kernels of the cspn_tpu_torch
-in CHECKOUT (time_fwd_routes; "." for this one), so that one harness times
-two trees in turns.  Without arguments it drives cspn_tpu_torch's main
+With --routes-of it only times the 2D CSPN kernels and the sharded
+segment's of the cspn_tpu_torch in CHECKOUT (time_fwd_routes,
+time_halo_seg_routes; "." for this one), and with --steps-of the paths'
+train steps and served frames/s (steps_of), so that one harness times two
+trees in turns.  Without arguments it drives cspn_tpu_torch's main
 paths on the card and fails (non-zero exit) if any phase fails:
 
   1. device: a CUDA card is required; prints its name and power limit and
@@ -80,20 +83,23 @@ voxel-step cost (choose_halo's 3D constant); and the
 depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
 shapes, an odd one with C=1, and in float64 and bfloat16; it holds the 2D
-CSPN's tiled forward and backward at both norms, with and without sparse,
-at NYU b8, an odd shape, KITTI b4 and a ragged shape, and at their edges
-(1-row and 1-column maps, sides no multiple of the tile, 1, 7, 9 and 24
-steps): the tiled forward equal to the per-step kernel value for value,
-the backward on the forward's kept states equal to its replay and to a
-second run bit for bit; it counts their CUDA launches a call with
-torch.profiler and holds them to ops/cspn_cuda.py:cuda_launches_per_call;
-it times both 2D CSPN forwards, the backward on both routes and both ways
-to run a train step's 2D CSPN at the paths' shapes (FWD_ROUTE_SHAPES;
-the times ops/cspn_cuda.py:use_tiled is set from); and the sharded CSPN's segment
-kernels (`cspn2d_halo_seg`, its backward) against the plain segment on the inputs cspn2d_spatial hands
-them at every shape, K and keep of the paths that run them (phase 11's
-op and models; halo_seg_cases), timed at the b4 train step's, with the
-cost model's constants (parallel/halo.py:choose_halo).  Every path's run starts with all eleven
+CSPN's two forwards (the tiled one, and cspn2d_fwd, which keeps its
+states for the backward) and the backward at both norms, with and without
+sparse, at NYU b8, an odd shape, KITTI b4 and a ragged shape, and at their
+edges (1-row and 1-column maps, sides no multiple of the tile, 1, 7, 9 and
+24 steps): the two forwards equal value for value, every kept state
+within tolerance of the plain forward's, the backward on the kept states
+equal to its replay and to a second run bit for bit; it counts their CUDA
+launches a call with torch.profiler and holds them to
+ops/cspn_cuda.py:cuda_launches_per_call; it times both 2D CSPN forwards,
+the backward on both routes and both ways to run a train step's 2D CSPN
+at the paths' shapes (FWD_ROUTE_SHAPES; the times ops/cspn_cuda.py:use_tiled
+is set from); and the sharded CSPN's segment kernels (`cspn2d_halo_seg`,
+its backward) against the plain segment on the inputs cspn2d_spatial
+hands them at every shape, K and keep of the paths that run them (phase
+11's op and models; halo_seg_cases), timed at the b4 train step's, their
+CUDA launches counted by torch.profiler, with the cost model's constants
+(parallel/halo.py:choose_halo).  Every path's run starts with all eleven
 kernels' launch counts at 0 and reads them at its end.
 
 The last two lines are JSON: the kernel table, then the result line.
@@ -104,6 +110,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import inspect
 import itertools
 import json
 import os
@@ -304,9 +312,35 @@ def bound(name: str, bytes_moved: float, ops: float) -> tuple[float, str, float,
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
 
 
+def plain_states(g_cf, b, s, steps, norm):
+    """x_1..x_{steps-1} of the plain forward (cspn2d_reference run t steps
+    for each t), stacked [steps-1, N, H, W]: the states a training forward
+    keeps for the backward."""
+    from cspn_tpu_torch.ops import cspn_ref
+
+    g_last = g_cf.movedim(1, -1)
+    return torch.stack([cspn_ref.cspn2d_reference(g_last, b, s, steps=t, norm_type=norm)
+                        for t in range(1, steps)]) if steps > 1 else b.new_empty((0, *b.shape))
+
+
+def check_states(label: str, states, g_cf, b, s, steps, norm, quiet: bool = False) -> float:
+    """Every kept state x_t against the plain forward's x_t, each within
+    KERNEL_TOL x max|plain x_t|; returns the largest error."""
+    want = plain_states(g_cf, b, s, steps, norm)
+    if states.shape != want.shape:
+        raise AssertionError(f"{label}: states {tuple(states.shape)}, expected {tuple(want.shape)}")
+    return max((_check_close(f"{label} x_{t + 1}", states[t], want[t], quiet=True)
+                for t in range(len(want))), default=0.0)
+
+
 def check_cspn_kernel(name: str) -> dict:
-    """Phase 3: the per-step CSPN kernel against its plain version on the
-    card."""
+    """Phase 3: cspn2d_fwd, the forward that keeps its states (the train
+    paths' forward), against its plain version on the card: the output and
+    every kept state x_1..x_{T-1} within KERNEL_TOL, the output equal to
+    the tiled forward's value for value; timed at NYU b8 beside the
+    function's bound (11 planes: the inputs and the output) and the bound
+    of all it writes (42 planes: also the states and the folded gates),
+    its CUDA launches a call counted by torch.profiler."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -316,31 +350,42 @@ def check_cspn_kernel(name: str) -> dict:
         ("main 8sum_abs", (n, h, w), True, "8sum_abs"),
         ("main no-sparse", (n, h, w), False, "8sum"),
         ("odd 3x13x17", (3, 13, 17), True, "8sum"),
+        ("kitti b4", KITTI_SHAPE, True, "8sum"),
     ]
     max_err = 0.0
     for label, (cn, ch, cw), with_sparse, norm in cases:
-        g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse)
-        got = cspn_cuda._launch(g, b, s, STEPS, norm)
+        g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
+        got, _, states = cspn_cuda._launch(g, b, s, STEPS, norm)
+        tiled = cspn_cuda._launch_tiled(g, b, s, STEPS, norm)
         want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=STEPS, norm_type=norm)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        log(f"  cspn2d_fwd {label} [{cn},8,{ch},{cw}] steps={STEPS}: max|err| = {err:.3e} "
-            f"(max|plain| = {scale:.3e}, tol {KERNEL_TOL:g} x max|plain|)")
-        if not (err <= KERNEL_TOL * scale) or not torch.isfinite(got).all():
-            raise AssertionError(f"cspn2d_fwd {label}: max|err| {err:.3e} > {KERNEL_TOL * scale:.3e}")
+        err = _check_close(f"cspn2d_fwd {label} [{cn},8,{ch},{cw}] steps={STEPS}", got, want)
+        if not torch.equal(got, tiled):
+            raise AssertionError(f"cspn2d_fwd {label}: values differ from the tiled forward's")
+        err = max(err, check_states(f"cspn2d_fwd {label}", states, g, b, s, STEPS, norm))
+        log(f"  cspn2d_fwd {label}: the output equals the tiled forward's, the {STEPS - 1} kept "
+            f"states within tol, max|err| {err:.3e}")
         max_err = max(max_err, err)
+        del got, states, tiled, want
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
     kernel_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
+    counted, found = launches_per_call(
+        lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"), CSPN2D_KERNELS,
+        cspn_cuda.cuda_launches_per_call(STEPS)["cspn2d_fwd"], "cspn2d_fwd at NYU b8")
     g_last = g.movedim(1, -1)
     plain_ms = time_ms(lambda: cspn_ref.cspn2d_reference(g_last, b, s, steps=STEPS))
-    bytes_moved = 11 * n * h * w * 4  # read 8 guidance + blur + sparse, write 1
+    # the function: read 8 guidance + blur + sparse, write out
     ops = 17 * STEPS * n * h * w  # 8 FMA + the base add per pixel per step
-    bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-    log(f"  cspn2d_fwd [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(name, 11 * n * h * w * 4, ops)
+    # what this kernel also writes: the STEPS - 1 states and 8 folded gates
+    kept_planes = 11 + STEPS - 1 + 8
+    kept_bound_ms = bound(name, kept_planes * n * h * w * 4, ops)[0]
+    log(f"  cspn2d_fwd [{n},8,{h},{w}] steps={STEPS} keeping its states: kernel {kernel_ms:.4f} ms "
+        f"({counted} CUDA launches a call, by torch.profiler {found}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms: 11 planes; operations {ops_ms:.4f} "
+        f"ms), with the states and folded gates it writes ({kept_planes} planes) "
+        f"{kept_bound_ms:.4f} ms on {name}")
     return {
         "name": "cspn2d_fwd",
         "route": "cuda",
@@ -353,6 +398,8 @@ def check_cspn_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes CSPN
+        "kept_bound_ms": kept_bound_ms,  # also the states and folded gates it writes
+        "cuda_launches_per_call": counted,  # counted by torch.profiler in this run
     }
 
 
@@ -381,12 +428,12 @@ CSPN2D_EDGE_STEPS = (1, 7, 9, 24)
 
 
 def cspn2d_bwd_routes(g, b, s, ct, norm, steps=STEPS):
-    """The backward kernel on both routes: on the states the per-step
-    forward kept, twice, and replaying them; fails unless the three are bit
-    for bit the same.  Returns the kept route's (d guidance, d blur)."""
+    """The backward kernel on both routes: on the states cspn2d_fwd kept,
+    twice, and replaying them; fails unless the three are bit for bit the
+    same.  Returns the kept route's (d guidance, d blur)."""
     from cspn_tpu_torch.ops import cspn_cuda
 
-    kept = cspn_cuda._launch(g, b, s, steps, norm, keep_states=True)[1:]
+    kept = cspn_cuda._launch(g, b, s, steps, norm)[1:]
     first = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm, kept)
     second = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm, kept)
     replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm)
@@ -413,8 +460,9 @@ def bwd_floors(name: str, n: int, h: int, w: int) -> tuple[float, str, float]:
 def check_2d_edges(name: str) -> float:
     """Phase 3: the tile kernels at their edges (CSPN2D_EDGE_SHAPES x
     CSPN2D_EDGE_STEPS, the norms and sparse in turn): the tiled forward
-    equal to the per-step kernel value for value and within KERNEL_TOL of
-    the plain version, the backward on both routes bit for bit the same
+    equal to cspn2d_fwd value for value and within KERNEL_TOL of the plain
+    version, cspn2d_fwd's kept states within KERNEL_TOL of the plain
+    forward's, the backward on both routes bit for bit the same
     (cspn2d_bwd_routes) and within KERNEL_TOL of autograd of the plain
     version.  Returns the largest error."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
@@ -429,19 +477,22 @@ def check_2d_edges(name: str) -> float:
         ct = torch.randn(n, h, w, device="cuda", generator=gen)
         label = f"[{n},8,{h},{w}] steps={steps} {norm}{'' if with_sparse else ' no-sparse'}"
         got = cspn_cuda._launch_tiled(g, b, s, steps, norm)
-        per_step = cspn_cuda._launch(g, b, s, steps, norm)
+        kept, _, states = cspn_cuda._launch(g, b, s, steps, norm)
         want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=steps, norm_type=norm)
         torch.cuda.synchronize()
-        if not torch.equal(got, per_step):
-            raise AssertionError(f"cspn2d_tiled {label}: values differ from the per-step kernel's")
-        max_err = max(max_err, _check_close(f"cspn2d_tiled edge {label}", got, want, quiet=True))
+        if not torch.equal(got, kept):
+            raise AssertionError(f"cspn2d_tiled {label}: values differ from cspn2d_fwd's")
+        max_err = max(max_err, _check_close(f"cspn2d_tiled edge {label}", got, want, quiet=True),
+                      check_states(f"cspn2d_fwd edge {label}", states, g, b, s, steps, norm,
+                                   quiet=True))
         grads = cspn2d_bwd_routes(g, b, s, ct, norm, steps)
         for what, a, x in zip(("dguidance", "dblur"), grads, plain_vjp(g, b, s, ct, norm, steps)):
             max_err = max(max_err, _check_close(f"cspn2d_bwd edge {label} {what}", a, x,
                                                 quiet=True))
-    log(f"  cspn2d_tiled and cspn2d_bwd at {len(CSPN2D_EDGE_SHAPES) * len(CSPN2D_EDGE_STEPS)} "
-        f"edge cases {CSPN2D_EDGE_SHAPES} x steps {CSPN2D_EDGE_STEPS}: the forward equal to the "
-        f"per-step kernel's, both routes of the backward bit for bit the same, max|err| "
+    log(f"  cspn2d_tiled, cspn2d_fwd and cspn2d_bwd at "
+        f"{len(CSPN2D_EDGE_SHAPES) * len(CSPN2D_EDGE_STEPS)} edge cases {CSPN2D_EDGE_SHAPES} x "
+        f"steps {CSPN2D_EDGE_STEPS}: the forwards equal, every kept state within tol, both routes "
+        f"of the backward bit for bit the same, max|err| "
         f"{max_err:.3e} (tol {KERNEL_TOL:g} x max|plain|)")
     return max_err
 
@@ -449,8 +500,8 @@ def check_2d_edges(name: str) -> float:
 def check_cspn_bwd_kernel(name: str) -> dict:
     """Phase 3: the CSPN backward kernel against autograd of the plain
     version, under a random cotangent and with negative sparse samples, at
-    every CSPN2D_CASES case: through autograd (the per-step forward keeps
-    its states), and on both routes (cspn2d_bwd_routes: twice on the kept
+    every CSPN2D_CASES case: through autograd (cspn2d_fwd keeps its
+    states), and on both routes (cspn2d_bwd_routes: twice on the kept
     states, replaying them), bit for bit the same; then timed at NYU b8 on
     both routes beside each route's byte floor, its CUDA launches a call
     counted by torch.profiler."""
@@ -476,7 +527,7 @@ def check_cspn_bwd_kernel(name: str) -> dict:
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
     ct = torch.randn(n, h, w, device="cuda", generator=gen)
-    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum")[1:]
     kept_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept))
     replay_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
     plain_ms = time_ms(lambda: plain_vjp(g, b, s, ct))
@@ -501,12 +552,12 @@ def check_cspn_bwd_kernel(name: str) -> dict:
         "replaces": "cspn_tpu/ops/cspn_pallas.py:1068",
         "launches": None,
         "max_abs_err": max(max_err, check_2d_edges(name)),
-        "ms": kept_ms,  # the paths' route: on the per-step forward's kept states
+        "ms": kept_ms,  # the paths' route: on cspn2d_fwd's kept states
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this VJP
-        "replay_ms": replay_ms,  # prep and replay first, as without kept states
+        "replay_ms": replay_ms,  # the replay first, as without kept states
         "kept_bound_ms": kept_bound_ms,
         "cuda_launches_per_call": counted,  # counted by torch.profiler in this run
     }
@@ -587,17 +638,27 @@ def cspn3d_step_fit(shape, lo: int = 4, hi: int = STEPS) -> tuple[float, float]:
 
 
 CSPN3D_KERNELS = ("cspn3d_fwd_sweep_kernel", "cspn3d_adj_sweep_kernel", "cspn3d_gate_grad_kernel")
-# the 2D CSPN kernels' CUDA names (csrc/cspn2d_*.cu): the per-step forward's
-# prep and steps (also the backward's replay), the tiled forward, the
-# backward's reverse tiles and epilogue
-CSPN2D_KERNELS = ("prep_kernel", "step_kernel", "cspn2d_tiled_kernel", "reverse_tile_kernel",
-                  "epilogue_kernel")
+# the 2D CSPN kernels' CUDA names (csrc/cspn2d_*.cu): the forward keeping its
+# states, the tiled forward, the backward's replay, reverse tiles and
+# epilogue; the sharded segment's backward: its replay, reverse tiles and
+# keep epilogue
+CSPN2D_KERNELS = ("cspn2d_fwd_kernel", "cspn2d_tiled_kernel", "replay_tile_kernel",
+                  "reverse_tile_kernel", "epilogue_kernel")
+HALO_SEG_BWD_KERNELS = ("halo_seg_replay_kernel", "halo_seg_reverse_kernel",
+                        "keep_epilogue_kernel")
+# the segment backward's K at its launch splits (12 steps a launch)
+SEG_BWD_SPLITS = (1, 11, 12, 13)
 
 
-def kernel_profile(fn, keys, reps: int = 5) -> dict:
-    """The CUDA launches in one call of `fn` of each kernel whose name holds
-    one of `keys`, with their device ms a call (torch.profiler over `reps`
-    calls): the launches counted here, not taken from the wrapper."""
+def kernel_profile(fn, keys, reps: int = 5) -> tuple[float, dict]:
+    """One call of `fn` under torch.profiler, averaged over `reps` calls:
+    the kernel launches the host made (its cudaLaunch* calls), and for
+    each kernel whose name holds one of `keys` its launches and device ms
+    as the card's activity records give them.  Every kernel the card
+    records must be one of `keys`'.  The card's records can miss the
+    kernels that ran first in a session, the host's launch records do not
+    (utils/profiler_records.py measures both; PERF.md): so the host's
+    count is the one to hold."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -610,28 +671,36 @@ def kernel_profile(fn, keys, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    found = {}
+    host, found = 0.0, {}
     for e in prof.key_averages():
-        for key in keys:
-            if key in e.key and not (key == "step_kernel" and "reverse_step_kernel" in e.key):
-                us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-                k = found.setdefault(key, {"launches": 0.0, "ms": 0.0})
-                k["launches"] += e.count / reps
-                k["ms"] += us / 1e3 / reps
-                break
-    return found
+        if e.key.startswith(("cudaLaunch", "cuLaunch")):
+            host += e.count / reps
+            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith(("Memcpy", "Memset")):
+            continue
+        key = next((key for key in keys if key in e.key), None)
+        if key is None:
+            raise AssertionError(f"a kernel outside {keys} ran: {e.key}")
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        k = found.setdefault(key, {"launches": 0.0, "ms": 0.0})
+        k["launches"] += e.count / reps
+        k["ms"] += us / 1e3 / reps
+    return host, found
 
 
 def launches_per_call(fn, keys, want: int, what: str) -> tuple[int, dict]:
-    """The CUDA launches of one call of `fn` (kernel_profile), held to
-    `want` (ops/cspn3d_cuda.py, ops/cspn_cuda.py: cuda_launches_per_call)."""
-    found = kernel_profile(fn, keys)
-    counted = sum(k["launches"] for k in found.values())
+    """The CUDA launches of one call of `fn` (kernel_profile: the host's),
+    held to `want` (ops/cspn3d_cuda.py, ops/cspn_cuda.py:
+    cuda_launches_per_call; ops/cspn_halo_cuda.py:cuda_launches)."""
+    counted, found = kernel_profile(fn, keys)
+    recorded = sum(k["launches"] for k in found.values())
     if counted != want:
         free, total = torch.cuda.mem_get_info()
-        raise AssertionError(f"{what}: {counted} CUDA launches a call, expected {want}: {found} "
-                             f"({free / 2**30:.1f} of {total / 2**30:.1f} GiB of device memory "
-                             "free)")
+        raise AssertionError(f"{what}: {counted} CUDA launches a call, expected {want}: the card "
+                             f"recorded {found} ({free / 2**30:.1f} of {total / 2**30:.1f} GiB of "
+                             "device memory free)")
+    if recorded != counted:
+        log(f"  {what}: the card's records hold {recorded} of the {counted} launches a call")
     return int(counted), found
 
 
@@ -918,14 +987,14 @@ def check_d2s_kernels(name: str) -> list[dict]:
 
 
 def check_tiled_kernel(name: str) -> dict:
-    """Phase 3: the tiled 2D CSPN forward against its plain version and the
-    per-step kernel's values at every CSPN2D_CASES case; cspn2d_cuda's
-    routing at kitti_benchmark's training batch (no
-    backward: tiled; with one: per-step, then cspn2d_bwd, against autograd
-    of the plain version under a random cotangent); then timed beside the
-    per-step kernel at the KITTI batch, its CUDA launches a call counted by
-    torch.profiler, and cspn2d_bwd timed there on both routes (the KITTI
-    train step's backward runs on the kept states)."""
+    """Phase 3: the tiled 2D CSPN forward against its plain version and
+    cspn2d_fwd's values at every CSPN2D_CASES case; cspn2d_cuda's routing
+    at kitti_benchmark's training batch (no backward: tiled; with one:
+    cspn2d_fwd keeping its states, then cspn2d_bwd, against autograd of the
+    plain version under a random cotangent); then timed beside cspn2d_fwd
+    at the KITTI batch, its CUDA launches a call counted by torch.profiler,
+    and cspn2d_bwd timed there on both routes (the KITTI train step's
+    backward runs on the kept states)."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -935,19 +1004,18 @@ def check_tiled_kernel(name: str) -> dict:
         g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
         g[0, :, :6, :6] = 0.0  # zero gates: the 0/0 guard
         got = cspn_cuda._launch_tiled(g, b, s, STEPS, norm)
-        per_step = cspn_cuda._launch(g, b, s, STEPS, norm)
+        kept = cspn_cuda._launch(g, b, s, STEPS, norm)[0]
         want = cspn_ref.cspn2d_reference(g.movedim(1, -1), b, s, steps=STEPS, norm_type=norm)
         torch.cuda.synchronize()
         max_err = max(max_err, _check_close(f"cspn2d_tiled {label} [{cn},8,{ch},{cw}] steps={STEPS}",
                                             got, want))
-        if not torch.equal(got, per_step):
-            raise AssertionError(f"cspn2d_tiled {label}: values differ from the per-step kernel's "
-                                 f"(max {(got - per_step).abs().max().item():.3e})")
-    log(f"  cspn2d_tiled equals the per-step kernel value for value in all {len(CSPN2D_CASES)} "
-        "cases")
+        if not torch.equal(got, kept):
+            raise AssertionError(f"cspn2d_tiled {label}: values differ from cspn2d_fwd's "
+                                 f"(max {(got - kept).abs().max().item():.3e})")
+    log(f"  cspn2d_tiled equals cspn2d_fwd value for value in all {len(CSPN2D_CASES)} cases")
 
     # through the wrapper: a forward without a backward runs the tiled
-    # kernel, one with a backward the per-step kernel and cspn2d_bwd
+    # kernel, one with a backward cspn2d_fwd and cspn2d_bwd
     g, b, s = cspn_inputs(gen, n, h, w, True, negative=0.2)
     ct = torch.randn(n, h, w, device="cuda", generator=gen)
     before = (cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches)
@@ -959,7 +1027,7 @@ def check_tiled_kernel(name: str) -> dict:
     ran = tuple(a - z for a, z in zip((cspn_cuda.tiled_launches, cspn_cuda.launches,
                                        cspn_cuda.bwd_launches), before))
     if ran != (1, 1, 1) or not torch.equal(inference, out):
-        raise AssertionError(f"KITTI b4 through cspn2d_cuda launched (tiled, per-step, bwd) {ran}, "
+        raise AssertionError(f"KITTI b4 through cspn2d_cuda launched (tiled, fwd, bwd) {ran}, "
                              "expected (1, 1, 1) with equal forwards")
     for what, a, x in zip(("dguidance", "dblur"), got, plain_vjp(g, b, s, ct)):
         max_err = max(max_err, _check_close(
@@ -969,14 +1037,14 @@ def check_tiled_kernel(name: str) -> dict:
 
     g, b, s = cspn_inputs(gen, n, h, w, True)
     kernel_ms = time_ms(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"))
-    per_step_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
+    fwd_kept_ms = time_ms(lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"))
     counted, found = launches_per_call(lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"),
                                        CSPN2D_KERNELS,
                                        cspn_cuda.cuda_launches_per_call(STEPS)["cspn2d_tiled"],
                                        "cspn2d_tiled at KITTI b4")
     # the backward at this shape on both routes (the repair of its KITTI
     # figure: the path runs it on the kept states)
-    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+    kept = cspn_cuda._launch(g, b, s, STEPS, "8sum")[1:]
     bwd_kept_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept))
     bwd_replay_ms = time_ms(lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"))
     bwd_counted = launches_per_call(
@@ -990,8 +1058,8 @@ def check_tiled_kernel(name: str) -> dict:
     ops = 17 * STEPS * n * h * w
     bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
     log(f"  cspn2d_tiled [{n},8,{h},{w}] steps={STEPS}: kernel {kernel_ms:.4f} ms ({counted} CUDA "
-        f"launches a call, by torch.profiler {found}), per-step kernel (cspn2d_fwd) "
-        f"{per_step_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+        f"launches a call, by torch.profiler {found}), cspn2d_fwd keeping its states "
+        f"{fwd_kept_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
         f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
     log(f"  cspn2d_bwd at [{n},8,{h},{w}] steps={STEPS}: on the forward's kept states "
         f"{bwd_kept_ms:.4f} ms ({bwd_counted} CUDA launches a call), replaying them "
@@ -1010,7 +1078,7 @@ def check_tiled_kernel(name: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes CSPN
         "cuda_launches_per_call": counted,  # counted by torch.profiler in this run
-        "per_step_ms": per_step_ms,  # cspn2d_fwd.cu on the same inputs
+        "cspn2d_fwd_ms": fwd_kept_ms,  # cspn2d_fwd.cu on the same inputs, keeping its states
         # cspn2d_bwd.cu at this shape: the KITTI train step's backward
         "cspn2d_bwd_kept_ms": bwd_kept_ms,
         "cspn2d_bwd_replay_ms": bwd_replay_ms,
@@ -1024,37 +1092,42 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
     """At each shape (24 steps, 8sum, 500 samples), each 2D CSPN kernel
     call and route by CUDA events around one call (`<what>_ms`) and as the
     device time of a call among queued ones (`<what>_queued_ms`): both
-    forward kernels (`tiled`, `per_step`), the backward on the per-step
-    forward's kept states (`bwd_kept`, the paths' route) and replaying them
-    (`bwd_replay`), and the two ways to run a train step's forward and
-    backward, the tiled forward then the replaying backward
-    (`train_tiled`) or the per-step forward keeping its states then the
-    backward on them (`train_kept`: ops/cspn_cuda.py:use_tiled is set
-    from these); with `count_launches`, the tile kernels' CUDA launches a
-    call, counted by torch.profiler and held to
+    forwards (`tiled`; `fwd_kept`, the forward that keeps its states, the
+    train paths' forward), the backward on those kept states (`bwd_kept`,
+    the paths' route) and replaying them (`bwd_replay`), and the two ways
+    to run a train step's forward and backward, the tiled forward then the
+    replaying backward (`train_tiled`) or the forward keeping its states
+    then the backward on them (`train_kept`: ops/cspn_cuda.py:use_tiled is
+    set from these); with `count_launches`, each call's CUDA launches,
+    counted by torch.profiler and held to
     ops/cspn_cuda.py:cuda_launches_per_call.  It drives only the wrappers'
-    `_launch`, `_launch_tiled` and `_launch_bwd`, so that it times any
-    checkout's kernels (--routes-of)."""
+    `_launch`, `_launch_tiled` and `_launch_bwd`, which every tree since
+    the backward took kept states has, so that it times any checkout's
+    kernels (--routes-of); where a tree's `_launch` takes `keep_states`,
+    it is asked for the states."""
     from cspn_tpu_torch.ops import cspn_cuda
 
+    fwd_kept = cspn_cuda._launch
+    if "keep_states" in inspect.signature(fwd_kept).parameters:
+        fwd_kept = functools.partial(fwd_kept, keep_states=True)
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     for n, h, w in shapes:
         g, b, s = cspn_inputs(gen, n, h, w, True)
         ct = torch.randn(n, h, w, device="cuda", generator=gen)
-        kept = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+        kept = fwd_kept(g, b, s, STEPS, "8sum")[1:]
 
         def train_tiled():
             cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum")
             cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum")
 
         def train_kept():
-            states = cspn_cuda._launch(g, b, s, STEPS, "8sum", keep_states=True)[1:]
+            states = fwd_kept(g, b, s, STEPS, "8sum")[1:]
             cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", states)
 
         calls = {
             "tiled": lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"),
-            "per_step": lambda: cspn_cuda._launch(g, b, s, STEPS, "8sum"),
+            "fwd_kept": lambda: fwd_kept(g, b, s, STEPS, "8sum"),
             "bwd_kept": lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum", kept),
             "bwd_replay": lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"),
             "train_tiled": train_tiled,
@@ -1068,11 +1141,13 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
             row["cuda_launches_per_call"] = {
                 key: launches_per_call(calls[what], CSPN2D_KERNELS, want[key],
                                        f"{key} at {[n, h, w]}")[0]
-                for key, what in (("cspn2d_tiled", "tiled"), ("cspn2d_bwd_kept", "bwd_kept"))}
+                for key, what in (("cspn2d_tiled", "tiled"), ("cspn2d_fwd", "fwd_kept"),
+                                  ("cspn2d_bwd_kept", "bwd_kept"),
+                                  ("cspn2d_bwd_replay", "bwd_replay"))}
         del kept, calls
         log(f"  2D CSPN at [{n},8,{h},{w}] steps={STEPS}, ms by events (queued): "
             + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
-                        for what in ("tiled", "per_step", "bwd_kept", "bwd_replay", "train_tiled",
+                        for what in ("tiled", "fwd_kept", "bwd_kept", "bwd_replay", "train_tiled",
                                      "train_kept"))
             + (f"; CUDA launches a call {row['cuda_launches_per_call']}" if count_launches else "")
             + f" on {name}")
@@ -1080,12 +1155,45 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
     return rows
 
 
+def time_halo_seg_routes(name: str) -> list[dict]:
+    """The sharded segment's kernels at kitti_sharded's b4 train segment
+    (S = 2, with keep, the inputs parallel/halo.py:first_segment_inputs
+    builds) at the cost model's K and at K = HALO_K: the forward (`fwd`)
+    and the backward (`bwd`), by CUDA events around one call and as the
+    device time of a call among queued ones.  It drives only
+    ops/cspn_halo_cuda.py's `_launch` and `_launch_bwd`, so that it times
+    any checkout's kernels (--routes-of)."""
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+    from cspn_tpu_torch.parallel import halo, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, h, w = KITTI_SHAPE
+    g, b, sp = cspn_inputs(gen, n, h, w, True, negative=0.2)
+    rows = []
+    for halo_k in (None, HALO_K):
+        with torch.no_grad():
+            *inputs, k = halo.first_segment_inputs(g, b, sp, mesh=make_mesh(spatial=2),
+                                                   steps=STEPS, halo=halo_k, channel_first=True)
+        ct = torch.randn(inputs[-1].shape, device="cuda", generator=gen)
+        calls = {"fwd": lambda: cspn_halo_cuda._launch(*inputs, k),
+                 "bwd": lambda: cspn_halo_cuda._launch_bwd(*inputs, ct, k)}
+        row = {"shape": list(inputs[0].shape), "k": k}
+        for what, fn in calls.items():
+            row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
+        log(f"  segment {row['shape']} K={k} with keep, ms by events (queued): "
+            + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
+                        for what in calls) + f" on {name}")
+        rows.append(row)
+        del inputs, calls
+    return rows
+
+
 def routes_of(checkout: str) -> int:
-    """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes on the
-    cspn_tpu_torch of CHECKOUT (another tree's kernels built from its own
-    sources, or this one's with "."), without counting launches; prints
-    the card line and one JSON object, and runs nothing else.  One harness
-    times a parent and a change in turns."""
+    """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes (without
+    counting launches) and time_halo_seg_routes on the cspn_tpu_torch of
+    CHECKOUT (another tree's kernels built from its own sources, or this
+    one's with "."); prints the card line and one JSON object, and runs
+    nothing else.  One harness times a parent and a change in turns."""
     root = os.path.abspath(checkout)
     sys.path.insert(0, root)
     import cspn_tpu_torch
@@ -1094,9 +1202,89 @@ def routes_of(checkout: str) -> int:
         raise RuntimeError(f"cspn_tpu_torch came from {cspn_tpu_torch.__file__}, not {root}")
     name, card = torch.cuda.get_device_name(0), card_line()
     rows = time_fwd_routes(name, count_launches=False)
+    seg_rows = time_halo_seg_routes(name)
     print(card, flush=True)
     print(json.dumps({"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS,
-                      "fwd_routes": rows}), flush=True)
+                      "fwd_routes": rows, "halo_seg_routes": seg_rows}), flush=True)
+    return 0
+
+
+def train_step_ms(model, optimizer, loss_fn, x, target) -> float:
+    """Median device ms of one train step (forward, loss, backward,
+    optimizer step; time_ms: CUDA events around each step)."""
+    model.train()
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss_fn(model(x), target).backward()
+        optimizer.step()
+
+    return time_ms(step, reps=11, warmup=2)
+
+
+def steps_of(checkout: str) -> int:
+    """`chip_smoke.py --steps-of CHECKOUT`: the paths' end-to-end figures on
+    the cspn_tpu_torch of CHECKOUT (a parent's or this one, "."), so that
+    one harness times two trees in turns: the nyu_train b8, kitti_benchmark
+    b4 and kitti_sharded b4 (S = 2) train steps (train_step_ms), and
+    nyu_eval's and kitti_benchmark's served frames/s over SERVE_WINDOW
+    requests (served_rate).  CHECKOUT's package builds the models, data,
+    loss, optimizer and server; the timing is this script's.  Prints the
+    card line and one JSON object."""
+    root = os.path.abspath(checkout)
+    sys.path.insert(0, root)
+    import cspn_tpu_torch
+
+    if not os.path.abspath(cspn_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"cspn_tpu_torch came from {cspn_tpu_torch.__file__}, not {root}")
+    from cspn_tpu_torch import set_conv_policy
+    from cspn_tpu_torch.config import PRESETS
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.models.unet import cspn_unet_resnet18
+    from cspn_tpu_torch.parallel import make_mesh
+    from cspn_tpu_torch.serving import DepthServer
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loss import masked_l1_loss
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
+
+    name, card = torch.cuda.get_device_name(0), card_line()
+    set_conv_policy("cuda")
+    result = {"card": card, "package": cspn_tpu_torch.__file__, "steps_ms": {},
+              "served_frames_per_s": {}}
+    kitti, nyu = _kitti_cfg(), nyu_eval_synthetic()
+    # (label, the model's config, the frames' config, batch)
+    for label, cfg, data, batch in (("nyu_train b8", PRESETS["nyu_train"], nyu, 8),
+                                    ("kitti_benchmark b4", kitti, kitti, 4),
+                                    ("kitti_sharded b4", kitti, kitti, 4)):
+        ds = SyntheticDepthDataset(length=batch, hw=tuple(data.data.crop_hw),
+                                   n_sample=data.data.n_sample, seed=1)
+        x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(batch)])).cuda()
+        depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(batch)])).cuda()
+        model = build_model(cfg, train=True, device="cuda", seed=0)
+        if label.startswith("kitti_sharded"):
+            sharded = cspn_unet_resnet18(cspn_steps=cfg.model.cspn_steps,
+                                         cspn_norm_type=cfg.model.cspn_norm_type,
+                                         spatial_mesh=make_mesh(spatial=2)).cuda()
+            sharded.load_state_dict(model.state_dict())
+            model = sharded.train()
+        ms = train_step_ms(model, make_optimizer(model.parameters()), masked_l1_loss, x, depth)
+        result["steps_ms"][label] = ms
+        log(f"  {label} train step: {ms:.3f} ms on {name}")
+        del model, x, depth
+    for label, cfg, buckets, sizes in (("nyu_eval", nyu, BUCKETS, REQUESTS),
+                                       ("kitti_benchmark", kitti, KITTI_BUCKETS, KITTI_REQUESTS)):
+        h, w = cfg.data.crop_hw
+        srv = DepthServer(calibrated_model(cfg, calib_batch=buckets[-1]), buckets)
+        srv.warmup(h, w)
+        ds = SyntheticDepthDataset(length=sum(sizes), hw=(h, w), n_sample=cfg.data.n_sample,
+                                   seed=1, split="val")
+        starts = np.cumsum((0,) + sizes)
+        reqs = [np.stack([ds[i]["rgbd"] for i in range(a, b)]) for a, b in zip(starts, starts[1:])]
+        result["served_frames_per_s"][label] = served_rate(srv, reqs, name)
+        del srv
+    print(card, flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 
@@ -1251,8 +1439,13 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
     cotangent, on the inputs that cspn2d_spatial hands its first segment
     (parallel/halo.py:first_segment_inputs; the in-process mesh stacks the
     S blocks along the batch) at every (shape, K, keep) of halo_seg_cases;
-    then each timed at kitti_sharded's b4 train shape, with the cost
-    model's per-pixel-step time and fixed cost per segment
+    the backward's CUDA launches a call counted by torch.profiler at each
+    and held to ops/cspn_halo_cuda.py:cuda_launches (5 at K = 24 with
+    keep); then each timed at kitti_sharded's b4 train shape, its CUDA
+    launches counted (the backward's also at SEG_BWD_SPLITS, with and
+    without keep), and a second backward held bit for bit to the
+    first, with the cost model's
+    per-pixel-step time and fixed cost per segment
     (parallel/halo.py:choose_halo)."""
     from cspn_tpu_torch.ops import cspn_halo_cuda, cspn_ref
     from cspn_tpu_torch.parallel import halo, make_mesh
@@ -1278,6 +1471,8 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
         label = (f"[{n},8,{he},{w}] (S={spatial}, b{batch}) K={k} "
                  f"{'with' if with_sparse else 'without'} keep, {fwd_launches} / {bwd_launches} "
                  "CUDA launches")
+        launches_per_call(lambda: cspn_halo_cuda._launch_bwd(*inputs, ct, k), HALO_SEG_BWD_KERNELS,
+                          bwd_launches, f"cspn2d_halo_seg_bwd {label}")
         ts = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
         before = (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)
         got = cspn_halo_cuda.cspn2d_halo_segment(*ts, k)
@@ -1299,7 +1494,30 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
     n, _, he, _ = gates.shape
     ct = torch.randn(n, he, w, device="cuda", generator=gen)
     px = n * he * w
-    fwd_launches, bwd_launches = cspn_halo_cuda.cuda_launches(k, True)
+    first = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)
+    second = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)
+    if not all(torch.equal(a, e) for a, e in zip(first, second)):
+        raise AssertionError("cspn2d_halo_seg_bwd: a second backward differs from the first")
+    del first, second
+    # the backward's launch splits: a replay that only folds (K = 1 with
+    # keep), none (K = 1 without), one or two replay and reverse launches
+    split_launches = {}
+    for k_split in SEG_BWD_SPLITS:
+        for keep_split in (keep, None):
+            want = cspn_halo_cuda.cuda_launches(k_split, keep_split is not None)[1]
+            what = f"K={k_split} {'with' if keep_split is not None else 'without'} keep"
+            split_launches[what] = launches_per_call(
+                lambda: cspn_halo_cuda._launch_bwd(gates, base, keep_split, x, ct, k_split),
+                HALO_SEG_BWD_KERNELS, want, f"cspn2d_halo_seg_bwd {what}")[0]
+    log(f"  cspn2d_halo_seg_bwd [{n},8,{he},{w}]: CUDA launches a call by torch.profiler "
+        f"{split_launches}, each as cuda_launches gives on {name}")
+    fwd_launches = launches_per_call(
+        lambda: cspn_halo_cuda._launch(gates, base, keep, x, k), ("halo_seg_kernel",),
+        cspn_halo_cuda.cuda_launches(k, True)[0], f"cspn2d_halo_seg at K={k}")[0]
+    bwd_launches, found = launches_per_call(
+        lambda: cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k), HALO_SEG_BWD_KERNELS,
+        cspn_halo_cuda.cuda_launches(k, True)[1], f"cspn2d_halo_seg_bwd at K={k}")
+    bwd_split = {key: v["ms"] for key, v in found.items()}  # replay, reverse tiles, epilogue
     timed = {
         "cspn2d_halo_seg": (
             time_ms(lambda: cspn_halo_cuda._launch(gates, base, keep, x, k)),
@@ -1317,8 +1535,8 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
     rows = []
     for kname, (ms, plain_ms, bytes_moved, ops, tpu_line, cuda_launches) in timed.items():
         bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
-        log(f"  {kname} [{n},8,{he},{w}] K={k} with keep ({cuda_launches} CUDA launches): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+        log(f"  {kname} [{n},8,{he},{w}] K={k} with keep ({cuda_launches} CUDA launches, counted by "
+            f"torch.profiler): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
             f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
         rows.append({
             "name": kname,
@@ -1336,6 +1554,10 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
             "timed_k": k,
             "cuda_launches_per_segment": cuda_launches,
         })
+    rows[1]["split_ms"] = bwd_split
+    rows[1]["cuda_launches_at_splits"] = split_launches
+    log(f"  cspn2d_halo_seg_bwd: a second backward bit for bit the first; its launches by "
+        f"torch.profiler, ms a call: {bwd_split} on {name}")
     # the cost model's constants (parallel/halo.py), measured here
     rows[0]["ps_per_px_step"] = rows[0]["ms"] * 1e9 / (k * px)
     rows[0]["segment_fixed_us"] = segment_fixed_s() * 1e6
@@ -1947,7 +2169,7 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if launches != expected:
             raise AssertionError(f"KITTI training launched {launches}, expected {expected}: the "
-                                 "per-step forward and cspn2d_bwd for the train steps, the tiled "
+                                 "states-keeping forward and cspn2d_bwd for the train steps, the tiled "
                                  "forward for validation")
         with open(os.path.join(save_dir, "log_train.txt")) as f:
             train_row = [float(v) for v in f.read().splitlines()[-1].split()]
@@ -1963,7 +2185,7 @@ def kitti_train_slice(name: str, kernel_ms: dict) -> dict:
             "tensors moved; best_model and epoch_00 written")
         del p0
 
-    # one b4 train step through the kernels (per-step forward, cspn2d_bwd), the
+    # one b4 train step through the kernels (cspn2d_fwd, cspn2d_bwd), the
     # plain CSPN and the plain CSPN in float64, as phase 5
     model_k = trainer.state.model
     del trainer
@@ -2326,6 +2548,9 @@ def main(argv=None) -> int:
     p.add_argument("--routes-of", metavar="CHECKOUT",
                    help="only time the 2D CSPN kernels of CHECKOUT's cspn_tpu_torch "
                         "(time_fwd_routes) and print them")
+    p.add_argument("--steps-of", metavar="CHECKOUT",
+                   help="only time the train steps and served frames/s of CHECKOUT's "
+                        "cspn_tpu_torch (steps_of) and print them")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -2333,6 +2558,8 @@ def main(argv=None) -> int:
         return 1
     if args.routes_of is not None:
         return routes_of(args.routes_of)
+    if args.steps_of is not None:
+        return steps_of(args.steps_of)
     from cspn_tpu_torch import set_conv_policy
     from cspn_tpu_torch.ops import _build
 

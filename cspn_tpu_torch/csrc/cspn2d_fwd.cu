@@ -20,66 +20,72 @@
 // 228x304, about 0.9 us per image at the H100 SXM's 3.35 TB/s.  Its
 // arithmetic is ~17 flops per pixel per step (8 FMA + the base add), about
 // 28 MFLOP per 228x304 image at 24 steps, 0.4 us at 67 TFLOP/s of f32: the op
-// is memory-bound.
+// is memory-bound.  This kernel is the forward that cspn2d_bwd.cu follows
+// (ops/cspn_cuda.py:use_tiled), so it also writes what the backward reads:
+// the states x_1..x_{T-1} and the 8 folded gates keep * gate_d: 10 planes
+// read and 1 + 23 + 8 written at 24 steps, 42 planes, 0.0278 ms at NYU b8
+// and 0.0859 ms at KITTI b4 (4x352x1216).
 //
-// What this design does about it: little, on purpose.  It is the simple,
-// correct first version.  One `prep` launch folds the normalization, the
-// sparse mask and the center term into keep*gate_d ([N,8,H,W]) and base
-// ([N,H,W]) in scratch the caller allocates; then `steps` launches of `step`
-// ping-pong two [N,H,W] buffers, one thread per pixel with neighbouring
-// columns on neighbouring addresses.  Each step moves ~11 planes (8 gates,
-// base, x, y), so at 24 steps the traffic is ~24x the fused bound.  At b8 the
-// gate working set (~18 MB) stays in the 50 MB L2, so most of it is L2
-// traffic; at b128 it is not.
-//
-// What it leaves open for the performance work.  One f32 plane of a 228x304
-// frame is 277 KB, more than one SM's 227 KB of shared memory, so the TPU's
-// "whole image resident for all steps" has no direct analogue.  Two roads
-// stay open and both reuse `prep` unchanged: (1) a step kernel that runs K
-// steps per launch on a shared-memory row tile with a K-row (and K-column)
-// halo, recomputing the halo, as cspn_pallas.py:_fwd_dma_kernel does with
-// its row tiles; (2) one persistent cooperative kernel that keeps its tile's
-// gates in registers/shared memory and syncs the grid once per step.
+// What this design does about it (an earlier version ran a prep launch
+// that folded the gates, then one launch a step, each reading 8 gate
+// planes, base and x and writing y: 11 planes a step, 25 launches at 24
+// steps).  It is the tiled forward's column march (cspn2d_march.cuh,
+// cspn2d_tiled.cu): 64x64 extended tiles, an interior of 64 - 2K, K = 12
+// steps a launch with the state in registers, ceil(steps / K) launches (2
+// at 24 steps).  The first launch folds the gates from the raw guidance at
+// load and writes the interior's folded gates ([N,8,H,W], the layout
+// cspn2d_bwd.cu's reverse tiles read) and base ([N,H,W], for a later
+// launch); after every step t < T the interior's threads store x_t into
+// states[t - 1] (a float2 a lane and row, coalesced across the warp, which
+// nothing waits for, so the stores overlap the next step's arithmetic), and
+// step T writes `out`.  A later launch starts from the state the one before
+// it stored.  The values are the tiled forward's and those of the version
+// with a launch a step: the same fold code and, per pixel and step, the
+// same FMA chain in the same order.  Traffic per launch: the tiled forward's (~10 input
+// planes over 2.56x the interior, part of it from the L2) and K state
+// planes; the halo's re-reads and one block an SM (its loads, fold and
+// steps do not overlap) keep it several times its bound.
 
-#include "cspn2d_common.cuh"  // kDy/kDx, kThreads, prep_kernel, step_kernel
+#include "cspn2d_march.cuh"  // MarchArgs, march_tile, march_launches
 
-// Runs the whole forward on `stream`: one prep launch and `steps` step
-// launches.  The caller allocates every buffer (contiguous f32):
-//   guid [n,8,h,w], blur/out/x_scratch/base_scratch [n,h,w],
-//   gate_scratch [n,8,h,w]; sparse may be null.  `states` is null, or
-// [steps-1,n,h,w]: step t < steps-1 then writes x_{t+1} to states[t]
-// (x_scratch is unused), and states and gate_scratch are what
-// cspn2d_bwd.cu's prep and replay would compute, so a backward given them
-// skips both (ops/cspn_cuda.py keeps them for training).
-// Returns cudaGetLastError() after the first launch that fails, else 0.
-extern "C" int cspn2d_fwd_f32(const float* guid, const float* blur,
-                              const float* sparse, float* out,
-                              float* gate_scratch, float* base_scratch,
-                              float* x_scratch, float* states, int n, int h,
-                              int w, int steps, int norm_abs, void* stream) {
+namespace {
+
+// One launch of the forward that keeps its states (march_tile): kFold the
+// first, folding the raw guidance; !kFold a later one, on the folded gates.
+template <bool kFold>
+__global__ void __launch_bounds__(kMarchThreads, 1) cspn2d_fwd_kernel(MarchArgs a) {
+  march_tile<kFold ? Load::kRaw : Load::kFolded, true>(a);
+}
+
+}  // namespace
+
+// Runs the whole forward on `stream`: ceil(steps / kHalo) launches.  The
+// caller allocates every buffer (contiguous f32): guid [n,8,h,w],
+// blur/out/base_scratch [n,h,w], gates [n,8,h,w] (out: the folded gates
+// keep * gate_d, what cspn2d_bwd.cu reads), states [max(steps-1,0),n,h,w]
+// (out: x_t in states[t-1]); sparse may be null.  base_scratch carries the
+// folded base to the later launches.  Returns cudaGetLastError() after the
+// first launch that fails, else 0.
+extern "C" int cspn2d_fwd_f32(const float* guid, const float* blur, const float* sparse,
+                              float* out, float* gates, float* base_scratch, float* states,
+                              int n, int h, int w, int steps, int norm_abs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (steps <= 0) {
-    return static_cast<int>(cudaMemcpyAsync(
-        out, blur, sizeof(float) * (size_t)n * h * w, cudaMemcpyDeviceToDevice,
-        s));
+    return static_cast<int>(cudaMemcpyAsync(out, blur, sizeof(float) * (size_t)n * h * w,
+                                            cudaMemcpyDeviceToDevice, s));
   }
-  const dim3 grid((h * w + kThreads - 1) / kThreads, n);
-  prep_kernel<<<grid, kThreads, 0, s>>>(guid, blur, sparse, gate_scratch,
-                                        base_scratch, h, w, norm_abs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // into states, or ping-pong, so that the last step writes `out`
-  const size_t plane = (size_t)n * h * w;
-  const float* src = blur;
-  for (int t = 0; t < steps; ++t) {
-    float* dst = t == steps - 1 ? out
-                 : states     ? states + (size_t)t * plane
-                 : ((steps - 1 - t) % 2 == 0) ? out : x_scratch;
-    step_kernel<<<grid, kThreads, 0, s>>>(gate_scratch, base_scratch, src, dst,
-                                          h, w);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    src = dst;
-  }
-  return 0;
+  MarchArgs a{};
+  a.gates = guid;
+  a.base = blur;
+  a.mask = sparse;
+  a.gates_out = gates;
+  a.base_out = steps > kHalo ? base_scratch : nullptr;
+  a.x_in = blur;
+  a.x_out = out;
+  a.states = states;
+  a.h = h;
+  a.w = w;
+  a.norm_abs = norm_abs;
+  return static_cast<int>(
+      march_launches(cspn2d_fwd_kernel<true>, cspn2d_fwd_kernel<false>, a, n, steps, s));
 }

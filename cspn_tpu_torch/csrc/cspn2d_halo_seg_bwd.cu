@@ -27,34 +27,52 @@
 // H100 SXM's 3.35 TB/s.  ~17 flops per pixel per replay step and ~33 per
 // reverse step: 0.0051 ms at 67 TFLOP/s of f32 for K = 8.  Bytes bound it.
 //
-// What this design does about it: little, on purpose; it is the simple,
-// correct first version, built from what the 2D CSPN backward
-// (cspn2d_bwd.cu) already has.  One launch folds keep into the gates; the
-// forward's step kernel replays the K - 1 inner states into scratch
-// (cspn2d_common.cuh:step_kernel; K <= 24 planes, no checkpoints, as the
-// TPU kernel keeps every pre-step state); K launches of the reverse step
-// (cspn2d_common.cuh:reverse_step_kernel) accumulate the gate and base
-// cotangents straight into the outputs; one epilogue launch turns the
-// folded-gate cotangents into d gate and d keep in place.  Each reverse
-// launch moves ~30 planes, so the traffic is ~15x the bound at K = 8.  A
-// fused multi-step backward on tiles is the road left open.
+// What this design does about it (an earlier version folded keep in a
+// launch of its own, replayed with one launch a step and ran one launch a
+// reverse step, each reading and writing the 9 cotangent planes in device
+// memory: 2K + 1 launches, 49 at K = 24, ~55x the bound).  It is the 2D
+// CSPN backward's design (cspn2d_bwd.cu), from the same two pieces, with
+// x_0 = x where that one has blur:
+//   - replay: the forward march keeping its states (cspn2d_march.cuh:
+//     march_tile, march_launches) over K - 1 steps, its loads reading the
+//     given gates, base and x and multiplying keep into the gates; the
+//     first launch writes G = keep * gate once for the reverse tiles
+//     (without keep G is the gates as given).  Cells beyond the block's
+//     rows and the image's columns are the march's zeros (gates and base 0
+//     outside the map), which is JAX's zero `xpad`.  ceil((K-1)/K_m)
+//     launches, K_m = 12 the march's steps a launch; one that only folds
+//     at K = 1 with keep;
+//   - reverse: the reverse tiles (cspn2d_reverse.cuh) on those states: d
+//     base is their bbar, the folded-gate cotangent their Gbar and d x
+//     their v_0; the first launch starts the accumulators at 0, so nothing
+//     is cleared first.  ceil(K/12) launches;
+//   - epilogue (with keep, pointwise): d gate_d = keep Gbar_d in place and
+//     d keep = sum_d gate_d Gbar_d.
+// 5 launches at K = 24 with keep, 3 at K = 8 (49 and 17 before).  No
+// atomics: a second backward is bit for bit the first.
 
-#include "cspn2d_common.cuh"  // kThreads, step_kernel, reverse_step_kernel
+#include "cspn2d_common.cuh"   // kThreads
+#include "cspn2d_march.cuh"    // MarchArgs, march_tile, march_launches
+#include "cspn2d_reverse.cuh"  // reverse_tile, reverse_tiles
 
 namespace {
 
-// folded_d = keep * gate_d, per pixel.
-__global__ void fold_keep_kernel(const float* __restrict__ gates,  // [N,8,H,W]
-                                 const float* __restrict__ keep,   // [N,H,W]
-                                 float* __restrict__ folded,       // [N,8,H,W]
-                                 int hw) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= hw) return;
-  const long long n = blockIdx.y;
-  const float kp = keep[n * hw + idx];
-  const long long g0 = n * 8 * hw + idx;
-#pragma unroll
-  for (int d = 0; d < 8; ++d) folded[g0 + d * hw] = kp * gates[g0 + d * hw];
+// One launch of the replay (march_tile keeping the states, on the given
+// gates): kKeep multiplies keep into them (the first launch with keep),
+// kFolded reads them as they are (G, or the gates without keep).
+template <Load kLoad>
+__global__ void __launch_bounds__(kMarchThreads, 1) halo_seg_replay_kernel(MarchArgs a) {
+  march_tile<kLoad, true>(a);
+}
+
+// One launch of the reverse sweep (cspn2d_reverse.cuh:reverse_tile).
+__global__ void __launch_bounds__(kMarchThreads, 1)
+    halo_seg_reverse_kernel(const float* __restrict__ gates, const float* __restrict__ x0,
+                            const float* __restrict__ states, const float* __restrict__ v_in,
+                            float* __restrict__ v_out, float* __restrict__ gbar,
+                            float* __restrict__ bbar, int n, int h, int w, int t_hi, int k,
+                            int first) {
+  reverse_tile(gates, x0, states, v_in, v_out, gbar, bbar, n, h, w, t_hi, k, first);
 }
 
 // In place over gbar (in: the folded-gate cotangents Gbar_d, out: d gate_d
@@ -86,11 +104,12 @@ __global__ void keep_epilogue_kernel(const float* __restrict__ gates,  // [N,8,H
 //   gates [n,8,h,w], base/x/ct [n,h,w], keep [n,h,w] or null (inputs),
 //   dgates [n,8,h,w], dbase/dx [n,h,w], dkeep [n,h,w] or null with keep
 //   (outputs),
-//   folded_scratch [n,8,h,w] (unused without keep), v_scratch [n,h,w],
-//   state_scratch [max(k_steps-1,0),n,h,w].
-// Launches: k_steps == 0: a copy and memsets; else (with keep) 1 fold,
-// k_steps-1 replay steps, k_steps reverse steps and (with keep) 1 epilogue.
-// Returns the first CUDA error of a launch, copy or memset, else 0.
+//   folded_scratch [n,8,h,w] (G = keep * gate; unused without keep),
+//   v_scratch [n,h,w], state_scratch [max(k_steps-1,0),n,h,w].
+// Launches: k_steps == 0: a copy and memsets; else ceil((k_steps-1) / 12)
+// replay launches (at least 1 with keep), ceil(k_steps / 12) reverse tiles
+// and, with keep, 1 epilogue.  Returns the first CUDA error of a launch,
+// copy or memset, else 0.
 extern "C" int cspn2d_halo_seg_bwd_f32(const float* gates, const float* base,
                                        const float* keep, const float* x, const float* ct,
                                        float* dgates, float* dbase, float* dkeep, float* dx,
@@ -101,43 +120,39 @@ extern "C" int cspn2d_halo_seg_bwd_f32(const float* gates, const float* base,
   const int hw = h * w;
   const size_t plane = (size_t)n * hw;
   cudaError_t err;
-  if ((err = cudaMemsetAsync(dgates, 0, sizeof(float) * 8 * plane, s)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaMemsetAsync(dbase, 0, sizeof(float) * plane, s)) != cudaSuccess)
-    return static_cast<int>(err);
   if (k_steps <= 0) {  // out = x: d x = ct, every other cotangent 0
+    if ((err = cudaMemsetAsync(dgates, 0, sizeof(float) * 8 * plane, s)) != cudaSuccess)
+      return static_cast<int>(err);
+    if ((err = cudaMemsetAsync(dbase, 0, sizeof(float) * plane, s)) != cudaSuccess)
+      return static_cast<int>(err);
     if (keep != nullptr &&
         (err = cudaMemsetAsync(dkeep, 0, sizeof(float) * plane, s)) != cudaSuccess)
       return static_cast<int>(err);
     return static_cast<int>(
         cudaMemcpyAsync(dx, ct, sizeof(float) * plane, cudaMemcpyDeviceToDevice, s));
   }
-  const dim3 grid((hw + kThreads - 1) / kThreads, n);
-  const float* g = gates;
-  if (keep != nullptr) {
-    fold_keep_kernel<<<grid, kThreads, 0, s>>>(gates, keep, folded_scratch, hw);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    g = folded_scratch;
-  }
-  auto state = [&](int t) -> const float* {
-    return t == 0 ? x : state_scratch + (size_t)(t - 1) * plane;
-  };
-  // replay: state_scratch[t-1] = x_t for t = 1 .. k_steps-1 (x_0 is x)
-  for (int t = 1; t < k_steps; ++t) {
-    step_kernel<<<grid, kThreads, 0, s>>>(g, base, state(t - 1),
-                                          state_scratch + (size_t)(t - 1) * plane, h, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  // reverse sweep into dgates (Gbar) and dbase; v ping-pongs between
-  // v_scratch and dx so that the last step (t = 0) writes dx
-  const float* v = ct;
-  for (int t = k_steps - 1; t >= 0; --t) {
-    float* v_next = (t % 2 == 0) ? dx : v_scratch;
-    reverse_step_kernel<<<grid, kThreads, 0, s>>>(g, state(t), v, v_next, dgates, dbase, h, w);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    v = v_next;
-  }
+  // replay: state_scratch[t-1] = x_t for t = 1 .. k_steps-1, and G
+  MarchArgs a{};
+  a.gates = gates;
+  a.base = base;
+  a.mask = keep;
+  a.gates_out = keep != nullptr ? folded_scratch : nullptr;
+  a.x_in = x;
+  a.x_out = k_steps > 1 ? state_scratch + (size_t)(k_steps - 2) * plane : nullptr;
+  a.states = state_scratch;
+  a.h = h;
+  a.w = w;
+  const MarchKernel folded = halo_seg_replay_kernel<Load::kFolded>;
+  const MarchKernel with_keep = halo_seg_replay_kernel<Load::kKeep>;
+  err = march_launches(keep != nullptr ? with_keep : folded, folded, a, n, k_steps - 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // reverse sweep: Gbar into dgates, d base into dbase, d x_0 into dx
+  const float* g = keep != nullptr ? folded_scratch : gates;
+  err = reverse_tiles(halo_seg_reverse_kernel, g, x, state_scratch, ct, v_scratch, dx, dgates,
+                      dbase, n, h, w, k_steps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (keep == nullptr) return 0;  // d gate_d = Gbar_d as it stands
+  const dim3 grid((hw + kThreads - 1) / kThreads, n);
   keep_epilogue_kernel<<<grid, kThreads, 0, s>>>(gates, keep, dgates, dkeep, hw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,7 @@ _c_int_p = ctypes.POINTER(ctypes.c_int)
 KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     "cspn2d_fwd": (
         "cspn2d_fwd.cu",
-        {"cspn2d_fwd_f32": [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn2d_fwd_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p]},
     ),
     "cspn2d_bwd": (
         "cspn2d_bwd.cu",
@@ -59,7 +59,7 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "cspn2d_tiled": (
         "cspn2d_tiled.cu",
-        {"cspn2d_tiled_f32": [_c_void_p] * 6 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn2d_tiled_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p]},
     ),
     "paddle2d": (
         "paddle2d.cu",

@@ -2,9 +2,11 @@
 cspn_tpu/ops/cspn_pallas.py:cspn2d_pallas and its _fwd_kernel and
 _bwd_kernel, and of cspn2d_tiled and its _fwd_dma_kernel).
 
-The kernels are hand-written CUDA C++ in csrc/cspn2d_fwd.cu (one launch
-per step), csrc/cspn2d_tiled.cu (K steps per launch on halo-extended
-tiles, the first launch folding the gates) and csrc/cspn2d_bwd.cu (the
+The kernels are hand-written CUDA C++ on one column march
+(csrc/cspn2d_march.cuh: K steps per launch on halo-extended tiles, the
+first launch folding the gates): csrc/cspn2d_fwd.cu (the forward that
+also stores its states x_1..x_{T-1} and folded gates), csrc/cspn2d_tiled.cu
+(the forward that stores only its output) and csrc/cspn2d_bwd.cu (the
 adjoint as reverse tiles of K steps on the same tiles, then one epilogue
 launch); their headers say what bounds them and what the design leaves
 open.  ops/_build.py builds them; they run through ctypes on
@@ -16,12 +18,12 @@ CPU; a CUDA tensor goes to the kernels or raises, forward and backward.
 There is no fallback between the two.  Both forward kernels compute the
 same function, value for value, and the backward kernel is its exact
 adjoint at every size.  `use_tiled` picks the forward: the tiled kernel
-for a forward that no backward follows, the per-step kernel, keeping its
-states for the backward, for one that `cspn2d_bwd` follows.
+for a forward that no backward follows, the one keeping its states for
+one that `cspn2d_bwd` follows.
 
-`launches` counts the per-step forward's runs, `tiled_launches` the tiled
-forward's, `bwd_launches` the backward kernel's: one per call each.
-`cuda_launches_per_call` gives the CUDA launches one call makes.
+`launches` counts the states forward's runs (cspn2d_fwd), `tiled_launches`
+the tiled forward's, `bwd_launches` the backward kernel's: one per call
+each.  `cuda_launches_per_call` gives the CUDA launches one call makes.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ launches = 0
 tiled_launches = 0
 bwd_launches = 0
 
-# csrc/cspn2d_march.cuh: the tiles of cspn2d_tiled.cu and of cspn2d_bwd.cu's
+# csrc/cspn2d_march.cuh: the tiles of both forwards and of cspn2d_bwd.cu's
 # reverse sweep are kExt x kExt extended, an interior of kTile and kHalo
 # steps a launch (K = 12, chosen by timing K = 8 and 12; PERF.md)
 EXT, HALO = 64, 12
@@ -46,27 +48,28 @@ TILE = EXT - 2 * HALO
 
 def cuda_launches_per_call(steps: int) -> dict[str, int]:
     """The CUDA kernel launches of one call of each kernel at `steps`
-    steps (copies and memsets not counted): the per-step forward (prep and
-    a launch a step), the tiled forward (ceil(steps / K) tiles), and the
-    backward on the forward's kept states (ceil(steps / K) reverse tiles
-    and the epilogue) or replaying them (prep and steps - 1 replay steps
-    first)."""
+    steps (copies and memsets not counted): the forward keeping its states
+    and the tiled forward (ceil(steps / K) tiles each), and the backward on
+    the forward's kept states (ceil(steps / K) reverse tiles and the
+    epilogue) or replaying them first (the states forward over steps - 1
+    steps: ceil((steps - 1) / K) launches, one that only folds the gates at
+    steps = 1)."""
     if steps <= 0:
         return {"cspn2d_fwd": 0, "cspn2d_tiled": 0, "cspn2d_bwd_kept": 0, "cspn2d_bwd_replay": 0}
     tiles = -(-steps // HALO)
-    return {"cspn2d_fwd": 1 + steps, "cspn2d_tiled": tiles, "cspn2d_bwd_kept": tiles + 1,
-            "cspn2d_bwd_replay": steps + tiles + 1}
+    replay = max(-(-(steps - 1) // HALO), 1)
+    return {"cspn2d_fwd": tiles, "cspn2d_tiled": tiles, "cspn2d_bwd_kept": tiles + 1,
+            "cspn2d_bwd_replay": replay + tiles + 1}
 
 
 def use_tiled(for_backward: bool) -> bool:
-    """The 2D forward's kernel, set from both kernels' times on an H100
-    (chip_smoke.py phase 3: time_fwd_routes; PERF.md).  The tiled
-    kernel is 2.2-3.4x faster than the per-step one at every shape of the
-    paths (NYU b1 and b8, KITTI b1 and b4, 24 steps), so every forward
-    that no backward follows runs it.  A forward that `cspn2d_bwd` follows runs the per-step kernel,
-    which writes its states x_1..x_{T-1} and folded gates on the way: the
-    backward then skips its prep and its T-1 replay steps, which cost more
-    than the per-step forward's lag behind the tiled one."""
+    """The 2D forward's kernel.  Both forwards are the same column march
+    (csrc/cspn2d_march.cuh) and give the same values; a forward that no
+    backward follows runs the tiled kernel, which stores only its output.
+    A forward that `cspn2d_bwd` follows runs cspn2d_fwd, which also stores
+    its states x_1..x_{T-1} and folded gates: the backward then reads them
+    instead of replaying them, which costs more than the stores (chip_smoke.py
+    phase 3: time_fwd_routes, train_tiled against train_kept; PERF.md)."""
     return not for_backward
 
 
@@ -129,10 +132,10 @@ def _check_inputs(guid_cf, blur, sparse, norm_type):
             raise ValueError(f"{name} must be [{n},{h},{w}], got {tuple(t.shape)}")
 
 
-def _launch(guid_cf, blur, sparse, steps: int, norm_type: str, keep_states: bool = False):
-    """Run the per-step kernel on already checked inputs; returns [N, H, W]
-    f32, or with `keep_states` (out, folded gates [N,8,H,W], states
-    x_1..x_{T-1} [T-1,N,H,W]) for `_launch_bwd`."""
+def _launch(guid_cf, blur, sparse, steps: int, norm_type: str):
+    """Run the forward that keeps its states (cspn2d_fwd) on already
+    checked inputs; returns (out [N,H,W] f32, folded gates [N,8,H,W],
+    states x_1..x_{T-1} [T-1,N,H,W]), the last two for `_launch_bwd`."""
     global launches
     from cspn_tpu_torch.ops import _build
 
@@ -140,25 +143,20 @@ def _launch(guid_cf, blur, sparse, steps: int, norm_type: str, keep_states: bool
     n, _, h, w = guid_cf.shape
     out = torch.empty_like(blur)
     gates = torch.empty_like(guid_cf)
-    base = torch.empty_like(blur)
-    if keep_states:
-        x_scratch, states = None, blur.new_empty((max(int(steps) - 1, 0), n, h, w))
-    else:
-        x_scratch, states = torch.empty_like(blur), None
+    base = torch.empty_like(blur)  # the first launch's folded base, for the later ones
+    states = blur.new_empty((max(int(steps) - 1, 0), n, h, w))
     with torch.cuda.device(guid_cf.device):  # the runtime launches on the current device
         err = lib.cspn2d_fwd_f32(
             guid_cf.data_ptr(), blur.data_ptr(),
             None if sparse is None else sparse.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), base.data_ptr(),
-            None if x_scratch is None else x_scratch.data_ptr(),
-            None if states is None else states.data_ptr(),
+            out.data_ptr(), gates.data_ptr(), base.data_ptr(), states.data_ptr(),
             n, h, w, int(steps), int(norm_type == "8sum_abs"),
             torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cspn2d_fwd_f32 launch failed: cudaError_t {err}")
     launches += 1
-    return (out, gates, states) if keep_states else out
+    return out, gates, states
 
 
 def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
@@ -169,13 +167,14 @@ def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Te
     lib = _build.load("cspn2d_tiled")
     n, _, h, w = guid_cf.shape
     out = torch.empty_like(blur)
-    folded = blur.new_empty((n, 9, h, w))  # the first launch's keep * gate_d and base
+    # the first launch's keep * gate_d and base, for the later ones
+    gates, base = torch.empty_like(guid_cf), torch.empty_like(blur)
     x_scratch = torch.empty_like(blur)
     with torch.cuda.device(guid_cf.device):
         err = lib.cspn2d_tiled_f32(
             guid_cf.data_ptr(), blur.data_ptr(),
             None if sparse is None else sparse.data_ptr(),
-            out.data_ptr(), folded.data_ptr(), x_scratch.data_ptr(),
+            out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
             n, h, w, int(steps), int(norm_type == "8sum_abs"),
             torch.cuda.current_stream(guid_cf.device).cuda_stream,
         )
@@ -188,9 +187,8 @@ def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Te
 def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None):
     """Run the backward kernel on checked f32 inputs and the cotangent `ct`
     of the output; returns (d guidance [N,8,H,W], d blur [N,H,W]).  `kept` is the (folded gates,
-    states) a forward on the same inputs kept (`_launch(...,
-    keep_states=True)`); without it the kernel recomputes them (prep and
-    replay)."""
+    states) a forward on the same inputs kept (`_launch`); without it the kernel recomputes them (the states
+    forward over steps - 1 steps)."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
@@ -225,21 +223,22 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None
 
 
 class _Cspn2dFwd(torch.autograd.Function):
-    """The forward that `cspn2d_bwd` follows: the per-step kernel, keeping
-    its folded gates and states for the backward kernel.  As the JAX custom
-    VJP (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its
-    inputs through `io_dtype` and saves them unrounded: the backward is the
-    exact adjoint of the f32 function at the f32 inputs, so the states of
-    rounded inputs are not kept and the backward recomputes them.  The
-    sparse map enters only through sign(), so its gradient is None (zero)."""
+    """The forward that `cspn2d_bwd` follows: cspn2d_fwd, keeping its folded
+    gates and states for the backward kernel.  As the JAX custom VJP
+    (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its inputs
+    through `io_dtype` and saves them unrounded: the backward is the exact
+    adjoint of the f32 function at the f32 inputs, so a forward on rounded
+    inputs runs the tiled kernel, keeps nothing, and the backward replays
+    the states from the unrounded inputs.  The sparse map enters only
+    through sign(), so its gradient is None (zero)."""
 
     @staticmethod
     def forward(ctx, guid_cf, blur, sparse, steps, norm_type, io_dtype):
         g, b, s = _round_io(guid_cf, blur, sparse, io_dtype)
         if g is guid_cf:
-            out, gates, states = _launch(g, b, s, steps, norm_type, keep_states=True)
+            out, gates, states = _launch(g, b, s, steps, norm_type)
         else:
-            out, gates, states = _launch(g, b, s, steps, norm_type), None, None
+            out, gates, states = _launch_tiled(g, b, s, steps, norm_type), None, None
         ctx.save_for_backward(guid_cf, blur, sparse, gates, states)
         ctx.steps, ctx.norm_type = steps, norm_type
         return out

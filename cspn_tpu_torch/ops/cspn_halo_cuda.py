@@ -4,9 +4,11 @@ _halo_seg_kernel and _halo_seg_bwd_kernel).
 
 The kernels are hand-written CUDA C++ in csrc/cspn2d_halo_seg.cu (K steps
 on the halo-extended block as the tiled forward's image, 8 steps per
-launch) and csrc/cspn2d_halo_seg_bwd.cu (replay, reverse steps and a
-keep epilogue); their headers say what bounds them and what the design
-leaves open.  ops/_build.py builds them and they run through ctypes on
+launch) and csrc/cspn2d_halo_seg_bwd.cu (the 2D CSPN backward's two
+pieces on the block: a replay by the column march keeping its states,
+with keep folded into the gates at load, then reverse tiles, 12 steps a
+launch each, and a keep epilogue); their headers say what bounds them and
+what the design leaves open.  ops/_build.py builds them and they run through ctypes on
 PyTorch's current stream.
 
 `cspn2d_halo_segment` is the wrapper.  A tensor on the CPU goes to the
@@ -18,8 +20,8 @@ the block is past its VMEM budget, cspn_pallas.py:601-618).
 
 `launches` counts the forward kernel's runs (one per segment:
 ceil(k / 8) tile launches on the card); `bwd_launches` counts the
-backward kernel's runs (one per segment: with keep a fold launch, k - 1
-replay steps, k reverse steps and with keep an epilogue launch).
+backward kernel's runs (one per segment: `cuda_launches` says how many
+CUDA launches each makes).
 """
 
 from __future__ import annotations
@@ -27,9 +29,12 @@ from __future__ import annotations
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
+from cspn_tpu_torch.ops.cspn_cuda import HALO as MARCH_HALO
 
 # csrc/cspn2d_tile.cuh, the tile stencil of this kernel and of paddle2d.cu
 # (ops/cspn_paddle2d_cuda.py): kTile (interior side), kHalo (steps per launch)
+# of the forward; the backward runs csrc/cspn2d_march.cuh's tiles, MARCH_HALO
+# steps a launch
 TILE, HALO = 32, 8
 
 launches = 0
@@ -38,9 +43,13 @@ bwd_launches = 0
 
 def cuda_launches(k_steps: int, with_keep: bool) -> tuple[int, int]:
     """The CUDA launches of one segment (k_steps > 0): the forward's tile
-    launches and the backward's fold and epilogue (with keep), k - 1 replay
-    and k reverse steps."""
-    return -(-k_steps // HALO), 2 * k_steps - 1 + (2 if with_keep else 0)
+    launches, and the backward's replay of k - 1 steps (ceil((k - 1) / 12)
+    launches; with keep at least one, which writes the folded gates), its
+    ceil(k / 12) reverse tiles and, with keep, its epilogue."""
+    replay = -(-(k_steps - 1) // MARCH_HALO)
+    if with_keep:
+        replay = max(replay, 1)
+    return -(-k_steps // HALO), replay + -(-k_steps // MARCH_HALO) + int(with_keep)
 
 
 def _check_inputs(gates_cf, base, keep, x):

@@ -258,11 +258,16 @@ def _kind(kernel: str) -> str:
     # the 3D kernels first: their names hold the 2D ones' substrings
     if "cspn3d_" in k:  # the forward's sweep; the backward's reverse sweep and gate pass
         return "cspn3d_fwd" if "cspn3d_fwd_sweep_kernel" in k else "cspn3d_bwd"
-    # the backward's reverse tiles and epilogue; the sharded segment's
-    # backward runs the per-step reverse steps
-    if "reverse_tile_kernel" in k or "reverse_step_kernel" in k or "epilogue_kernel" in k:
+    # the sharded segment's forward, and its backward's replay, reverse
+    # tiles and keep epilogue, before the 2D backward's epilogue
+    if "halo_seg_kernel" in k:
+        return "cspn2d_halo_seg"
+    if "halo_seg_" in k or "keep_epilogue_kernel" in k:
+        return "cspn2d_halo_seg_bwd"
+    # the backward's replay, reverse tiles and epilogue
+    if "replay_tile_kernel" in k or "reverse_tile_kernel" in k or "epilogue_kernel" in k:
         return "cspn2d_bwd"
-    if "prep_kernel" in k or "step_kernel" in k:  # in a train step also the backward's replay
+    if "cspn2d_fwd_kernel" in k:  # the forward that keeps its states
         return "cspn2d_fwd"
     if any(s in k for s in ("conv", "gemm", "xmma", "implicit", "cutlass", "fprop", "dgrad",
                             "wgrad", "winograd", "fft")):

@@ -14,7 +14,7 @@ port's plain version:
   steps on each extended tile, the interiors stitched.  Against
   `cspn_pallas.cspn2d_tiled(..., interpret=True)` with `_tiled_rows_budget`
   shrunk to force several row tiles (as tests/test_torch_cspn_tiled.py);
-- the reverse-tile backward, on the states a per-step forward kept: per
+- the reverse-tile backward, on kept states (here computed step by step): per
   launch (the ragged one first) and tile, the transposed stencil
   A_d[q] = G_d[q - off_d] gathered once with zero gates outside the image,
   K adjoint steps on the extended tile with its edge reading zeros, the
@@ -213,7 +213,7 @@ def emulate_epilogue(g_cf, blur, sparse, v0, gbar, bbar, norm_type):
 
 
 def emulate_backward(g_cf, blur, sparse, ct, steps, norm_type, k, tile):
-    """The backward on the states a per-step forward kept."""
+    """The backward on kept states, computed here step by step."""
     gates, base = _fold(g_cf, blur, sparse, norm_type)
     states = [blur]
     for _ in range(steps - 1):
@@ -278,20 +278,23 @@ def test_prep_free_tiles_match_jax_tiled_kernel(monkeypatch, norm_type, with_spa
 
 
 @pytest.mark.parametrize("steps, want", [
-    (24, {"cspn2d_fwd": 25, "cspn2d_tiled": 2, "cspn2d_bwd_kept": 3, "cspn2d_bwd_replay": 27}),
-    (25, {"cspn2d_fwd": 26, "cspn2d_tiled": 3, "cspn2d_bwd_kept": 4, "cspn2d_bwd_replay": 29}),
+    (24, {"cspn2d_fwd": 2, "cspn2d_tiled": 2, "cspn2d_bwd_kept": 3, "cspn2d_bwd_replay": 5}),
+    (25, {"cspn2d_fwd": 3, "cspn2d_tiled": 3, "cspn2d_bwd_kept": 4, "cspn2d_bwd_replay": 6}),
 ])
 def test_cuda_launches_per_call_at_the_paths_steps(steps, want):
-    """The paths run 24 steps: the tiled forward takes ceil(24 / K) = 2
-    launches (4 before, with its prep) and the backward on kept states
-    ceil(24 / K) + 1 = 3 (26 before); a step more adds a ragged launch."""
+    """The paths run 24 steps: both forwards take ceil(24 / K) = 2
+    launches (the tiled one 4 before, with its prep; the one keeping its
+    states 25, a prep and a launch a step), the backward on kept states
+    ceil(24 / K) + 1 = 3 (26 before), replaying ceil(23 / K) + 3 = 5 (27);
+    a step more adds a ragged launch."""
     assert cspn_cuda.HALO == 12
     assert cspn_cuda.cuda_launches_per_call(steps) == want
-    assert want["cspn2d_tiled"] <= -(-steps // cspn_cuda.HALO)
+    assert want["cspn2d_fwd"] == want["cspn2d_tiled"] <= -(-steps // cspn_cuda.HALO)
     assert want["cspn2d_bwd_kept"] <= -(-steps // cspn_cuda.HALO) + 2
+    assert want["cspn2d_bwd_replay"] <= 2 * -(-steps // cspn_cuda.HALO) + 1
 
 
-@pytest.mark.parametrize("steps, want", [(0, (0, 0, 0, 0)), (1, (2, 1, 2, 3)), (13, (14, 2, 3, 16))])
+@pytest.mark.parametrize("steps, want", [(0, (0, 0, 0, 0)), (1, (1, 1, 2, 3)), (13, (2, 2, 3, 4))])
 def test_cuda_launches_per_call_at_the_edges(steps, want):
     got = cspn_cuda.cuda_launches_per_call(steps)
     assert tuple(got[k] for k in ("cspn2d_fwd", "cspn2d_tiled", "cspn2d_bwd_kept",
@@ -332,11 +335,12 @@ def test_profiler_kinds_name_the_redesigned_kernels():
     assert kinds == ["cspn2d_tiled", "cspn2d_tiled", "cspn2d_bwd", "cspn2d_bwd"]
 
 
-@pytest.mark.parametrize("argv", [[], ["--routes-of", "."]])
+@pytest.mark.parametrize("argv", [[], ["--routes-of", "."], ["--steps-of", "."]])
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
-    """chip_smoke.py, the whole run or only the 2D kernels' timing of a
-    checkout (--routes-of), exits non-zero and prints no result where
-    torch.cuda.is_available() is false."""
+    """chip_smoke.py, the whole run, only the kernels' timing of a checkout
+    (--routes-of) or only its train steps and served rates (--steps-of),
+    exits non-zero and prints no result where torch.cuda.is_available()
+    is false."""
     import importlib.util
     import pathlib
 
@@ -348,3 +352,19 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
     assert smoke.main(argv) == 1
     out, err = capsys.readouterr()
     assert out == "" and "needs an NVIDIA GPU" in err
+
+
+def test_profiler_records_refuses_to_run_without_a_card(monkeypatch, capsys):
+    """utils/profiler_records.py exits non-zero and prints nothing on
+    stdout where torch.cuda.is_available() is false, and names the segment
+    backward's kernels by their CUDA names."""
+    from cspn_tpu_torch.utils import profiler_records
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiler_records.main(["--sessions", "1"]) == 1
+    out, err = capsys.readouterr()
+    assert out == "" and "measures the card" in err
+    names = ["void (anonymous namespace)::halo_seg_replay_kernel<(Load)2>(MarchArgs)",
+             "(anonymous namespace)::halo_seg_reverse_kernel(float const*, int)",
+             "(anonymous namespace)::keep_epilogue_kernel(float const*, int)"]
+    assert [profiler_records._kernel(n) for n in names] == ["replay", "reverse", "epilogue"]

@@ -193,7 +193,7 @@ def test_kernel_kinds_name_the_3d_kernels_first():
         "void (anonymous namespace)::cspn3d_adj_sweep_kernel<8>(float const*, float const*, float*, float*, float*, int, int, int, int, int, int, int)",
         "void (anonymous namespace)::cspn3d_adj_sweep_kernel<16>(float const*, float const*, float*, float*, float*, int, int, int, int, int, int, int)",
         "void (anonymous namespace)::cspn3d_gate_grad_kernel(float const*, float const*, float const*, float const*, float*, int, int, int, int, int)",
-        "void (anonymous namespace)::step_kernel(float const*, float const*, float const*, float*, int, int)",
-        "void (anonymous namespace)::reverse_step_kernel(float const*, float const*, int, int)",
+        "void (anonymous namespace)::cspn2d_fwd_kernel<false>((anonymous namespace)::MarchArgs)",
+        "void (anonymous namespace)::reverse_tile_kernel(float const*, float const*, int, int)",
     )]
     assert kinds == ["cspn3d_fwd"] + ["cspn3d_bwd"] * 3 + ["cspn2d_fwd", "cspn2d_bwd"]

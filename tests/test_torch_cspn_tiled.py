@@ -53,8 +53,8 @@ def test_plan_tiles_refuses_bad_arguments():
 def test_use_tiled_by_the_working_set():
     """The tiled kernel runs every forward that no backward follows, at
     any working set against the L2 (it is the faster one at every shape
-    of the paths on the card); a forward that cspn2d_bwd follows runs the
-    per-step kernel, which keeps its states for the backward."""
+    of the paths on the card); a forward that cspn2d_bwd follows runs
+    cspn2d_fwd, the same march storing its states for the backward."""
     assert cspn_cuda.use_tiled(for_backward=False)
     assert not cspn_cuda.use_tiled(for_backward=True)
 
@@ -144,9 +144,9 @@ def test_cpu_tensors_never_reach_a_kernel():
 
 
 def test_kernel_kinds_name_the_tile_kernels_and_the_probe():
-    """The profiler's kinds: the tile kernels and the probe are tested
-    before the per-step kinds (the tiled forward's prep launch is the
-    per-step forward's prep_kernel)."""
+    """The profiler's kinds: the tile kernels and the probe, and the
+    forward that keeps its states (its own kernel name, on the same march
+    as the tiled forward)."""
     from cspn_tpu_torch.utils import profiling
 
     kinds = [profiling._kind(k) for k in (
@@ -154,6 +154,6 @@ def test_kernel_kinds_name_the_tile_kernels_and_the_probe():
         "(anonymous namespace)::paddle2d_kernel(float const*, float const*, float const*, float*, int, int, int)",
         "void (anonymous namespace)::step_probe_f32_kernel<false>(void const*, float const*, float*, int)",
         "(anonymous namespace)::step_probe_bf16_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int)",
-        "(anonymous namespace)::prep_kernel(float const*, float const*, float const*, float*, float*, int, int, int)",
+        "void (anonymous namespace)::cspn2d_fwd_kernel<true>((anonymous namespace)::MarchArgs)",
     )]
     assert kinds == ["cspn2d_tiled", "paddle2d", "step_probe", "step_probe", "cspn2d_fwd"]

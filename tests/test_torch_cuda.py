@@ -1,5 +1,5 @@
-"""The CUDA kernels -- the 2D CSPN forward (per-step and tiled) and
-backward, the sharded 2D CSPN's segment and its backward, the
+"""The CUDA kernels -- the 2D CSPN forwards (the one keeping its states
+for the backward, and the tiled one) and backward, the sharded 2D CSPN's segment and its backward, the
 paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
 the subpixel decoder's depth-to-space and its adjoint, the step-body probe
 -- against their plain versions, on the card.
@@ -11,8 +11,8 @@ one (and without JAX, which tests/conftest.py imports) run:
 
 Tolerance: 1e-4 x max|plain| (FMA contraction and summation order differ),
 for the output and for each gradient; the depth-to-space kernels move
-values and are held bit for bit, and the tiled 2D forward to the per-step
-one's values; the probe's bf16-state pair within 1e-2 x max|plain| (its
+values and are held bit for bit, and the tiled 2D forward to the
+states-keeping one's values; the probe's bf16-state pair within 1e-2 x max|plain| (its
 bf16 FMA rounds once where the plain version may round twice).
 """
 
@@ -56,7 +56,7 @@ def _plain(g_cf, b, s, steps, norm_type):
 def test_kernel_matches_plain(gen, shape, steps, with_sparse, norm_type):
     g, b, s = _inputs(gen, *shape, with_sparse)
     before = cspn_cuda.launches
-    got = cspn_cuda._launch(g, b, s, steps, norm_type)  # the per-step kernel
+    got = cspn_cuda._launch(g, b, s, steps, norm_type)[0]  # the forward keeping its states
     torch.cuda.synchronize()
     assert cspn_cuda.launches == before + 1
     want = _plain(g, b, s, steps, norm_type)
@@ -512,19 +512,19 @@ def test_tiled_kernel_matches_plain_and_the_per_step_kernel(gen, shape, steps, w
     g[0, :, :5, :5] = 0.0
     before = (cspn_cuda.tiled_launches, cspn_cuda.launches)
     got = cspn_cuda._launch_tiled(g, b, s, steps, norm_type)
-    per_step = cspn_cuda._launch(g, b, s, steps, norm_type)
+    per_step = cspn_cuda._launch(g, b, s, steps, norm_type)[0]
     torch.cuda.synchronize()
     assert (cspn_cuda.tiled_launches, cspn_cuda.launches) == (before[0] + 1, before[1] + 1)
     want = _plain(g, b, s, steps, norm_type)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
-    assert torch.equal(got, per_step)  # the same FMA chains in the same order
+    assert torch.equal(got, per_step)  # the same march: the same FMA chains in the same order
 
 
 def test_forward_routes_by_whether_a_backward_follows(gen):
     """A forward that no backward follows runs the tiled kernel; one under
-    autograd runs the per-step kernel, and the backward runs cspn2d_bwd on
-    the states it kept."""
+    autograd runs cspn2d_fwd, and the backward runs cspn2d_bwd on the
+    states it kept."""
     g, b, s = _inputs(gen, 2, 40, 56)
     ct = torch.randn(2, 40, 56, device="cuda", generator=gen)
     want = _grads(lambda g, b, s: _plain(g, b, s, 24, "8sum"), g, b, s, ct)
@@ -539,7 +539,7 @@ def test_forward_routes_by_whether_a_backward_follows(gen):
     got = _grads(lambda g, b, s: cspn2d(g.movedim(1, -1), b, s, steps=24), g, b, s, ct)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
-    assert torch.equal(inference, cspn_cuda._launch(g, b, s, 24, "8sum"))
+    assert torch.equal(inference, cspn_cuda._launch(g, b, s, 24, "8sum")[0])
     for a, x in zip(got, want):
         assert (a - x).abs().max().item() <= TOL * x.abs().max().item()
 
@@ -548,9 +548,9 @@ def test_forward_routes_by_whether_a_backward_follows(gen):
 def test_backward_on_the_kept_states_equals_the_replay(gen, steps):
     g, b, s = _inputs(gen, 2, 13, 17)
     ct = torch.randn(2, 13, 17, device="cuda", generator=gen)
-    out, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum", keep_states=True)
+    out, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum")
     assert states.shape == (max(steps - 1, 0), 2, 13, 17)
-    assert torch.equal(out, cspn_cuda._launch(g, b, s, steps, "8sum"))
+    assert torch.equal(out, cspn_cuda._launch(g, b, s, steps, "8sum")[0])
     kept = cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum", (gates, states))
     replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum")
     assert all(torch.equal(a, r) for a, r in zip(kept, replayed))
@@ -588,8 +588,8 @@ EDGE_SHAPES = [(2, 1, 300), (2, 300, 1), (1, 1, 1), (3, 97, 145), (1, 130, 99)]
 @pytest.mark.parametrize("steps", [1, 7, 9, 24])
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_tile_kernels_at_the_edges(gen, shape, steps):
-    """The tiled forward equals the per-step kernel value for value and the
-    plain version within TOL; the backward on the kept states equals the
+    """The tiled forward equals cspn2d_fwd value for value and the plain
+    version within TOL; the backward on the kept states equals the
     replay and a second run bit for bit, and autograd of the plain version
     within TOL."""
     for norm_type, with_sparse in (("8sum", True), ("8sum_abs", False)):
@@ -597,7 +597,7 @@ def test_tile_kernels_at_the_edges(gen, shape, steps):
         g[0, :, :5, :5] = 0.0
         ct = torch.randn(shape, device="cuda", generator=gen)
         got = cspn_cuda._launch_tiled(g, b, s, steps, norm_type)
-        out, gates, states = cspn_cuda._launch(g, b, s, steps, norm_type, keep_states=True)
+        out, gates, states = cspn_cuda._launch(g, b, s, steps, norm_type)
         kept = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type, (gates, states))
         again = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type, (gates, states))
         replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type)
@@ -615,14 +615,15 @@ def test_tile_kernels_at_the_edges(gen, shape, steps):
 
 @pytest.mark.parametrize("steps", [0, 1, 9, 24])
 def test_tile_kernels_cuda_launches_per_call(gen, steps):
-    """The CUDA launches of one call, counted by torch.profiler: the tiled
+    """The CUDA launches of one call, counted by torch.profiler: each
     forward ceil(steps / K), the backward ceil(steps / K) + 1 on kept
-    states, with prep and steps - 1 replay launches before them without."""
+    states, with max(1, ceil((steps - 1) / K)) replay launches before them
+    without."""
     from torch.profiler import ProfilerActivity, profile
 
     g, b, s = _inputs(gen, 2, 60, 70)
     ct = torch.randn(2, 60, 70, device="cuda", generator=gen)
-    _, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum", keep_states=True)
+    _, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum")
     torch.cuda.synchronize()
     calls = {"cspn2d_fwd": lambda: cspn_cuda._launch(g, b, s, steps, "8sum"),
              "cspn2d_tiled": lambda: cspn_cuda._launch_tiled(g, b, s, steps, "8sum"),
@@ -636,6 +637,37 @@ def test_tile_kernels_cuda_launches_per_call(gen, steps):
             torch.cuda.synchronize()
         counts[name] = sum(e.count for e in prof.key_averages() if "_kernel" in e.key)
     assert counts == cspn_cuda.cuda_launches_per_call(steps)
+
+
+def _plain_states(g, b, s, steps, norm_type):
+    return [_plain(g, b, s, t, norm_type) for t in range(1, steps)]
+
+
+@pytest.mark.parametrize("steps", [1, 11, 12, 13, 24, 25])
+@pytest.mark.parametrize("shape", [(2, 1, 300), (2, 300, 1), (3, 97, 145), (1, 352, 1216)])
+def test_states_forward_at_its_launch_edges(gen, shape, steps):
+    """cspn2d_fwd at launch splits 1, 11, 12, 12 + 1, 12 + 12 and 12 + 12 +
+    1 steps, on 1-row and 1-column maps and ragged tiles: every kept state
+    within TOL of the plain forward's x_t, the output the tiled forward's
+    value for value, the folded gates the ones the replay writes, and the
+    backward on them its replay's bit for bit."""
+    for norm_type, with_sparse in (("8sum", True), ("8sum_abs", False)):
+        g, b, s = _inputs(gen, *shape, with_sparse)
+        g[0, :, :5, :5] = 0.0
+        ct = torch.randn(shape, device="cuda", generator=gen)
+        before = cspn_cuda.launches
+        out, gates, states = cspn_cuda._launch(g, b, s, steps, norm_type)
+        tiled = cspn_cuda._launch_tiled(g, b, s, steps, norm_type)
+        torch.cuda.synchronize()
+        assert cspn_cuda.launches == before + 1
+        assert states.shape == (steps - 1, *shape) and gates.shape == g.shape
+        assert torch.equal(out, tiled)
+        for t, want in enumerate(_plain_states(g, b, s, steps, norm_type), start=1):
+            assert torch.isfinite(states[t - 1]).all()
+            assert (states[t - 1] - want).abs().max().item() <= TOL * want.abs().max().item()
+        kept = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type, (gates, states))
+        replayed = cspn_cuda._launch_bwd(g, b, s, ct, steps, norm_type)
+        assert all(torch.equal(a, x) for a, x in zip(kept, replayed))
 
 
 # --- the paddle-semantics 2D CSPN (csrc/paddle2d.cu) ----------------------
@@ -765,6 +797,45 @@ def test_halo_segment_kernels_match_plain(gen, shape, k_steps, with_keep):
     for a, b in zip(outs["kernel"], outs["plain"]):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("with_keep", [True, False])
+@pytest.mark.parametrize("k_steps", [1, 11, 12, 13, 24])
+@pytest.mark.parametrize("shape", [(2, 1, 70), (2, 53, 1), (3, 61, 90), (2, 120, 1216)])
+def test_halo_segment_backward_at_its_launch_edges(gen, shape, k_steps, with_keep):
+    """The segment backward (a tiled replay, reverse tiles of 12 steps and
+    the keep epilogue) at K across its launch splits, on 1-row and 1-column
+    blocks and ragged tiles: every gradient within TOL of autograd of the
+    plain segment, a second backward bit for bit the first, and the kernel
+    launches the host makes (torch.profiler's cudaLaunch* records, which
+    unlike the card's kernel records miss none; chip_smoke.py:kernel_profile)
+    as many as cuda_launches gives."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+
+    gates, base, keep, x = _segment(gen, *shape, with_keep)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    before = cspn_halo_cuda.bwd_launches
+    got = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
+    again = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
+    torch.cuda.synchronize()
+    assert cspn_halo_cuda.bwd_launches == before + 2
+    assert all(torch.equal(a, e) for a, e in zip(got, again) if a is not None)
+    leaves = [t.clone().requires_grad_(True) for t in (gates, base, keep, x) if t is not None]
+    ts = leaves if with_keep else leaves[:2] + [None] + leaves[2:]
+    want = torch.autograd.grad(cspn_ref.halo_segment_reference(*ts, k_steps), leaves, ct)
+    got = [got[0], got[1]] + ([got[2]] if with_keep else []) + [got[3]]
+    for a, e in zip(got, want):
+        assert a.shape == e.shape and torch.isfinite(a).all()
+        assert (a - e).abs().max().item() <= TOL * max(e.abs().max().item(), 1e-30)
+    reps = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
+        torch.cuda.synchronize()
+    launched = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch"))
+    assert launched == reps * cspn_halo_cuda.cuda_launches(k_steps, with_keep)[1]
 
 
 def test_halo_segment_wrapper_refuses_what_the_kernel_does_not_take(gen):

@@ -60,8 +60,8 @@ def test_kitti_benchmark_preset_on_synthetic_frames():
 
 def test_kitti_batches_pick_their_forward_kernel():
     """The b4 train batch's forward, which cspn2d_bwd follows, runs the
-    per-step kernel; the b1 eval batch and both serving buckets run the
-    tiled one, two launches of 12 steps."""
+    forward that keeps its states; the b1 eval batch and both serving
+    buckets run the tiled one; each is two launches of 12 steps."""
     cfg = kitti_benchmark_synthetic()
     assert not cspn_cuda.use_tiled(for_backward=True)
     assert cspn_cuda.use_tiled(for_backward=False)

@@ -194,7 +194,7 @@ def test_profiling_helpers():
     assert cfg.model == config.PRESETS["nyu_eval"].model
     assert (cfg.data.dataset, cfg.data.crop_hw, cfg.data.n_sample) == ("synthetic", (228, 304), 500)
     kinds = [profiling._kind(k) for k in (
-        "void (anonymous namespace)::step_kernel(float const*, float const*, float const*, float*, int, int)",
+        "void (anonymous namespace)::cspn2d_fwd_kernel<false>((anonymous namespace)::MarchArgs)",
         "sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nchw",
         "void cudnn::bn_fw_inf_1C11_kernel_NCHW<float, float, true, 1>",
         "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",

@@ -326,10 +326,10 @@ def test_step_timer_and_kernel_kinds():
     assert 0 < timer.frames_per_s <= 2000 and "steps=2" in timer.summary()
     assert profiling.StepTimer().summary() == "StepTimer: no timed steps"
     kinds = [profiling._kind(k) for k in (
-        "void (anonymous namespace)::reverse_step_kernel(float const*, float const*, int, int)",
+        "void (anonymous namespace)::replay_tile_kernel<true>((anonymous namespace)::MarchArgs)",
         "void (anonymous namespace)::epilogue_kernel(float const*, float*, int, int, int)",
         "(anonymous namespace)::reverse_tile_kernel(float const*, float*, int, int)",
-        "void (anonymous namespace)::prep_kernel(float const*, float*, int, int, int)",
+        "void (anonymous namespace)::cspn2d_fwd_kernel<true>((anonymous namespace)::MarchArgs)",
         "void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(int, int)",
         "sm80_xmma_wgrad_implicit_gemm_indexed_f32f32_f32f32_f32_nhwckrsc_nhwc",
     )]
