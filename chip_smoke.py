@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --routes-of CHECKOUT   # only the 2D CSPN timing
+    python3 chip_smoke.py --routes-of CHECKOUT   # only the CSPN kernels' and the probe's timing
     python3 chip_smoke.py --steps-of CHECKOUT    # only the train steps and served frames/s
 
-With --routes-of it only times the 2D CSPN kernels and the sharded
-segment's of the cspn_tpu_torch in CHECKOUT (time_fwd_routes,
-time_halo_seg_routes; "." for this one), and with --steps-of the paths'
+With --routes-of it only times the 2D CSPN kernels, the sharded
+segment's, the probe's and the paddle kernel of the cspn_tpu_torch in
+CHECKOUT (time_fwd_routes, time_halo_seg_routes, time_probe_and_paddle;
+"." for this one), and with --steps-of the paths'
 train steps and served frames/s (steps_of), so that one harness times two
 trees in turns.  Without arguments it drives cspn_tpu_torch's main
 paths on the card and fails (non-zero exit) if any phase fails:
@@ -94,12 +95,17 @@ launches a call with torch.profiler and holds them to
 ops/cspn_cuda.py:cuda_launches_per_call; it times both 2D CSPN forwards,
 the backward on both routes and both ways to run a train step's 2D CSPN
 at the paths' shapes (FWD_ROUTE_SHAPES; the times ops/cspn_cuda.py:use_tiled
-is set from); and the sharded CSPN's segment kernels (`cspn2d_halo_seg`,
-its backward) against the plain segment on the inputs cspn2d_spatial
-hands them at every shape, K and keep of the paths that run them (phase
-11's op and models; halo_seg_cases), timed at the b4 train step's, their
-CUDA launches counted by torch.profiler, with the cost model's constants
-(parallel/halo.py:choose_halo).  Every path's run starts with all eleven
+is set from); and the sharded CSPN's segment kernels (`cspn2d_halo_seg`
+in both its routes, the one that keeps its states for the backward and
+the one that does not, and its backward on those states) against the
+plain segment on the inputs cspn2d_spatial hands them at every shape, K
+and keep of the paths that run them (phase 11's op and models;
+halo_seg_cases): the two routes equal value for value, every kept state
+within tolerance of the plain segment's, the backward to plain autograd
+and to a second run bit for bit; timed at the b4 train step's, their CUDA
+launches counted by torch.profiler, with the cost model's constants
+(parallel/halo.py:choose_halo); the probe and the paddle kernel also as
+queued calls.  Every path's run starts with all eleven
 kernels' launch counts at 0 and reads them at its end.
 
 The last two lines are JSON: the kernel table, then the result line.
@@ -115,6 +121,7 @@ import inspect
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -644,9 +651,8 @@ CSPN3D_KERNELS = ("cspn3d_fwd_sweep_kernel", "cspn3d_adj_sweep_kernel", "cspn3d_
 # keep epilogue
 CSPN2D_KERNELS = ("cspn2d_fwd_kernel", "cspn2d_tiled_kernel", "replay_tile_kernel",
                   "reverse_tile_kernel", "epilogue_kernel")
-HALO_SEG_BWD_KERNELS = ("halo_seg_replay_kernel", "halo_seg_reverse_kernel",
-                        "keep_epilogue_kernel")
-# the segment backward's K at its launch splits (12 steps a launch)
+HALO_SEG_BWD_KERNELS = ("halo_seg_reverse_kernel", "keep_epilogue_kernel")
+# the segment kernels' K at their launch splits (12 steps a launch)
 SEG_BWD_SPLITS = (1, 11, 12, 13)
 
 
@@ -1158,41 +1164,122 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
 def time_halo_seg_routes(name: str) -> list[dict]:
     """The sharded segment's kernels at kitti_sharded's b4 train segment
     (S = 2, with keep, the inputs parallel/halo.py:first_segment_inputs
-    builds) at the cost model's K and at K = HALO_K: the forward (`fwd`)
-    and the backward (`bwd`), by CUDA events around one call and as the
-    device time of a call among queued ones.  It drives only
-    ops/cspn_halo_cuda.py's `_launch` and `_launch_bwd`, so that it times
-    any checkout's kernels (--routes-of)."""
+    builds) at the cost model's K and at K = HALO_K, by CUDA events around
+    one call (`<what>_ms`) and as the device time of a call among queued
+    ones (`<what>_queued_ms`): the forward that no backward follows
+    (`fwd`), the backward (`bwd`) and a train step's forward and backward
+    (`train`: the forward as `_HaloSegment` runs it when a backward
+    follows, then the backward).  On a tree whose `_launch` takes
+    `keep_states` the train forward keeps its states (`fwd_kept`) and the
+    backward reads them; on an older one the train forward is `fwd` and
+    the backward replays.  It drives only ops/cspn_halo_cuda.py's `_launch`
+    and `_launch_bwd`, so that it times any checkout's kernels
+    (--routes-of)."""
     from cspn_tpu_torch.ops import cspn_halo_cuda
     from cspn_tpu_torch.parallel import halo, make_mesh
 
+    kept_route = "keep_states" in inspect.signature(cspn_halo_cuda._launch).parameters
     gen = torch.Generator(device="cuda").manual_seed(13)
     n, h, w = KITTI_SHAPE
     g, b, sp = cspn_inputs(gen, n, h, w, True, negative=0.2)
-    rows = []
+    rows, kept = [], None
     for halo_k in (None, HALO_K):
         with torch.no_grad():
             *inputs, k = halo.first_segment_inputs(g, b, sp, mesh=make_mesh(spatial=2),
                                                    steps=STEPS, halo=halo_k, channel_first=True)
-        ct = torch.randn(inputs[-1].shape, device="cuda", generator=gen)
-        calls = {"fwd": lambda: cspn_halo_cuda._launch(*inputs, k),
-                 "bwd": lambda: cspn_halo_cuda._launch_bwd(*inputs, ct, k)}
-        row = {"shape": list(inputs[0].shape), "k": k}
+        gates, base, keep, x = inputs
+        ct = torch.randn(x.shape, device="cuda", generator=gen)
+        calls = {"fwd": lambda: cspn_halo_cuda._launch(*inputs, k)}
+        if kept_route:
+            calls["fwd_kept"] = lambda: cspn_halo_cuda._launch(*inputs, k, keep_states=True)
+            kept = calls["fwd_kept"]()[1:]
+            calls["bwd"] = lambda: cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept)
+
+            def train():
+                cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, calls["fwd_kept"]()[1:])
+        else:
+            def train():
+                cspn_halo_cuda._launch(*inputs, k)
+                cspn_halo_cuda._launch_bwd(*inputs, ct, k)
+
+            calls["bwd"] = lambda: cspn_halo_cuda._launch_bwd(*inputs, ct, k)
+        calls["train"] = train
+        row = {"shape": list(gates.shape), "k": k, "kept_route": kept_route}
         for what, fn in calls.items():
             row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
         log(f"  segment {row['shape']} K={k} with keep, ms by events (queued): "
             + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
                         for what in calls) + f" on {name}")
         rows.append(row)
-        del inputs, calls
+        del inputs, gates, base, keep, x, calls
+        kept = None
     return rows
+
+
+def time_probe_and_paddle(name: str) -> dict:
+    """Rows 11 and 6 by CUDA events around one call and queued (as
+    check_step_probe and check_paddle2d_kernel time them: the probe's
+    PROBE_ROW_ITERS-iteration f32 launch on one block per SM, paddle2d at
+    the demo's maps), and the probe path's slopes (step_probe.run_probe, as
+    probe_slice runs it).  It drives only the wrappers' `_launch` and
+    `run_probe`, so that it times any checkout's kernels (--routes-of)."""
+    from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
+    from cspn_tpu_torch.utils import step_probe
+
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    g, x = step_probe.probe_inputs(blocks, torch.float32, torch.float32, device="cuda")
+    probe = lambda: step_probe._launch(g, x, PROBE_ROW_ITERS)  # noqa: E731
+    n, h, w, c = PADDLE_CASES[0]
+    gates, x0 = p2.paddle2d_layout(*paddle_inputs(torch.Generator(device="cuda").manual_seed(7),
+                                                  n, h, w, c))
+    paddle = lambda: p2._launch(gates, x0, STEPS)  # noqa: E731
+    row = {"step_probe_ms": time_ms(probe), "step_probe_queued_ms": time_queued_ms(probe),
+           "paddle2d_ms": time_ms(paddle), "paddle2d_queued_ms": time_queued_ms(paddle),
+           "probe_slopes": step_probe.run_probe(trials=PROBE_TRIALS)}
+    log(f"  step_probe f32/f32 iters={PROBE_ROW_ITERS}: {row['step_probe_ms']:.4f} ms by events, "
+        f"{row['step_probe_queued_ms']:.4f} queued; paddle2d [{gates.shape[0]},8,{h},{w}]: "
+        f"{row['paddle2d_ms']:.4f} ms by events, {row['paddle2d_queued_ms']:.4f} queued on {name}")
+    for r in row["probe_slopes"]:
+        log(f"  probe slope {r['gate_dtype']}/{r['state_dtype']}: {r['ns_per_iter']:.3f} ns per "
+            f"iteration, {r['ps_per_px_iter']:.5f} ps per px-iteration, {r['Tops_per_s']:.3f} "
+            f"Tops/s on {name}")
+    return row
+
+
+def ptxas_usage(build, names) -> dict:
+    """Each kernel's registers and spill bytes as `ptxas -v` reports them,
+    compiling the libraries `names` of the `_build` module `build` (a
+    checkout's own sources and flags) once more with -Xptxas -v."""
+    usage = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {lib: subprocess.Popen([*build.nvcc_command(lib, os.path.join(tmp, f"{lib}.so")),
+                                        "-Xptxas", "-v"], stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True) for lib in names}
+        for lib, proc in procs.items():
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v {lib} failed:\n{out}")
+            kernel = None
+            for line in out.splitlines():
+                if m := re.search(r"Compiling entry function '([^']+)'", line):
+                    kernel = m.group(1)
+                elif kernel and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                                line)):
+                    usage.setdefault(kernel, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+                    usage.setdefault(kernel, {})["registers"] = int(m.group(1))
+    for kernel, u in usage.items():
+        log(f"  ptxas: {kernel}: {u.get('registers')} registers, {u.get('spill_bytes')} bytes "
+            "of spill stores and loads")
+    return usage
 
 
 def routes_of(checkout: str) -> int:
     """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes (without
-    counting launches) and time_halo_seg_routes on the cspn_tpu_torch of
-    CHECKOUT (another tree's kernels built from its own sources, or this
-    one's with "."); prints the card line and one JSON object, and runs
+    counting launches), time_halo_seg_routes and time_probe_and_paddle on
+    the cspn_tpu_torch of CHECKOUT (another tree's kernels built from its
+    own sources, or this one's with "."), and ptxas_usage of its probe and
+    segment kernels; prints the card line and one JSON object, and runs
     nothing else.  One harness times a parent and a change in turns."""
     root = os.path.abspath(checkout)
     sys.path.insert(0, root)
@@ -1200,12 +1287,17 @@ def routes_of(checkout: str) -> int:
 
     if not os.path.abspath(cspn_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"cspn_tpu_torch came from {cspn_tpu_torch.__file__}, not {root}")
+    from cspn_tpu_torch.ops import _build
+
     name, card = torch.cuda.get_device_name(0), card_line()
     rows = time_fwd_routes(name, count_launches=False)
     seg_rows = time_halo_seg_routes(name)
+    probe_row = time_probe_and_paddle(name)
+    usage = ptxas_usage(_build, ("step_probe", "cspn2d_halo_seg", "cspn2d_halo_seg_bwd"))
     print(card, flush=True)
     print(json.dumps({"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS,
-                      "fwd_routes": rows, "halo_seg_routes": seg_rows}), flush=True)
+                      "fwd_routes": rows, "halo_seg_routes": seg_rows,
+                      "probe_and_paddle": probe_row, "ptxas": usage}), flush=True)
     return 0
 
 
@@ -1226,7 +1318,8 @@ def steps_of(checkout: str) -> int:
     """`chip_smoke.py --steps-of CHECKOUT`: the paths' end-to-end figures on
     the cspn_tpu_torch of CHECKOUT (a parent's or this one, "."), so that
     one harness times two trees in turns: the nyu_train b8, kitti_benchmark
-    b4 and kitti_sharded b4 (S = 2) train steps (train_step_ms), and
+    b4 and kitti_sharded b4 (S = 2) train steps (train_step_ms) and their
+    peak device memory, the two KITTI models' b4 eval forwards, and
     nyu_eval's and kitti_benchmark's served frames/s over SERVE_WINDOW
     requests (served_rate).  CHECKOUT's package builds the models, data,
     loss, optimizer and server; the timing is this script's.  Prints the
@@ -1251,7 +1344,7 @@ def steps_of(checkout: str) -> int:
     name, card = torch.cuda.get_device_name(0), card_line()
     set_conv_policy("cuda")
     result = {"card": card, "package": cspn_tpu_torch.__file__, "steps_ms": {},
-              "served_frames_per_s": {}}
+              "step_peak_gib": {}, "eval_forward_ms": {}, "served_frames_per_s": {}}
     kitti, nyu = _kitti_cfg(), nyu_eval_synthetic()
     # (label, the model's config, the frames' config, batch)
     for label, cfg, data, batch in (("nyu_train b8", PRESETS["nyu_train"], nyu, 8),
@@ -1268,9 +1361,17 @@ def steps_of(checkout: str) -> int:
                                          spatial_mesh=make_mesh(spatial=2)).cuda()
             sharded.load_state_dict(model.state_dict())
             model = sharded.train()
+        torch.cuda.reset_peak_memory_stats()
         ms = train_step_ms(model, make_optimizer(model.parameters()), masked_l1_loss, x, depth)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         result["steps_ms"][label] = ms
-        log(f"  {label} train step: {ms:.3f} ms on {name}")
+        result["step_peak_gib"][label] = peak
+        log(f"  {label} train step: {ms:.3f} ms, peak {peak:.3f} GiB on {name}")
+        if label.startswith("kitti"):  # the eval forward, no backward following
+            model.eval()
+            with torch.inference_mode():
+                result["eval_forward_ms"][label] = time_ms(lambda: model(x), reps=11, warmup=2)
+            log(f"  {label} eval forward: {result['eval_forward_ms'][label]:.3f} ms on {name}")
         del model, x, depth
     for label, cfg, buckets, sizes in (("nyu_eval", nyu, BUCKETS, REQUESTS),
                                        ("kitti_benchmark", kitti, KITTI_BUCKETS, KITTI_REQUESTS)):
@@ -1300,7 +1401,7 @@ def check_paddle2d_kernel(name: str) -> dict:
     """Phase 3: the paddle 2D kernel, through cspn2d_paddle_cuda (layout,
     kernel, autograd of the plain propagation), against cspn_nd_reference,
     forward and gradients under a random cotangent; then timed at each
-    case's maps."""
+    case's maps (CUDA events around one call, and queued)."""
     from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
     from cspn_tpu_torch.ops import cspn_ref
 
@@ -1320,16 +1421,18 @@ def check_paddle2d_kernel(name: str) -> dict:
             max_err = max(max_err, _check_close(
                 f"paddle2d [{n},{h},{w}] C={c} (cspn_nd) steps={STEPS} {what}", a, x))
         gates, x0 = p2.paddle2d_layout(guide, feat)
-        ms = time_ms(lambda: p2._launch(gates, x0, STEPS))
+        paddle = lambda: p2._launch(gates, x0, STEPS)  # noqa: E731
+        ms, queued_ms = time_ms(paddle), time_queued_ms(paddle)
         plain_ms = time_ms(lambda: cspn_ref.propagate_nd_reference(gates, x0, STEPS), reps=5, warmup=1)
         px = gates.shape[0] * h * w
         # read 8 gates + x0, write 1; 8 FMA + the centre product per step, the centre sum once
         bound_ms, bound_by, bytes_ms, ops_ms = bound(name, 10 * px * 4, (17 * STEPS + 8) * px)
-        log(f"  paddle2d [{gates.shape[0]},8,{h},{w}] steps={STEPS}: kernel {ms:.4f} ms, plain "
+        log(f"  paddle2d [{gates.shape[0]},8,{h},{w}] steps={STEPS}: kernel {ms:.4f} ms "
+            f"({queued_ms:.4f} queued), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
             f"{ops_ms:.4f} ms) on {name}")
-        times.append((ms, plain_ms, bound_ms, bound_by))
-    ms, plain_ms, bound_ms, bound_by = times[0]  # the demo's maps: the main path's shape
+        times.append((ms, plain_ms, bound_ms, bound_by, queued_ms))
+    ms, plain_ms, bound_ms, bound_by, queued_ms = times[0]  # the demo's maps: the main path's shape
     return {
         "name": "paddle2d",
         "route": "cuda",
@@ -1342,6 +1445,7 @@ def check_paddle2d_kernel(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes a 24-step CSPN
+        "queued_ms": queued_ms,
         "ms_4x228x304_c2": times[1][0],
     }
 
@@ -1349,7 +1453,8 @@ def check_paddle2d_kernel(name: str) -> dict:
 def check_step_probe(name: str) -> dict:
     """Phase 3: the step-body probe against its plain version for each
     dtype pair, a few iterations on one block per SM; then one launch of
-    PROBE_ROW_ITERS iterations (f32 / f32) timed beside the plain version."""
+    PROBE_ROW_ITERS iterations (f32 / f32) timed (CUDA events around one
+    call, and queued) beside the plain version."""
     from cspn_tpu_torch.utils import step_probe
 
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1368,13 +1473,15 @@ def check_step_probe(name: str) -> dict:
         if sd == torch.float32:
             max_err = max(max_err, err)
     g, x = step_probe.probe_inputs(blocks, torch.float32, torch.float32, device="cuda")
-    ms = time_ms(lambda: step_probe._launch(g, x, PROBE_ROW_ITERS))
+    probe = lambda: step_probe._launch(g, x, PROBE_ROW_ITERS)  # noqa: E731
+    ms, queued_ms = time_ms(probe), time_queued_ms(probe)
     plain_ms = time_ms(lambda: step_probe.step_probe_ref(g, x, PROBE_ROW_ITERS), reps=5, warmup=1)
     px = x.numel()
     # read 8 gate planes + state, write the state; 16 flops a px-iteration
     bound_ms, bound_by, bytes_ms, ops_ms = bound(
         name, 10 * px * 4, step_probe.FLOPS_PER_PX_ITER * PROBE_ROW_ITERS * px)
-    log(f"  step_probe f32/f32 [{blocks},8,8,512] iters={PROBE_ROW_ITERS}: kernel {ms:.4f} ms, plain "
+    log(f"  step_probe f32/f32 [{blocks},8,8,512] iters={PROBE_ROW_ITERS}: kernel {ms:.4f} ms "
+        f"({queued_ms:.4f} queued), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
         f"{ops_ms:.4f} ms) on {name}")
     return {
@@ -1389,6 +1496,7 @@ def check_step_probe(name: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # a microprobe: no PyTorch call computes its loop
+        "queued_ms": queued_ms,
     }
 
 
@@ -1433,18 +1541,35 @@ def halo_seg_cases() -> list[tuple]:
                                                          (None, HALO_K), (True, False)))
 
 
+def plain_segment_states(gates, base, keep, x, k):
+    """x_1..x_{k-1} of the plain segment (halo_segment_reference one step
+    at a time, which is the same loop), stacked [k-1, n, He, W]: the states
+    the forward that a backward follows keeps."""
+    from cspn_tpu_torch.ops import cspn_ref
+
+    states = []
+    for _ in range(k - 1):
+        x = cspn_ref.halo_segment_reference(gates, base, keep, x, 1)
+        states.append(x)
+    return torch.stack(states) if states else x.new_empty((0, *x.shape))
+
+
 def check_halo_seg_kernels(name: str) -> list[dict]:
-    """Phase 3: the sharded CSPN's segment kernels (cspn2d_halo_seg and its
-    backward) against the plain segment and its autograd under a random
-    cotangent, on the inputs that cspn2d_spatial hands its first segment
-    (parallel/halo.py:first_segment_inputs; the in-process mesh stacks the
-    S blocks along the batch) at every (shape, K, keep) of halo_seg_cases;
-    the backward's CUDA launches a call counted by torch.profiler at each
-    and held to ops/cspn_halo_cuda.py:cuda_launches (5 at K = 24 with
-    keep); then each timed at kitti_sharded's b4 train shape, its CUDA
-    launches counted (the backward's also at SEG_BWD_SPLITS, with and
-    without keep), and a second backward held bit for bit to the
-    first, with the cost model's
+    """Phase 3: the sharded CSPN's segment kernels (cspn2d_halo_seg, both
+    routes, and its backward) against the plain segment and its autograd
+    under a random cotangent, on the inputs that cspn2d_spatial hands its
+    first segment (parallel/halo.py:first_segment_inputs; the in-process
+    mesh stacks the S blocks along the batch) at every (shape, K, keep) of
+    halo_seg_cases: the forward that no backward follows and the one that
+    keeps its states equal value for value, every kept state x_t within
+    KERNEL_TOL of the plain segment's, the backward through
+    cspn2d_halo_segment (the states route, then the backward on its kept
+    states) against plain autograd, and each call's CUDA launches counted
+    by torch.profiler and held to ops/cspn_halo_cuda.py:cuda_launches
+    (ceil(K / 12) forward, 3 backward at K = 24 with keep); then at
+    kitti_sharded's b4 train shape a second backward held bit for bit to
+    the first, the launches also at SEG_BWD_SPLITS with and without keep,
+    and each kernel timed (CUDA events and queued), with the cost model's
     per-pixel-step time and fixed cost per segment
     (parallel/halo.py:choose_halo)."""
     from cspn_tpu_torch.ops import cspn_halo_cuda, cspn_ref
@@ -1453,6 +1578,20 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(10)
     _, h, w = KITTI_SHAPE
     max_err = {"cspn2d_halo_seg": 0.0, "cspn2d_halo_seg_bwd": 0.0}
+
+    def count_launches(gates, base, keep, x, ct, k, what) -> tuple[int, int, int]:
+        """The CUDA launches of each route and the backward, each held to cuda_launches."""
+        fwd, bwd = cspn_halo_cuda.cuda_launches(k, keep is not None)
+        kept = cspn_halo_cuda._launch(gates, base, keep, x, k, keep_states=True)[1:]
+        return (launches_per_call(lambda: cspn_halo_cuda._launch(gates, base, keep, x, k),
+                                  ("halo_seg_kernel",), fwd, f"cspn2d_halo_seg {what}")[0],
+                launches_per_call(lambda: cspn_halo_cuda._launch(gates, base, keep, x, k,
+                                                                 keep_states=True),
+                                  ("halo_seg_kernel",), fwd,
+                                  f"cspn2d_halo_seg keeping its states {what}")[0],
+                launches_per_call(lambda: cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept),
+                                  HALO_SEG_BWD_KERNELS, bwd, f"cspn2d_halo_seg_bwd {what}")[0])
+
     seen, timed_inputs = set(), None
     for spatial, batch, halo_k, with_sparse in halo_seg_cases():
         g, b, sp = cspn_inputs(gen, batch, h, w, with_sparse, negative=0.2)
@@ -1467,12 +1606,23 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
             continue
         seen.add((n, he, k, with_sparse))
         ct = torch.randn(n, he, w, device="cuda", generator=gen)
-        fwd_launches, bwd_launches = cspn_halo_cuda.cuda_launches(k, with_sparse)
         label = (f"[{n},8,{he},{w}] (S={spatial}, b{batch}) K={k} "
-                 f"{'with' if with_sparse else 'without'} keep, {fwd_launches} / {bwd_launches} "
-                 "CUDA launches")
-        launches_per_call(lambda: cspn_halo_cuda._launch_bwd(*inputs, ct, k), HALO_SEG_BWD_KERNELS,
-                          bwd_launches, f"cspn2d_halo_seg_bwd {label}")
+                 f"{'with' if with_sparse else 'without'} keep")
+        counted = count_launches(*inputs, ct, k, label)
+        label += f", {counted[0]} / {counted[2]} CUDA launches"
+        # the two forward routes, and every state the second keeps
+        out = cspn_halo_cuda._launch(*inputs, k)
+        out_kept, _, states = cspn_halo_cuda._launch(*inputs, k, keep_states=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_kept):
+            raise AssertionError(f"cspn2d_halo_seg {label}: the route keeping its states differs "
+                                 "from the one that does not")
+        want_states = plain_segment_states(*inputs, k)
+        states_err = max((_check_close(f"cspn2d_halo_seg {label} x_{t + 1}", states[t],
+                                       want_states[t], quiet=True)
+                          for t in range(k - 1)), default=0.0)
+        del out, out_kept, states, want_states
+        # through cspn2d_halo_segment: the states route, then the backward on its states
         ts = [None if t is None else t.clone().requires_grad_(True) for t in inputs]
         before = (cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)
         got = cspn_halo_cuda.cspn2d_halo_segment(*ts, k)
@@ -1482,62 +1632,68 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
         torch.cuda.synchronize()
         if (cspn_halo_cuda.launches - before[0], cspn_halo_cuda.bwd_launches - before[1]) != (1, 1):
             raise AssertionError(f"cspn2d_halo_segment {label}: not one run of each kernel")
-        max_err["cspn2d_halo_seg"] = max(max_err["cspn2d_halo_seg"],
+        max_err["cspn2d_halo_seg"] = max(max_err["cspn2d_halo_seg"], states_err,
                                          _check_close(f"cspn2d_halo_seg {label}", got, want))
         names = ("d gates", "d base") + (("d keep",) if with_sparse else ()) + ("d x",)
         for what, a, e in zip(names, got_grads, want_grads):
             max_err["cspn2d_halo_seg_bwd"] = max(max_err["cspn2d_halo_seg_bwd"], _check_close(
                 f"cspn2d_halo_seg_bwd {label} {what}", a, e))
+        log(f"  cspn2d_halo_seg {label}: both routes equal, the {k - 1} kept states within tol "
+            f"(max|err| {states_err:.3e})")
         del got, got_grads, want, want_grads, ts, inputs
 
     (gates, base, keep, x), k = timed_inputs
     n, _, he, _ = gates.shape
     ct = torch.randn(n, he, w, device="cuda", generator=gen)
     px = n * he * w
-    first = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)
-    second = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)
+    kept = cspn_halo_cuda._launch(gates, base, keep, x, k, keep_states=True)[1:]
+    first = cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept)
+    second = cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept)
     if not all(torch.equal(a, e) for a, e in zip(first, second)):
         raise AssertionError("cspn2d_halo_seg_bwd: a second backward differs from the first")
     del first, second
-    # the backward's launch splits: a replay that only folds (K = 1 with
-    # keep), none (K = 1 without), one or two replay and reverse launches
+    # the launch splits: one launch of a step, of 11 and 12 (one of each
+    # kind), 13 (a ragged second), with and without keep (the epilogue)
     split_launches = {}
     for k_split in SEG_BWD_SPLITS:
         for keep_split in (keep, None):
-            want = cspn_halo_cuda.cuda_launches(k_split, keep_split is not None)[1]
             what = f"K={k_split} {'with' if keep_split is not None else 'without'} keep"
-            split_launches[what] = launches_per_call(
-                lambda: cspn_halo_cuda._launch_bwd(gates, base, keep_split, x, ct, k_split),
-                HALO_SEG_BWD_KERNELS, want, f"cspn2d_halo_seg_bwd {what}")[0]
-    log(f"  cspn2d_halo_seg_bwd [{n},8,{he},{w}]: CUDA launches a call by torch.profiler "
-        f"{split_launches}, each as cuda_launches gives on {name}")
-    fwd_launches = launches_per_call(
-        lambda: cspn_halo_cuda._launch(gates, base, keep, x, k), ("halo_seg_kernel",),
-        cspn_halo_cuda.cuda_launches(k, True)[0], f"cspn2d_halo_seg at K={k}")[0]
-    bwd_launches, found = launches_per_call(
-        lambda: cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k), HALO_SEG_BWD_KERNELS,
-        cspn_halo_cuda.cuda_launches(k, True)[1], f"cspn2d_halo_seg_bwd at K={k}")
-    bwd_split = {key: v["ms"] for key, v in found.items()}  # replay, reverse tiles, epilogue
+            split_launches[what] = count_launches(gates, base, keep_split, x, ct, k_split, what)
+    log(f"  cspn2d_halo_seg [{n},8,{he},{w}]: CUDA launches a call by torch.profiler (forward, "
+        f"forward keeping its states, backward) {split_launches}, each as cuda_launches gives on "
+        f"{name}")
+    fwd_launches, _, bwd_launches = count_launches(gates, base, keep, x, ct, k, f"at K={k}")
+    found = kernel_profile(lambda: cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept),
+                           HALO_SEG_BWD_KERNELS)[1]
+    bwd_split = {key: v["ms"] for key, v in found.items()}  # reverse tiles, epilogue
+    fwd = lambda: cspn_halo_cuda._launch(gates, base, keep, x, k)  # noqa: E731
+    fwd_kept = lambda: cspn_halo_cuda._launch(gates, base, keep, x, k, keep_states=True)  # noqa: E731
+    bwd = lambda: cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k, kept)  # noqa: E731
     timed = {
         "cspn2d_halo_seg": (
-            time_ms(lambda: cspn_halo_cuda._launch(gates, base, keep, x, k)),
-            time_ms(lambda: cspn_ref.halo_segment_reference(gates, base, keep, x, k)),
+            fwd, lambda: cspn_ref.halo_segment_reference(gates, base, keep, x, k),
             # read 8 gates, base, keep, x; write 1; 8 FMA + the keep product
-            # and the base add per pixel per step
-            12 * px * 4, 18 * k * px, 290, fwd_launches),
+            # and the base add per pixel per step; keeping its states it
+            # also writes the K - 1 states and the 8 folded gates
+            12, 12 + k - 1 + 8, 18 * k * px, 290, fwd_launches),
         "cspn2d_halo_seg_bwd": (
-            time_ms(lambda: cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k)),
-            time_ms(lambda: plain_halo_vjp(gates, base, keep, x, ct, k)),
-            # read 8 gates, base, keep, x, cotangent; write 8 + 3; the replay's
-            # 17 flops a step, the reverse step's 33, fold and epilogue 24
-            23 * px * 4, (17 * (k - 1) + 33 * k + 24) * px, 398, bwd_launches),
+            bwd, lambda: plain_halo_vjp(gates, base, keep, x, ct, k),
+            # read 8 gates, base, keep, x, cotangent; write 8 + 3; the
+            # reverse step's 33 flops, the epilogue's 24; on the kept
+            # states it reads G and the K - 1 states, not base
+            23, 23 - 1 + 8 + k - 1, (33 * k + 24) * px, 398, bwd_launches),
     }
     rows = []
-    for kname, (ms, plain_ms, bytes_moved, ops, tpu_line, cuda_launches) in timed.items():
-        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, bytes_moved, ops)
+    for kname, (fn, plain, planes, kept_planes, ops, tpu_line, cuda_launches) in timed.items():
+        ms, queued_ms = time_ms(fn), time_queued_ms(fn)
+        plain_ms = time_ms(plain)
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, planes * px * 4, ops)
+        kept_bound_ms = bound(name, kept_planes * px * 4, ops)[0]
         log(f"  {kname} [{n},8,{he},{w}] K={k} with keep ({cuda_launches} CUDA launches, counted by "
-            f"torch.profiler): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
-            f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+            f"torch.profiler): kernel {ms:.4f} ms ({queued_ms:.4f} queued), plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms: {planes} planes; operations "
+            f"{ops_ms:.4f} ms), with the kept states and folded gates ({kept_planes} planes) "
+            f"{kept_bound_ms:.4f} ms on {name}")
         rows.append({
             "name": kname,
             "route": "cuda",
@@ -1550,10 +1706,15 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes a CSPN segment
+            "queued_ms": queued_ms,
+            "kept_bound_ms": kept_bound_ms,
             "timed_shape": [n, 8, he, w],
             "timed_k": k,
             "cuda_launches_per_segment": cuda_launches,
         })
+    rows[0]["kept_ms"], rows[0]["kept_queued_ms"] = time_ms(fwd_kept), time_queued_ms(fwd_kept)
+    log(f"  cspn2d_halo_seg keeping its states: {rows[0]['kept_ms']:.4f} ms "
+        f"({rows[0]['kept_queued_ms']:.4f} queued) on {name}")
     rows[1]["split_ms"] = bwd_split
     rows[1]["cuda_launches_at_splits"] = split_launches
     log(f"  cspn2d_halo_seg_bwd: a second backward bit for bit the first; its launches by "
@@ -2546,8 +2707,8 @@ def probe_slice(name: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
-                   help="only time the 2D CSPN kernels of CHECKOUT's cspn_tpu_torch "
-                        "(time_fwd_routes) and print them")
+                   help="only time the 2D CSPN, segment, probe and paddle kernels of "
+                        "CHECKOUT's cspn_tpu_torch (routes_of) and print them")
     p.add_argument("--steps-of", metavar="CHECKOUT",
                    help="only time the train steps and served frames/s of CHECKOUT's "
                         "cspn_tpu_torch (steps_of) and print them")

@@ -1,8 +1,9 @@
 // The column march of the 2D CSPN's tile kernels.  Forward (march_tile):
 // cspn2d_tiled.cu (the tiled forward, PERF row 3), cspn2d_fwd.cu (the
-// forward that keeps its states, PERF row 1) and the replays of
-// cspn2d_bwd.cu and cspn2d_halo_seg_bwd.cu (PERF rows 2 and 5); as its
-// adjoint: the reverse tiles of those two backwards (cspn2d_reverse.cuh).
+// forward that keeps its states, PERF row 1), the replay of cspn2d_bwd.cu
+// (PERF row 2) and both routes of the sharded segment, cspn2d_halo_seg.cu
+// (PERF row 4); as its adjoint: the reverse tiles of cspn2d_bwd.cu and
+// cspn2d_halo_seg_bwd.cu (cspn2d_reverse.cuh).
 // See those files for the function each computes.
 //
 // One block of kMarchThreads threads owns one kExt x kExt extended tile of
@@ -269,8 +270,9 @@ using MarchKernel = void (*)(MarchArgs);
 // `steps` forward steps in tile_launches(steps) launches of k <= kHalo
 // steps, the ragged one last.  The first launch runs `first` on `a` as the
 // caller set it (its inputs; gates_out and base_out written where given);
-// each later one runs `later` (a Load::kFolded kernel) on gates_out and
-// base_out (a.gates and a.base where those are null).
+// each later one runs `later` on gates_out (as Load::kFolded) and base_out
+// where the first wrote them, else on the first's a.gates, a.mask and
+// a.base.
 //   a.states given (kStates kernels): states[t - 1] = x_t for 0 < t < steps
 //     and a.x_out = x_steps; a later launch starts from the state the
 //     launch before it stored.  With steps == 0 and gates_out given, one
@@ -290,9 +292,11 @@ inline cudaError_t march_launches(MarchKernel first, MarchKernel later, MarchArg
     a.t0 = l * kHalo;
     a.k = steps - a.t0 < kHalo ? steps - a.t0 : kHalo;
     if (l > 0) {
-      a.gates = a.gates_out != nullptr ? a.gates_out : a.gates;
+      if (a.gates_out != nullptr) {
+        a.gates = a.gates_out;
+        a.mask = nullptr;
+      }
       a.base = a.base_out != nullptr ? a.base_out : a.base;
-      a.mask = nullptr;
       a.gates_out = a.base_out = nullptr;
       a.x_in = a.states != nullptr ? a.states + (long long)(a.t0 - 1) * a.plane : a.x_out;
     }

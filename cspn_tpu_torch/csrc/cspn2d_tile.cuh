@@ -1,15 +1,13 @@
-// The K-step tile stencil shared by cspn2d_halo_seg.cu (the pytorch-semantics
-// 2D CSPN's K-step segment on a halo-extended row block, PERF row 4) and
-// paddle2d.cu (the paddle-semantics 2D CSPN, PERF row 6).  See those files
-// for the function each computes.  (The tiled forward, PERF row 3, marches its
-// columns in registers instead: cspn2d_march.cuh.)
+// The K-step tile stencil of paddle2d.cu (the paddle-semantics 2D CSPN,
+// PERF row 6); see that file for the function it computes.  (The other 2D
+// kernels march their columns in registers instead: cspn2d_march.cuh.)
 //
 // One block owns a kTile x kTile interior of one map and computes it on the
 // interior extended by a kHalo-deep ring on all four sides (kExt x kExt).
-// Each thread holds its pixels' 8 gates and one more weight (base, or the
-// centre weight) in registers for the k <= kHalo steps of a launch; the
-// state ping-pongs between two kPad x kPad shared buffers (the extended
-// tile plus a ring of zeros) with one __syncthreads() per step.
+// Each thread holds its pixels' 8 gates and the centre weight in registers
+// for the k <= kHalo steps of a launch; the state ping-pongs between two
+// kPad x kPad shared buffers (the extended tile plus a ring of zeros) with
+// one __syncthreads() per step.
 //
 // Why the interior is exact.  A cell of the extended tile that lies
 // outside the image has gates and weight 0, so it stays exactly 0 at every
@@ -36,28 +34,17 @@ constexpr int kPxPerThread = kExt / kTileRows;  // rows ty, ty + 8, ...
 static_assert(kExt % kTileRows == 0, "thread rows must divide the extended tile");
 
 // Offsets of raster order (neighbor_offsets(2, 3)):
-// (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1).  The reference
-// order (OFFSETS_2D_REFERENCE) is its exact reverse: reference d = raster 7-d.
+// (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1).
 __host__ __device__ constexpr int raster_dy(int d) { return (d < 4 ? d : d + 1) / 3 - 1; }
 __host__ __device__ constexpr int raster_dx(int d) { return (d < 4 ? d : d + 1) % 3 - 1; }
 
 // Runs k <= kHalo steps on the tile (blockIdx.x, blockIdx.y) of map
-// blockIdx.z, reading x_in and writing the interior of x_out.
-//   kPaddle = false (pytorch semantics, reference gate order):
-//     y = sum_d g_d x[p + off_d] + base            (g = keep * gate_d)
-//   kPaddle = true (paddle semantics, raster gate order):
-//     y = c x[p] + sum_d w_d x[p + off_d],  c = 1 - sum_d w_d
-// gates [M,8,H,W], base [M,H,W] (null for paddle), x_in/x_out [M,H,W].
-// keep [M,H,W] is folded into each pixel's gates as they are loaded (the
-// halo segment's anchoring); null means 1, the gates as they are (paddle
-// has none).
-template <bool kPaddle>
+// blockIdx.z, reading x_in and writing the interior of x_out:
+//   y = c x[p] + sum_d w_d x[p + off_d],  c = 1 - sum_d w_d
+// gates [M,8,H,W] in raster order, x_in/x_out [M,H,W].
 __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
-                                           const float* __restrict__ base,
-                                           const float* __restrict__ keep,
                                            const float* __restrict__ x_in,
-                                           float* __restrict__ x_out, int h, int w,
-                                           int k) {
+                                           float* __restrict__ x_out, int h, int w, int k) {
   __shared__ float buf[2][kPad * kPad];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kExt + tx;
@@ -72,7 +59,7 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
   __syncthreads();
 
   float g[kPxPerThread][8];
-  float e[kPxPerThread];  // base (pytorch) or the centre weight (paddle)
+  float e[kPxPerThread];  // the centre weight
 #pragma unroll
   for (int p = 0; p < kPxPerThread; ++p) {
     const int er = ty + p * kTileRows;
@@ -83,14 +70,13 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
     for (int d = 0; d < 8; ++d) g[p][d] = 0.0f;
     if (i >= 0 && i < h && j >= 0 && j < w) {
       const long long q = (long long)i * w + j;
-      const float kp = keep != nullptr ? keep[map * hw + q] : 1.0f;
       float sum = 0.0f;
 #pragma unroll
       for (int d = 0; d < 8; ++d) {
-        g[p][d] = kp * g_map[d * hw + q];
+        g[p][d] = g_map[d * hw + q];
         sum += g[p][d];
       }
-      e[p] = kPaddle ? 1.0f - sum : base[map * hw + q];
+      e[p] = 1.0f - sum;
       x = x_in[map * hw + q];
     }
     buf[0][(er + 1) * kPad + tx + 1] = x;
@@ -104,11 +90,10 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
 #pragma unroll
     for (int p = 0; p < kPxPerThread; ++p) {
       const int at = (ty + p * kTileRows + 1) * kPad + tx + 1;
-      float acc = kPaddle ? e[p] * xc[at] : e[p];
+      float acc = e[p] * xc[at];
 #pragma unroll
       for (int d = 0; d < 8; ++d) {
-        const int rd = kPaddle ? d : 7 - d;  // raster index of gate d
-        acc = fmaf(g[p][d], xc[at + raster_dy(rd) * kPad + raster_dx(rd)], acc);
+        acc = fmaf(g[p][d], xc[at + raster_dy(d) * kPad + raster_dx(d)], acc);
       }
       xn[at] = acc;
     }
@@ -127,12 +112,11 @@ __device__ __forceinline__ void tile_steps(const float* __restrict__ gates,
 }
 
 // Runs `steps` steps as ceil(steps / kHalo) tile launches of `kernel`,
-// ping-ponging so that the last launch writes `out`.  kernel(gates, base,
-// keep, x_in, x_out, h, w, k).  Returns the first launch error, else 0.
+// ping-ponging so that the last launch writes `out`.  kernel(gates, x_in,
+// x_out, h, w, k).  Returns the first launch error, else 0.
 template <typename Kernel>
-int launch_tiles(Kernel kernel, const float* gates, const float* base, const float* keep,
-                 const float* x0, float* out, float* x_scratch, int m, int h, int w, int steps,
-                 cudaStream_t s) {
+int launch_tiles(Kernel kernel, const float* gates, const float* x0, float* out, float* x_scratch,
+                 int m, int h, int w, int steps, cudaStream_t s) {
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, m);
   const dim3 block(kExt, kTileRows);
   const int launches = (steps + kHalo - 1) / kHalo;
@@ -140,7 +124,7 @@ int launch_tiles(Kernel kernel, const float* gates, const float* base, const flo
   for (int l = 0; l < launches; ++l) {
     const int k = (l + 1) * kHalo <= steps ? kHalo : steps - l * kHalo;
     float* dst = ((launches - 1 - l) % 2 == 0) ? out : x_scratch;
-    kernel<<<grid, block, 0, s>>>(gates, base, keep, src, dst, h, w, k);
+    kernel<<<grid, block, 0, s>>>(gates, src, dst, h, w, k);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;

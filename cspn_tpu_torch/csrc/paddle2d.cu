@@ -30,11 +30,11 @@
 // (8 FMA, the centre term): 0.24 GFLOP at [8,228,304] and 24 steps,
 // 0.0036 ms at 67 TFLOP/s of f32, below the 0.0066 ms of bytes.
 //
-// What this design does about it.  The paddle instantiation of the K-step
-// tile stencil (cspn2d_tile.cuh) that the halo segment also runs: 32x32 interiors with
-// an 8-deep halo, 8 steps per launch, the 8 gates and the centre weight
-// (summed from them at load, so there is no prep launch) in registers,
-// the state ping-ponging in shared memory.  The TPU kernel keeps the whole
+// What this design does about it.  The K-step tile stencil
+// (cspn2d_tile.cuh): 32x32 interiors with an 8-deep halo, 8 steps per
+// launch, the 8 gates and the centre weight (summed from them at load, so
+// there is no prep launch) in registers, the state ping-ponging in shared
+// memory.  The TPU kernel keeps the whole
 // map and all steps in VMEM; a 228x304 f32 plane (277 KB) exceeds an SM's
 // shared memory, so the map is tiled and the halo recomputed (2.25x the
 // interior's arithmetic, 2.25x its reads per launch).
@@ -44,10 +44,9 @@
 namespace {
 
 __global__ void __launch_bounds__(kExt * kTileRows)
-    paddle2d_kernel(const float* __restrict__ gates, const float* __restrict__ base,
-                    const float* __restrict__ keep, const float* __restrict__ x_in,
+    paddle2d_kernel(const float* __restrict__ gates, const float* __restrict__ x_in,
                     float* __restrict__ x_out, int h, int w, int k) {
-  tile_steps<true>(gates, base, keep, x_in, x_out, h, w, k);
+  tile_steps(gates, x_in, x_out, h, w, k);
 }
 
 }  // namespace
@@ -65,6 +64,5 @@ extern "C" int paddle2d_f32(const float* gates, const float* x0, float* out, flo
     return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * h * w,
                                             cudaMemcpyDeviceToDevice, s));
   }
-  return launch_tiles(paddle2d_kernel, gates, nullptr, nullptr, x0, out, x_scratch, m, h, w, steps,
-                      s);
+  return launch_tiles(paddle2d_kernel, gates, x0, out, x_scratch, m, h, w, steps, s);
 }

@@ -18,23 +18,37 @@
 // computes the same with torch.addcmul.
 //
 // Block.  The TPU probe's [256,512] f32 state does not fit one SM (its 8
-// gate planes are 4 MB), so a block is [8,512]: 512 threads, one per
-// column, each holding its column's 8 rows of state and 64 gates in
-// registers; the column shifts are warp shuffles, with the values that
-// cross a warp edge passing through shared memory (one __syncthreads() per
-// iteration).  The caller launches one block per SM, each on its own
-// block of gates and state.
+// gate planes are 4 MB), so a block is [8,512]: 256 threads, each owning
+// two adjacent columns x 8 rows of state and their 128 gates in registers
+// (the column march's lane layout, cspn2d_march.cuh), loaded and stored as
+// float2 (bf16x2 for bf16).  The row neighbours are registers of the same
+// thread; of the two column shifts a pixel pair needs, one neighbour is in
+// the thread's own registers and the other one warp shuffle away, so a
+// shuffle serves two pixels; the values that cross a warp edge pass
+// through a double-buffered shared buffer (one __syncthreads() per
+// iteration).  An iteration first computes the sums the neighbouring
+// lanes need and shuffles them while it computes the rest (the f32 slope
+// 5% below shuffling after all sums; PERF.md).  The caller launches one
+// block per SM, each on its own block of gates and state.
 //
 // Dtype pairs (gates / state), as the TPU probe's:
 //   f32 / f32:   f32 FMA;
-//   bf16 / f32:  gates stored as bf16 pairs, converted to f32 at each use;
-//   bf16 / bf16: the state as bf16 pairs of rows (2i, 2i+1), packed bf16x2
-//                FMA (__hfma2), half the instructions of the f32 step.
+//   bf16 / f32:  gates stored as bf16 pairs of columns, converted to f32
+//                at each use;
+//   bf16 / bf16: the state as bf16 pairs of columns (2t, 2t+1), packed
+//                bf16x2 FMA (__hfma2), half the instructions of the f32
+//                step.
 //
 // What bounds it.  Nothing off chip: the gates and state are read once
-// and the result written once.  The FP32 pipe (128 lanes a clock per SM),
-// the shuffle pipe (two shuffles per pixel per iteration) and the
-// per-iteration barrier bound it; the two-point slope over `iters` reads
+// and the result written once.  An f32 pixel-iteration is 11 FP32
+// instructions (16 flops: 5 FMA, 3 products, 2 adds, the rescale): 352
+// clocks of the SM's 128 FP32 lanes for a block of 4,096 pixels, 0.178 us
+// at 1.98 GHz, against 0.129 us for its 16 flops at 67 TFLOP/s (which
+// counts every instruction as an FMA).  Beside it run 16 shuffles a
+// thread (128 warp shuffles, ~128 clocks at 32 lanes a clock; 256 in an
+// earlier version with one column a thread, 512 threads and two shuffles
+// a pixel) and the per-iteration barrier; bf16 gates add one conversion a
+// gate use on the integer pipe.  The two-point slope over `iters` reads
 // the time of one iteration.
 
 #include <cuda_bf16.h>
@@ -44,7 +58,8 @@ namespace {
 
 constexpr int kRows = 8;
 constexpr int kCols = 512;
-constexpr int kWarps = kCols / 32;
+constexpr int kThreads = kCols / 2;  // a thread owns columns 2t, 2t + 1
+constexpr int kWarps = kThreads / 32;
 constexpr float kScale = 0.124f;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -58,135 +73,189 @@ __device__ __forceinline__ __nv_bfloat162 as_bf2(unsigned v) {
   return *reinterpret_cast<__nv_bfloat162*>(&v);
 }
 
-// The column shift of u_1 (from column j + 1) and u_-1 (from column j - 1):
-// shuffles inside a warp, shared memory across warp edges, 0 at the block
-// edges.  `edge` is this iteration's [2][kWarps][n] buffer.
-template <int N>
-__device__ __forceinline__ void shift_columns(const unsigned (&u1)[N], const unsigned (&um1)[N],
-                                              unsigned (&from_right)[N],
-                                              unsigned (&from_left)[N], unsigned* edge) {
+// The warp-edge words of one iteration: [0][warp] the u_1 of a warp's
+// first column (for the last lane of the warp to its left), [1][warp] the
+// u_-1 of its last column (for the first lane of the warp to its right),
+// kRows 32-bit words each.
+struct Edges {
+  uint4 w[2][kWarps][kRows / 4];
+};
+
+// The column shifts of one iteration, in two halves, so that a thread's
+// other arithmetic runs while the shuffles are in flight.  send_columns:
+// in, each row's u_1 of the thread's first column (u1_first) and u_-1 of
+// its second (um1_second), as 32-bit words; the warp's edge lanes publish
+// theirs in `e`; out, u_1 of the column right of the pair (from_right:
+// lane + 1's u1_first) and u_-1 of the column left of it (from_left: lane
+// - 1's um1_second), by shuffles.  receive_edges: after the barrier, the
+// warp's edge lanes take those from the neighbouring warps instead, 0
+// beyond the block's first and last columns.
+__device__ __forceinline__ void send_columns(const unsigned (&u1_first)[kRows],
+                                             const unsigned (&um1_second)[kRows],
+                                             unsigned (&from_right)[kRows],
+                                             unsigned (&from_left)[kRows], Edges& e) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) edge[warp * N + r] = u1[r];
+    e.w[0][warp][0] = make_uint4(u1_first[0], u1_first[1], u1_first[2], u1_first[3]);
+    e.w[0][warp][1] = make_uint4(u1_first[4], u1_first[5], u1_first[6], u1_first[7]);
   }
   if (lane == 31) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) edge[(kWarps + warp) * N + r] = um1[r];
+    e.w[1][warp][0] = make_uint4(um1_second[0], um1_second[1], um1_second[2], um1_second[3]);
+    e.w[1][warp][1] = make_uint4(um1_second[4], um1_second[5], um1_second[6], um1_second[7]);
   }
-  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < N; ++r) {
-    from_right[r] = __shfl_down_sync(kAll, u1[r], 1);
-    from_left[r] = __shfl_up_sync(kAll, um1[r], 1);
-  }
-  if (lane == 31) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) from_right[r] = warp + 1 < kWarps ? edge[(warp + 1) * N + r] : 0u;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) from_left[r] = warp > 0 ? edge[(kWarps + warp - 1) * N + r] : 0u;
+  for (int r = 0; r < kRows; ++r) {
+    from_right[r] = __shfl_down_sync(kAll, u1_first[r], 1);
+    from_left[r] = __shfl_up_sync(kAll, um1_second[r], 1);
   }
 }
 
-// f32 state; gates f32 (kGateBf16 = false) or bf16 pairs of rows.
+__device__ __forceinline__ void receive_edges(unsigned (&from_right)[kRows],
+                                              unsigned (&from_left)[kRows], const Edges& e) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 31) {
+    const uint4 a = warp + 1 < kWarps ? e.w[0][warp + 1][0] : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 b = warp + 1 < kWarps ? e.w[0][warp + 1][1] : make_uint4(0u, 0u, 0u, 0u);
+    from_right[0] = a.x, from_right[1] = a.y, from_right[2] = a.z, from_right[3] = a.w;
+    from_right[4] = b.x, from_right[5] = b.y, from_right[6] = b.z, from_right[7] = b.w;
+  }
+  if (lane == 0) {
+    const uint4 a = warp > 0 ? e.w[1][warp - 1][0] : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 b = warp > 0 ? e.w[1][warp - 1][1] : make_uint4(0u, 0u, 0u, 0u);
+    from_left[0] = a.x, from_left[1] = a.y, from_left[2] = a.z, from_left[3] = a.w;
+    from_left[4] = b.x, from_left[5] = b.y, from_left[6] = b.z, from_left[7] = b.w;
+  }
+}
+
+// f32 state; gates f32 (kGateBf16 = false) or bf16 pairs of columns.
 template <bool kGateBf16>
-__global__ void __launch_bounds__(kCols, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     step_probe_f32_kernel(const void* __restrict__ g_in, const float* __restrict__ x_in,
                           float* __restrict__ out, int iters) {
-  __shared__ unsigned edge[2][2 * kWarps * kRows];
-  const int col = threadIdx.x;
+  __shared__ Edges edges[2];
+  const int col = 2 * threadIdx.x;
   const long long b = blockIdx.x;
-  float x[kRows];
-  float g[kGateBf16 ? 1 : 8][kGateBf16 ? 1 : kRows];
-  __nv_bfloat162 gp[kGateBf16 ? 8 : 1][kGateBf16 ? kRows / 2 : 1];
+  float x[kRows][2];
+  float2 g[kGateBf16 ? 1 : 8][kGateBf16 ? 1 : kRows];
+  __nv_bfloat162 gp[kGateBf16 ? 8 : 1][kGateBf16 ? kRows : 1];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) x[r] = x_in[(b * kRows + r) * kCols + col];
+  for (int r = 0; r < kRows; ++r) {
+    const float2 v = *reinterpret_cast<const float2*>(x_in + (b * kRows + r) * kCols + col);
+    x[r][0] = v.x, x[r][1] = v.y;
+  }
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const long long at = ((b * 8 + d) * kRows + r) * kCols + col;
-      if constexpr (kGateBf16) {
-        const __nv_bfloat16 v = static_cast<const __nv_bfloat16*>(g_in)[at];
-        if (r % 2 == 0) gp[d][r / 2].x = v; else gp[d][r / 2].y = v;
-      } else {
-        g[d][r] = static_cast<const float*>(g_in)[at];
-      }
+      if constexpr (kGateBf16)
+        gp[d][r] = *reinterpret_cast<const __nv_bfloat162*>(
+            static_cast<const __nv_bfloat16*>(g_in) + at);
+      else
+        g[d][r] = *reinterpret_cast<const float2*>(static_cast<const float*>(g_in) + at);
     }
   }
-  auto gate = [&](int d, int r) -> float {
+  auto gate = [&](int d, int r, int c) -> float {
     if constexpr (kGateBf16)
-      return r % 2 == 0 ? __low2float(gp[d][r / 2]) : __high2float(gp[d][r / 2]);
+      return c == 0 ? __low2float(gp[d][r]) : __high2float(gp[d][r]);
     else
-      return g[d][r];
+      return c == 0 ? g[d][r].x : g[d][r].y;
   };
   for (int it = 0; it < iters; ++it) {
-    unsigned u1[kRows], um1[kRows], fr[kRows], fl[kRows];
-    float u0[kRows];
+    // first the sums the neighbouring lanes need, then their shuffles,
+    // then the rest of the row sums while those are in flight
+    unsigned u1_first[kRows], um1_second[kRows], fr[kRows], fl[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float xp = r + 1 < kRows ? x[r + 1] : 0.0f;
-      const float xm = r > 0 ? x[r - 1] : 0.0f;
-      u1[r] = __float_as_uint(fmaf(gate(5, r), xm, fmaf(gate(3, r), x[r], gate(0, r) * xp)));
-      u0[r] = fmaf(gate(6, r), xm, gate(1, r) * xp);
-      um1[r] = __float_as_uint(fmaf(gate(7, r), xm, fmaf(gate(4, r), x[r], gate(2, r) * xp)));
+      const float xp0 = r + 1 < kRows ? x[r + 1][0] : 0.0f, xm0 = r > 0 ? x[r - 1][0] : 0.0f;
+      const float xp1 = r + 1 < kRows ? x[r + 1][1] : 0.0f, xm1 = r > 0 ? x[r - 1][1] : 0.0f;
+      u1_first[r] = __float_as_uint(
+          fmaf(gate(5, r, 0), xm0, fmaf(gate(3, r, 0), x[r][0], gate(0, r, 0) * xp0)));
+      um1_second[r] = __float_as_uint(
+          fmaf(gate(7, r, 1), xm1, fmaf(gate(4, r, 1), x[r][1], gate(2, r, 1) * xp1)));
     }
-    shift_columns<kRows>(u1, um1, fr, fl, edge[it & 1]);
+    send_columns(u1_first, um1_second, fr, fl, edges[it & 1]);
+    float u0[kRows][2], u1_second[kRows], um1_first[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      x[r] = ((u0[r] + __uint_as_float(fr[r])) + __uint_as_float(fl[r])) * kScale;
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float xp = r + 1 < kRows ? x[r + 1][c] : 0.0f;
+        const float xm = r > 0 ? x[r - 1][c] : 0.0f;
+        u0[r][c] = fmaf(gate(6, r, c), xm, gate(1, r, c) * xp);
+        if (c == 1)
+          u1_second[r] = fmaf(gate(5, r, c), xm, fmaf(gate(3, r, c), x[r][c], gate(0, r, c) * xp));
+        else
+          um1_first[r] = fmaf(gate(7, r, c), xm, fmaf(gate(4, r, c), x[r][c], gate(2, r, c) * xp));
+      }
+    }
+    receive_edges(fr, fl, edges[it & 1]);
+    // y[j] = (u_0[j] + u_1[j + 1]) + u_-1[j - 1]
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      x[r][0] = ((u0[r][0] + u1_second[r]) + __uint_as_float(fl[r])) * kScale;
+      x[r][1] = ((u0[r][1] + __uint_as_float(fr[r])) + um1_first[r]) * kScale;
+    }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out[(b * kRows + r) * kCols + col] = x[r];
+  for (int r = 0; r < kRows; ++r)
+    *reinterpret_cast<float2*>(out + (b * kRows + r) * kCols + col) = make_float2(x[r][0], x[r][1]);
 }
 
-// bf16 gates and state, rows packed in pairs (2k, 2k+1).
-__global__ void __launch_bounds__(kCols, 1)
+// bf16 gates and state, each row's two columns packed (2t low, 2t + 1 high).
+__global__ void __launch_bounds__(kThreads, 1)
     step_probe_bf16_kernel(const __nv_bfloat16* __restrict__ g_in,
                            const __nv_bfloat16* __restrict__ x_in,
                            __nv_bfloat16* __restrict__ out, int iters) {
-  constexpr int kPairs = kRows / 2;
-  __shared__ unsigned edge[2][2 * kWarps * kPairs];
-  const int col = threadIdx.x;
+  __shared__ Edges edges[2];
+  const int col = 2 * threadIdx.x;
   const long long b = blockIdx.x;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  const __nv_bfloat162 scale = __bfloat162bfloat162(__float2bfloat16(kScale));
-  __nv_bfloat162 x[kPairs], g[8][kPairs];
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+  const __nv_bfloat162 scale = __float2bfloat162_rn(kScale);
+  __nv_bfloat162 x[kRows], g[8][kRows];
 #pragma unroll
-  for (int k = 0; k < kPairs; ++k) {
-    x[k] = __halves2bfloat162(x_in[(b * kRows + 2 * k) * kCols + col],
-                              x_in[(b * kRows + 2 * k + 1) * kCols + col]);
+  for (int r = 0; r < kRows; ++r) {
+    x[r] = *reinterpret_cast<const __nv_bfloat162*>(x_in + (b * kRows + r) * kCols + col);
 #pragma unroll
     for (int d = 0; d < 8; ++d)
-      g[d][k] = __halves2bfloat162(g_in[((b * 8 + d) * kRows + 2 * k) * kCols + col],
-                                   g_in[((b * 8 + d) * kRows + 2 * k + 1) * kCols + col]);
+      g[d][r] = *reinterpret_cast<const __nv_bfloat162*>(
+          g_in + ((b * 8 + d) * kRows + r) * kCols + col);
   }
   for (int it = 0; it < iters; ++it) {
-    unsigned u1[kPairs], um1[kPairs], fr[kPairs], fl[kPairs];
-    __nv_bfloat162 u0[kPairs];
+    // the sums the neighbouring lanes need (both columns' u_1 and u_-1,
+    // packed), their shuffles, then u_0 while those are in flight
+    unsigned u1[kRows], um1[kRows], fr[kRows], fl[kRows];
 #pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      // rows (2k+1, 2k+2) and (2k-1, 2k): the pairs shifted by one row
-      const __nv_bfloat162 xp =
-          __halves2bfloat162(__high2bfloat16(x[k]), k + 1 < kPairs ? __low2bfloat16(x[k + 1]) : zero);
-      const __nv_bfloat162 xm =
-          __halves2bfloat162(k > 0 ? __high2bfloat16(x[k - 1]) : zero, __low2bfloat16(x[k]));
-      u1[k] = as_u32(__hfma2(g[5][k], xm, __hfma2(g[3][k], x[k], __hmul2(g[0][k], xp))));
-      u0[k] = __hfma2(g[6][k], xm, __hmul2(g[1][k], xp));
-      um1[k] = as_u32(__hfma2(g[7][k], xm, __hfma2(g[4][k], x[k], __hmul2(g[2][k], xp))));
+    for (int r = 0; r < kRows; ++r) {
+      const __nv_bfloat162 xp = r + 1 < kRows ? x[r + 1] : zero;
+      const __nv_bfloat162 xm = r > 0 ? x[r - 1] : zero;
+      u1[r] = as_u32(__hfma2(g[5][r], xm, __hfma2(g[3][r], x[r], __hmul2(g[0][r], xp))));
+      um1[r] = as_u32(__hfma2(g[7][r], xm, __hfma2(g[4][r], x[r], __hmul2(g[2][r], xp))));
     }
-    shift_columns<kPairs>(u1, um1, fr, fl, edge[it & 1]);
+    // the words carry both columns: lane + 1's low half is u_1 right of
+    // the pair, lane - 1's high half u_-1 left of it
+    send_columns(u1, um1, fr, fl, edges[it & 1]);
+    __nv_bfloat162 u0[kRows];
 #pragma unroll
-    for (int k = 0; k < kPairs; ++k)
-      x[k] = __hmul2(__hadd2(__hadd2(u0[k], as_bf2(fr[k])), as_bf2(fl[k])), scale);
+    for (int r = 0; r < kRows; ++r) {
+      const __nv_bfloat162 xp = r + 1 < kRows ? x[r + 1] : zero;
+      const __nv_bfloat162 xm = r > 0 ? x[r - 1] : zero;
+      u0[r] = __hfma2(g[6][r], xm, __hmul2(g[1][r], xp));
+    }
+    receive_edges(fr, fl, edges[it & 1]);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      // u_1 at (2t + 1, 2t + 2): own high half, then fr's low half;
+      // u_-1 at (2t - 1, 2t): fl's high half, then own low half
+      const __nv_bfloat162 right = as_bf2(__byte_perm(u1[r], fr[r], 0x5432));
+      const __nv_bfloat162 left = as_bf2(__byte_perm(fl[r], um1[r], 0x5432));
+      x[r] = __hmul2(__hadd2(__hadd2(u0[r], right), left), scale);
+    }
   }
 #pragma unroll
-  for (int k = 0; k < kPairs; ++k) {
-    out[(b * kRows + 2 * k) * kCols + col] = __low2bfloat16(x[k]);
-    out[(b * kRows + 2 * k + 1) * kCols + col] = __high2bfloat16(x[k]);
-  }
+  for (int r = 0; r < kRows; ++r)
+    *reinterpret_cast<__nv_bfloat162*>(out + (b * kRows + r) * kCols + col) = x[r];
 }
 
 }  // namespace
@@ -200,14 +269,14 @@ extern "C" int step_probe(const void* g, const void* x, void* out, int blocks, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (state_bf16 && !gate_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if (state_bf16) {
-    step_probe_bf16_kernel<<<blocks, kCols, 0, s>>>(
+    step_probe_bf16_kernel<<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(x),
         static_cast<__nv_bfloat16*>(out), iters);
   } else if (gate_bf16) {
-    step_probe_f32_kernel<true><<<blocks, kCols, 0, s>>>(g, static_cast<const float*>(x),
+    step_probe_f32_kernel<true><<<blocks, kThreads, 0, s>>>(g, static_cast<const float*>(x),
                                                          static_cast<float*>(out), iters);
   } else {
-    step_probe_f32_kernel<false><<<blocks, kCols, 0, s>>>(g, static_cast<const float*>(x),
+    step_probe_f32_kernel<false><<<blocks, kThreads, 0, s>>>(g, static_cast<const float*>(x),
                                                           static_cast<float*>(out), iters);
   }
   return static_cast<int>(cudaGetLastError());

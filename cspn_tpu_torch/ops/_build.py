@@ -67,11 +67,12 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "cspn2d_halo_seg": (
         "cspn2d_halo_seg.cu",
-        {"cspn2d_halo_seg_f32": [_c_void_p] * 6 + [_c_int] * 6 + [_c_void_p]},
+        {"cspn2d_halo_seg_f32": [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p],
+         "cspn2d_halo_seg_states_f32": [_c_void_p] * 7 + [_c_int] * 4 + [_c_void_p]},
     ),
     "cspn2d_halo_seg_bwd": (
         "cspn2d_halo_seg_bwd.cu",
-        {"cspn2d_halo_seg_bwd_f32": [_c_void_p] * 12 + [_c_int] * 4 + [_c_void_p]},
+        {"cspn2d_halo_seg_bwd_f32": [_c_void_p] * 11 + [_c_int] * 4 + [_c_void_p]},
     ),
     "step_probe": (
         "step_probe.cu",

@@ -2,13 +2,14 @@
 (counterpart of cspn_tpu/ops/cspn_pallas.py:cspn2d_halo_segment and its
 _halo_seg_kernel and _halo_seg_bwd_kernel).
 
-The kernels are hand-written CUDA C++ in csrc/cspn2d_halo_seg.cu (K steps
-on the halo-extended block as the tiled forward's image, 8 steps per
-launch) and csrc/cspn2d_halo_seg_bwd.cu (the 2D CSPN backward's two
-pieces on the block: a replay by the column march keeping its states,
-with keep folded into the gates at load, then reverse tiles, 12 steps a
-launch each, and a keep epilogue); their headers say what bounds them and
-what the design leaves open.  ops/_build.py builds them and they run through ctypes on
+The kernels are hand-written CUDA C++ on the 2D CSPN's column march
+(csrc/cspn2d_march.cuh: 12 steps a launch on halo-extended tiles, keep
+folded into the gates at load): csrc/cspn2d_halo_seg.cu runs the segment
+on the halo-extended block as the march's image, in one of two routes
+with the same values, and csrc/cspn2d_halo_seg_bwd.cu the 2D CSPN
+backward's reverse tiles on the states the forward kept, then a keep
+epilogue; their headers say what bounds them and what the design leaves
+open.  ops/_build.py builds them and they run through ctypes on
 PyTorch's current stream.
 
 `cspn2d_halo_segment` is the wrapper.  A tensor on the CPU goes to the
@@ -16,12 +17,14 @@ kernels' plain version (ops/cspn_ref.py:halo_segment_reference,
 autograd-native) because it lies on the CPU; a CUDA tensor goes to the
 kernels or raises, forward and backward.  There is no fallback between
 the two, and none by size (the JAX package falls back to autodiff when
-the block is past its VMEM budget, cspn_pallas.py:601-618).
+the block is past its VMEM budget, cspn_pallas.py:601-618).  A forward
+that no backward follows stores only its output; one that a backward
+follows (`_HaloSegment`, from ctx.needs_input_grad) also keeps its states
+x_1..x_{K-1} and folded gates G = keep * gate for the backward.
 
-`launches` counts the forward kernel's runs (one per segment:
-ceil(k / 8) tile launches on the card); `bwd_launches` counts the
-backward kernel's runs (one per segment: `cuda_launches` says how many
-CUDA launches each makes).
+`launches` counts the forward kernel's runs (one per segment, either
+route), `bwd_launches` the backward kernel's (one per segment);
+`cuda_launches` says how many CUDA launches each makes.
 """
 
 from __future__ import annotations
@@ -29,27 +32,19 @@ from __future__ import annotations
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
-from cspn_tpu_torch.ops.cspn_cuda import HALO as MARCH_HALO
-
-# csrc/cspn2d_tile.cuh, the tile stencil of this kernel and of paddle2d.cu
-# (ops/cspn_paddle2d_cuda.py): kTile (interior side), kHalo (steps per launch)
-# of the forward; the backward runs csrc/cspn2d_march.cuh's tiles, MARCH_HALO
-# steps a launch
-TILE, HALO = 32, 8
+from cspn_tpu_torch.ops.cspn_cuda import HALO
 
 launches = 0
 bwd_launches = 0
 
 
 def cuda_launches(k_steps: int, with_keep: bool) -> tuple[int, int]:
-    """The CUDA launches of one segment (k_steps > 0): the forward's tile
-    launches, and the backward's replay of k - 1 steps (ceil((k - 1) / 12)
-    launches; with keep at least one, which writes the folded gates), its
-    ceil(k / 12) reverse tiles and, with keep, its epilogue."""
-    replay = -(-(k_steps - 1) // MARCH_HALO)
-    if with_keep:
-        replay = max(replay, 1)
-    return -(-k_steps // HALO), replay + -(-k_steps // MARCH_HALO) + int(with_keep)
+    """The CUDA launches of one segment (k_steps > 0): the forward's,
+    either route (ceil(k / 12) march launches), and the backward's on the
+    kept states (ceil(k / 12) reverse tiles and, with keep, the
+    epilogue)."""
+    tiles = -(-k_steps // HALO)
+    return tiles, tiles + int(with_keep)
 
 
 def _check_inputs(gates_cf, base, keep, x):
@@ -77,48 +72,61 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(gates_cf, base, keep, x, k_steps: int) -> torch.Tensor:
-    """Run the forward kernel on checked inputs; returns [n, He, W] f32."""
+def _launch(gates_cf, base, keep, x, k_steps: int, keep_states: bool = False):
+    """Run the forward kernel on checked inputs; returns out [n, He, W] f32
+    or, with `keep_states` (the route a backward follows), (out, the folded
+    gates G [n,8,He,W] (the gates themselves without keep), the states
+    x_1..x_{K-1} [K-1,n,He,W]) for `_launch_bwd`."""
     global launches
     from cspn_tpu_torch.ops import _build
 
     lib = _build.load("cspn2d_halo_seg")
     n, _, h, w = gates_cf.shape
     out = torch.empty_like(x)
-    x_scratch = torch.empty_like(x)
+    stream = torch.cuda.current_stream(gates_cf.device).cuda_stream
     with torch.cuda.device(gates_cf.device):  # the runtime launches on the current device
-        err = lib.cspn2d_halo_seg_f32(
-            gates_cf.data_ptr(), base.data_ptr(), _ptr(keep), x.data_ptr(), out.data_ptr(),
-            x_scratch.data_ptr(), n, h, w, int(k_steps), TILE, HALO,
-            torch.cuda.current_stream(gates_cf.device).cuda_stream,
-        )
+        if keep_states:
+            folded = gates_cf if keep is None else torch.empty_like(gates_cf)
+            states = x.new_empty((max(int(k_steps) - 1, 0), n, h, w))
+            err = lib.cspn2d_halo_seg_states_f32(
+                gates_cf.data_ptr(), base.data_ptr(), _ptr(keep), x.data_ptr(), out.data_ptr(),
+                folded.data_ptr(), states.data_ptr(), n, h, w, int(k_steps), stream)
+        else:
+            x_scratch = torch.empty_like(x)
+            err = lib.cspn2d_halo_seg_f32(
+                gates_cf.data_ptr(), base.data_ptr(), _ptr(keep), x.data_ptr(), out.data_ptr(),
+                x_scratch.data_ptr(), n, h, w, int(k_steps), stream)
     if err != 0:
-        raise RuntimeError(f"cspn2d_halo_seg_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"cspn2d_halo_seg launch failed: cudaError_t {err}")
     launches += 1
-    return out
+    return (out, folded, states) if keep_states else out
 
 
-def _launch_bwd(gates_cf, base, keep, x, ct, k_steps: int):
-    """Run the backward kernel on checked inputs and the cotangent `ct` of
-    the output; returns (d gates [n,8,He,W], d base, d keep or None, d x)."""
+def _launch_bwd(gates_cf, keep, x, ct, k_steps: int, kept):
+    """Run the backward kernel on checked inputs, the cotangent `ct` of the
+    output and what the forward kept (`kept` = (G, states), as
+    `_launch(..., keep_states=True)` returns them); returns (d gates
+    [n,8,He,W], d base, d keep or None, d x)."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
     if ct.dtype != torch.float32 or ct.device != x.device or ct.shape != x.shape:
         raise ValueError(f"the cotangent must be float32 {tuple(x.shape)} on {x.device}, "
                          f"got {ct.dtype} {tuple(ct.shape)} on {ct.device}")
-    lib = _build.load("cspn2d_halo_seg_bwd")
+    folded, states = kept
     n, _, h, w = gates_cf.shape
+    if folded.shape != gates_cf.shape or tuple(states.shape) != (max(int(k_steps) - 1, 0), n, h, w):
+        raise ValueError(f"kept gates {tuple(folded.shape)} and states {tuple(states.shape)} are "
+                         f"not those of a {k_steps}-step forward on {tuple(gates_cf.shape)}")
+    lib = _build.load("cspn2d_halo_seg_bwd")
     dgates, dbase, dx = torch.empty_like(gates_cf), torch.empty_like(x), torch.empty_like(x)
     dkeep = None if keep is None else torch.empty_like(x)
-    folded = None if keep is None else torch.empty_like(gates_cf)
     v_scratch = torch.empty_like(x)
-    states = x.new_empty((max(int(k_steps) - 1, 0), n, h, w))  # x_1 .. x_{K-1}
     with torch.cuda.device(gates_cf.device):
         err = lib.cspn2d_halo_seg_bwd_f32(
-            gates_cf.data_ptr(), base.data_ptr(), _ptr(keep), x.data_ptr(), ct.data_ptr(),
-            dgates.data_ptr(), dbase.data_ptr(), _ptr(dkeep), dx.data_ptr(), _ptr(folded),
-            v_scratch.data_ptr(), states.data_ptr(), n, h, w, int(k_steps),
+            gates_cf.data_ptr(), _ptr(keep), x.data_ptr(), folded.data_ptr(),
+            states.data_ptr(), ct.data_ptr(), dgates.data_ptr(), dbase.data_ptr(), _ptr(dkeep),
+            dx.data_ptr(), v_scratch.data_ptr(), n, h, w, int(k_steps),
             torch.cuda.current_stream(gates_cf.device).cuda_stream,
         )
     if err != 0:
@@ -128,19 +136,25 @@ def _launch_bwd(gates_cf, base, keep, x, ct, k_steps: int):
 
 
 class _HaloSegment(torch.autograd.Function):
-    """Forward and backward are the CUDA kernels; the backward replays the
-    segment from the inputs the forward saved (the exact adjoint)."""
+    """The forward kernel and, for the backward, the backward kernel on the
+    states and folded gates the forward kept (the exact adjoint).  A
+    forward that no input needs a gradient of (ctx.needs_input_grad) runs
+    the route that stores only its output and keeps nothing."""
 
     @staticmethod
     def forward(ctx, gates_cf, base, keep, x, k_steps):
-        ctx.save_for_backward(gates_cf, base, keep, x)
+        if not any(ctx.needs_input_grad[:4]):
+            return _launch(gates_cf, base, keep, x, k_steps)
+        out, folded, states = _launch(gates_cf, base, keep, x, k_steps, keep_states=True)
+        ctx.save_for_backward(gates_cf, keep, x, folded, states)
         ctx.k_steps = k_steps
-        return _launch(gates_cf, base, keep, x, k_steps)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        gates_cf, base, keep, x = ctx.saved_tensors
-        dg, db, dk, dx = _launch_bwd(gates_cf, base, keep, x, grad_out.contiguous(), ctx.k_steps)
+        gates_cf, keep, x, folded, states = ctx.saved_tensors
+        dg, db, dk, dx = _launch_bwd(gates_cf, keep, x, grad_out.contiguous(), ctx.k_steps,
+                                     (folded, states))
         return dg, db, dk, dx, None
 
 

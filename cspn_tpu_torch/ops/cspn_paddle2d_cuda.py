@@ -27,9 +27,10 @@ from __future__ import annotations
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
-from cspn_tpu_torch.ops.cspn_halo_cuda import HALO, TILE  # csrc/cspn2d_tile.cuh's
 
 N_GATES = 8
+# csrc/cspn2d_tile.cuh: kTile (interior side) and kHalo (steps a launch)
+TILE, HALO = 32, 8
 
 launches = 0
 

@@ -48,9 +48,12 @@ exchanges = 0
 # one reload of the segment's input planes, a fixed cost per segment and one
 # exchange.  Defaults for one NVIDIA H100 80GB HBM3 at 700 W:
 
-# per pixel-step: cspn2d_halo_seg on the KITTI b4 S = 2 segment, K = 24 on
-# [8,8,224,1216] (chip_smoke.py phase 3; 8.8-10.0 ps at K = 8 on [4,8,192,1216])
-T2D_STEP_S_PER_PX = 6.3e-12
+# per pixel-step: cspn2d_halo_seg (the column march, 12 steps a launch) on
+# the KITTI b4 S = 2 segment, K = 24 on [8,8,224,1216], CUDA events
+# (chip_smoke.py phase 3: 4.098 and 4.495 ps in two runs; 5.92 ps at K = 8
+# on [8,8,192,1216], chip_smoke.py --routes-of; 6.3 ps for the earlier
+# 32x32 tile kernel)
+T2D_STEP_S_PER_PX = 4.1e-12
 # per voxel-step: cspn3d_fwd fitted as fixed + per step (chip_smoke.py
 # phase 3), the median of four fits: 18.0 and 19.5 ps through 4 and 24 steps
 # on [4,26,48,64,128], 19.3 and 24.1 ps through 4 and 8 on the sharded
@@ -60,7 +63,9 @@ T3D_STEP_S_PER_VOX = 19.4e-12
 HBM_BPS = 3.35e12  # NVIDIA's data sheet, H100 SXM
 # host time of a segment beyond its stencil: the exchange's copies, the
 # wrapper and its launches, eager PyTorch (chip_smoke.py:segment_fixed_s,
-# 90-191 us from run to run: host time on a shared host varies)
+# 90-191 us from run to run, 169 and 206 us with the column march's
+# segment, whose host work is the earlier one's: host time on a shared
+# host varies)
 SEG_FIXED_S = 99.5e-6
 # The link terms: one card has no link to measure, so these are parameters,
 # NVLink's data-sheet rate each way and an assumed latency, not measurements.

@@ -4,9 +4,9 @@ by session.
 
     python -m cspn_tpu_torch.utils.profiler_records [--sessions 500]
 
-On the card it profiles the sharded segment's backward
-(ops/cspn_halo_cuda.py: 4 CUDA launches a call at K = 13 with keep, on a
-[3,8,61,90] block) in `--sessions` sessions of each kind: 1 call or 5
+On the card it profiles the sharded segment's backward on the states its
+forward kept (ops/cspn_halo_cuda.py: 3 CUDA launches a call at K = 13
+with keep, on a [3,8,61,90] block) in `--sessions` sessions of each kind: 1 call or 5
 calls a session, each with and without a 2 ms pause between the session's
 start and the first call.  For each kind it prints one JSON line: the
 sessions whose kernel records fall short of the launches made, how many
@@ -27,7 +27,7 @@ import torch
 
 KINDS = ((1, 0.0), (1, 0.002), (5, 0.0), (5, 0.002))  # (calls a session, pause s)
 SHAPE, K = (3, 61, 90), 13
-ORDER = ("replay", "reverse", "reverse", "epilogue")  # one call's launches at K = 13
+ORDER = ("reverse", "reverse", "epilogue")  # one call's launches at K = 13
 
 
 def _kernel(name: str) -> str:
@@ -61,8 +61,10 @@ def run(sessions: int) -> list[dict]:
     base, x, ct = (torch.randn(n, he, w, device="cuda", generator=gen) for _ in range(3))
     keep = 1.0 - (torch.rand(n, he, w, device="cuda", generator=gen) < 0.2).float()
 
+    kept = cspn_halo_cuda._launch(gates, base, keep, x, K, keep_states=True)[1:]
+
     def fn():
-        cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, K)
+        cspn_halo_cuda._launch_bwd(gates, keep, x, ct, K, kept)
 
     fn()
     torch.cuda.synchronize()

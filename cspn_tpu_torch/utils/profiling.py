@@ -258,8 +258,8 @@ def _kind(kernel: str) -> str:
     # the 3D kernels first: their names hold the 2D ones' substrings
     if "cspn3d_" in k:  # the forward's sweep; the backward's reverse sweep and gate pass
         return "cspn3d_fwd" if "cspn3d_fwd_sweep_kernel" in k else "cspn3d_bwd"
-    # the sharded segment's forward, and its backward's replay, reverse
-    # tiles and keep epilogue, before the 2D backward's epilogue
+    # the sharded segment's forward (either route), and its backward's
+    # reverse tiles and keep epilogue, before the 2D backward's epilogue
     if "halo_seg_kernel" in k:
         return "cspn2d_halo_seg"
     if "halo_seg_" in k or "keep_epilogue_kernel" in k:

@@ -1,8 +1,9 @@
 """The tile kernels that keep their states, emulated against the JAX package.
 
 csrc/cspn2d_fwd.cu (the 2D CSPN forward that keeps its states for the
-backward), the replay of csrc/cspn2d_bwd.cu and csrc/cspn2d_halo_seg_bwd.cu
-(the sharded segment's backward) run only on the card
+backward), the replay of csrc/cspn2d_bwd.cu, and csrc/cspn2d_halo_seg.cu
+and csrc/cspn2d_halo_seg_bwd.cu (the sharded segment's forward, which keeps
+its states when a backward follows, and its backward) run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Here test-local PyTorch
 emulations of their schedules, on inputs made from numpy seeds, are held
 against the JAX package's TPU kernels run in interpret mode and against
@@ -23,11 +24,13 @@ the port's plain version:
   the TPU kernel (each such call costs ~3.5 s here; that file holds the
   reverse tiles to it at every step count); the replay route (the march
   over steps - 1 steps) keeps the same states and gates;
-- the segment backward: the states march over K - 1 steps with keep
-  folded at load, the reverse tiles with x_0 = x, and the keep epilogue
-  (d gate = keep Gbar, d keep = sum_d gate_d Gbar_d), against `jax.vjp` of
+- the segment backward: the reverse tiles with x_0 = x on the states the
+  segment's forward kept (the states march over K steps with keep folded
+  at load, emulate_segment_forward) and the keep epilogue (d gate = keep
+  Gbar, d keep = sum_d gate_d Gbar_d), against `jax.vjp` of
   `cspn_pallas.cspn2d_halo_segment(..., interpret=True)` and autograd of
-  `cspn_ref.halo_segment_reference`.
+  `cspn_ref.halo_segment_reference` (tests/test_torch_halo_march.py holds
+  the forward's routes and states).
 
 The map is a ragged 20 x 27 on 8 x 8 tiles with K = 4, so that launches
 are uneven; every 2D case has an all-zero guidance corner and, with
@@ -124,11 +127,11 @@ def emulate_states_forward(g_cf, blur, sparse, steps, norm_type, k=K, tile=TILE)
     return out, gates, states
 
 
-def emulate_segment_backward(gates, base, keep, x, ct, k_steps, k=K, tile=TILE):
-    """csrc/cspn2d_halo_seg_bwd.cu: the replay (the march over K - 1 steps
-    from x on the given gates, keep folded at load, G = keep * gate stored
-    by its first launch), the reverse tiles on [x, x_1..x_{K-1}], the keep
-    epilogue.  Returns (d gates, d base, d keep or None, d x)."""
+def emulate_segment_forward(gates, base, keep, x, k_steps, k=K, tile=TILE):
+    """csrc/cspn2d_halo_seg.cu: the march over K steps from x on the given
+    gates, keep folded in at load, the first launch storing G = keep *
+    gate for the later launches and the backward.  Returns (out, G (the
+    gates themselves without keep), the states x_1..x_{K-1})."""
     n, _, h, w = gates.shape
     p = k + tile + 1
     kp = torch.ones(n, h, w) if keep is None else keep
@@ -137,10 +140,18 @@ def emulate_segment_backward(gates, base, keep, x, ct, k_steps, k=K, tile=TILE):
     def first(ext, _ring):
         return k_p[ext][:, None] * g_p[ext], b_p[ext]
 
-    last, folded, _, states = emulate_march(x, k_steps - 1, first, k, tile)
-    states = [x] + states + ([last] if k_steps > 1 else [])
-    g = gates if keep is None else folded
-    dx, gbar, dbase = emulate_reverse_tiles(g, states, ct,
+    out, folded, _, states = emulate_march(x, k_steps, first, k, tile)
+    return out, gates if keep is None else folded, states
+
+
+def emulate_segment_backward(gates, base, keep, x, ct, k_steps, k=K, tile=TILE):
+    """csrc/cspn2d_halo_seg_bwd.cu on what the segment's forward kept
+    (emulate_segment_forward): the reverse tiles on [x, x_1..x_{K-1}] with
+    G, then the keep epilogue.  Returns (d gates, d base, d keep or None,
+    d x)."""
+    n, _, h, w = gates.shape
+    _, g, states = emulate_segment_forward(gates, base, keep, x, k_steps, k, tile)
+    dx, gbar, dbase = emulate_reverse_tiles(g, [x] + states, ct,
                                             cspn_cuda.plan_tiles(h, w, k_steps, k, tile))
     if keep is None:
         return gbar, dbase, None, dx
@@ -230,18 +241,3 @@ def test_segment_backward_matches_tpu_kernel_and_plain(k_steps, with_keep):
             assert np.isfinite(a.numpy()).all(), name
             np.testing.assert_allclose(a.numpy(), e, rtol=SEG_TOL_GRAD, atol=SEG_TOL_GRAD,
                                        err_msg=name)
-
-
-@pytest.mark.parametrize("k_steps", [1, 3, 8])
-def test_segment_replay_keeps_the_plain_states(k_steps):
-    """The replay's states (keep folded into the given gates at load) are
-    the plain segment's x_t, and its folded gates keep * gate."""
-    gates, base, keep, x, _ = (torch.from_numpy(a) for a in _segment_inputs(500 + k_steps))
-    g_p, b_p, k_p = (_pad(t, K + TILE + 1) for t in (gates, base, keep))
-    last, folded, _, states = emulate_march(
-        x, k_steps - 1, lambda ext, _ring: (k_p[ext][:, None] * g_p[ext], b_p[ext]))
-    assert torch.equal(folded, keep[:, None] * gates)
-    for t, x_t in enumerate(states + ([last] if k_steps > 1 else []), start=1):
-        want = cspn_ref.halo_segment_reference(gates, base, keep, x, t)
-        np.testing.assert_allclose(x_t.numpy(), want.numpy(), rtol=SEG_TOL, atol=SEG_TOL,
-                                   err_msg=f"x_{t}")

@@ -802,23 +802,65 @@ def test_halo_segment_kernels_match_plain(gen, shape, k_steps, with_keep):
 @pytest.mark.parametrize("with_keep", [True, False])
 @pytest.mark.parametrize("k_steps", [1, 11, 12, 13, 24])
 @pytest.mark.parametrize("shape", [(2, 1, 70), (2, 53, 1), (3, 61, 90), (2, 120, 1216)])
-def test_halo_segment_backward_at_its_launch_edges(gen, shape, k_steps, with_keep):
-    """The segment backward (a tiled replay, reverse tiles of 12 steps and
-    the keep epilogue) at K across its launch splits, on 1-row and 1-column
-    blocks and ragged tiles: every gradient within TOL of autograd of the
-    plain segment, a second backward bit for bit the first, and the kernel
-    launches the host makes (torch.profiler's cudaLaunch* records, which
-    unlike the card's kernel records miss none; chip_smoke.py:kernel_profile)
-    as many as cuda_launches gives."""
+def test_halo_segment_forward_routes_agree(gen, shape, k_steps, with_keep):
+    """The segment's two forward routes (csrc/cspn2d_halo_seg.cu: storing
+    only the output, or also the states and folded gates a backward reads)
+    at K across their launch splits, on 1-row and 1-column blocks and
+    ragged tiles: equal value for value, every kept state within TOL of
+    the plain segment run t steps, the folded gates keep * gate exactly,
+    and each route's kernel launches the host makes as many as
+    cuda_launches gives."""
+    from cspn_tpu_torch.ops import cspn_halo_cuda
+
+    gates, base, keep, x = _segment(gen, *shape, with_keep)
+    out = cspn_halo_cuda._launch(gates, base, keep, x, k_steps)
+    kept_out, folded, states = cspn_halo_cuda._launch(gates, base, keep, x, k_steps,
+                                                      keep_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kept_out)
+    assert torch.equal(folded, gates if keep is None else keep[:, None] * gates)
+    assert states.shape == (k_steps - 1, *shape)
+    xt = x
+    for t in range(k_steps - 1):
+        xt = cspn_ref.halo_segment_reference(gates, base, keep, xt, 1)
+        assert (states[t] - xt).abs().max().item() <= TOL * max(xt.abs().max().item(), 1e-30)
+    want = cspn_halo_cuda.cuda_launches(k_steps, with_keep)[0]
+    for kw in ({}, {"keep_states": True}):
+        fwd = lambda: cspn_halo_cuda._launch(gates, base, keep, x, k_steps, **kw)  # noqa: E731
+        assert _host_launches(fwd) == want, kw
+
+
+def _host_launches(fn, reps: int = 3) -> float:
+    """The kernel launches the host makes in one call of `fn`
+    (torch.profiler's cudaLaunch* records, which unlike the card's kernel
+    records miss none; chip_smoke.py:kernel_profile)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch")) / reps
+
+
+@pytest.mark.parametrize("with_keep", [True, False])
+@pytest.mark.parametrize("k_steps", [1, 11, 12, 13, 24])
+@pytest.mark.parametrize("shape", [(2, 1, 70), (2, 53, 1), (3, 61, 90), (2, 120, 1216)])
+def test_halo_segment_backward_at_its_launch_edges(gen, shape, k_steps, with_keep):
+    """The segment backward (reverse tiles of 12 steps on the states the
+    forward kept, and the keep epilogue) at K across its launch splits,
+    on 1-row and 1-column blocks and ragged tiles: every gradient within
+    TOL of autograd of the plain segment, a second backward bit for bit
+    the first, and the kernel launches the host makes as many as
+    cuda_launches gives."""
     from cspn_tpu_torch.ops import cspn_halo_cuda
 
     gates, base, keep, x = _segment(gen, *shape, with_keep)
     ct = torch.randn(shape, device="cuda", generator=gen)
+    kept = cspn_halo_cuda._launch(gates, base, keep, x, k_steps, keep_states=True)[1:]
     before = cspn_halo_cuda.bwd_launches
-    got = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
-    again = cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
+    got = cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k_steps, kept)
+    again = cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k_steps, kept)
     torch.cuda.synchronize()
     assert cspn_halo_cuda.bwd_launches == before + 2
     assert all(torch.equal(a, e) for a, e in zip(got, again) if a is not None)
@@ -829,13 +871,8 @@ def test_halo_segment_backward_at_its_launch_edges(gen, shape, k_steps, with_kee
     for a, e in zip(got, want):
         assert a.shape == e.shape and torch.isfinite(a).all()
         assert (a - e).abs().max().item() <= TOL * max(e.abs().max().item(), 1e-30)
-    reps = 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            cspn_halo_cuda._launch_bwd(gates, base, keep, x, ct, k_steps)
-        torch.cuda.synchronize()
-    launched = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch"))
-    assert launched == reps * cspn_halo_cuda.cuda_launches(k_steps, with_keep)[1]
+    bwd = lambda: cspn_halo_cuda._launch_bwd(gates, keep, x, ct, k_steps, kept)  # noqa: E731
+    assert _host_launches(bwd) == cspn_halo_cuda.cuda_launches(k_steps, with_keep)[1]
 
 
 def test_halo_segment_wrapper_refuses_what_the_kernel_does_not_take(gen):
