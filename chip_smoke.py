@@ -65,7 +65,13 @@ paths on the card and fails (non-zero exit) if any phase fails:
      KITTI CSPN-UNet with spatial_mesh (S = 2) against the unsharded model
      (eval b1 and b4, one b4 train step by phase 5's rule) and the stereo
      model with D over S = 2 (one b4 train step); sharded and unsharded
-     timed; exact segment-kernel launches and halo exchanges.
+     timed; exact segment-kernel launches and halo exchanges;
+ 12. data-parallel training (parallel/data.py): nyu_train's b8 step through
+     DistributedDataParallel on a 1-rank NCCL group in this process, on the
+     sync-BN route (float32 reduce) and the bf16 route, against the
+     unwrapped step, the float64 oracle and bf16 rounding; the reduce
+     hook's bytes per dtype; the steps timed in turns with peak memory; and
+     `bench-scaling --mode train`'s one point (ddp_slice).
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -117,6 +123,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import importlib.util
 import inspect
 import itertools
 import json
@@ -1216,29 +1223,93 @@ def time_halo_seg_routes(name: str) -> list[dict]:
     return rows
 
 
+def time_paddle(name: str) -> list[dict]:
+    """Row 6 at each of PADDLE_CASES (channel-last, 24 steps), by CUDA
+    events around one call (`<what>_ms`) and queued (`<what>_queued_ms`):
+    the kernel alone (`kernel`) and cspn_nd's whole 2D forward without autograd
+    (`cspn_nd`: on a tree with `paddle2d_layout`, that layout's PyTorch
+    launches, the kernel and the output's relayout).  It drives only
+    `_launch` and `cspn_nd`, so that it times any checkout's kernel
+    (--routes-of)."""
+    from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
+    from cspn_tpu_torch.ops.cspn import cspn_nd
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for n, h, w, c in PADDLE_CASES:
+        guide, feat = paddle_inputs(gen, n, h, w, c)
+        if hasattr(p2, "paddle2d_layout"):  # a tree whose kernel takes the normalized gates
+            gates, x0 = p2.paddle2d_layout(guide, feat)
+            calls = {"kernel": lambda: p2._launch(gates, x0, STEPS)}
+        else:
+            calls = {"kernel": lambda: p2._launch(guide, feat, STEPS)}
+
+        def forward():
+            with torch.no_grad():
+                return cspn_nd(guide, feat, steps=STEPS)
+
+        calls["cspn_nd"] = forward
+        row = {"shape": [n, h, w, c]}
+        for what, fn in calls.items():
+            row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
+        log(f"  paddle2d [{n * c},8,{h},{w}], ms by events (queued): "
+            + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
+                        for what in calls) + f" on {name}")
+        rows.append(row)
+    return rows
+
+
+def time_demo2d_split(name: str, iters: int = 21, warmup: int = 3) -> dict:
+    """`demo --dim-num 2`'s iteration (batch 3, [64,128] maps, C = 1, 24
+    steps, Adam) split by CUDA events into the forward (cspn_nd and the
+    mean), the backward (autograd of the plain version on the card) and
+    Adam's step; medians of `iters` iterations.  Any checkout (--routes-of)."""
+    from cspn_tpu_torch.ops.cspn import cspn_nd
+
+    rng = np.random.default_rng(0)  # the demo's draws
+    params = [torch.tensor(rng.random(shape), dtype=torch.float32, device="cuda",
+                           requires_grad=True) for shape in ((3, 64, 128, 8), (3, 64, 128, 1))]
+    opt = torch.optim.Adam(params, lr=1e-3)
+    split = {"forward": [], "backward": [], "adam": []}
+    for i in range(warmup + iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = cspn_nd(*params, steps=STEPS).mean()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= warmup:
+            for k, (a, b) in zip(split, zip(ev, ev[1:])):
+                split[k].append(a.elapsed_time(b))
+    row = {f"{k}_ms": statistics.median(v) for k, v in split.items()}
+    row["iteration_ms"] = sum(row.values())
+    log("  demo --dim-num 2 iteration, ms by events (median of "
+        f"{iters}): " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + f" on {name}")
+    return row
+
+
 def time_probe_and_paddle(name: str) -> dict:
     """Rows 11 and 6 by CUDA events around one call and queued (as
     check_step_probe and check_paddle2d_kernel time them: the probe's
-    PROBE_ROW_ITERS-iteration f32 launch on one block per SM, paddle2d at
-    the demo's maps), and the probe path's slopes (step_probe.run_probe, as
-    probe_slice runs it).  It drives only the wrappers' `_launch` and
-    `run_probe`, so that it times any checkout's kernels (--routes-of)."""
-    from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
+    PROBE_ROW_ITERS-iteration f32 launch on one block per SM; paddle2d by
+    time_paddle), the demo's iteration split (time_demo2d_split), and the
+    probe path's slopes (step_probe.run_probe, as probe_slice runs it).
+    It drives only the wrappers' `_launch`, `cspn_nd` and `run_probe`, so
+    that it times any checkout's kernels (--routes-of)."""
     from cspn_tpu_torch.utils import step_probe
 
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
     g, x = step_probe.probe_inputs(blocks, torch.float32, torch.float32, device="cuda")
     probe = lambda: step_probe._launch(g, x, PROBE_ROW_ITERS)  # noqa: E731
-    n, h, w, c = PADDLE_CASES[0]
-    gates, x0 = p2.paddle2d_layout(*paddle_inputs(torch.Generator(device="cuda").manual_seed(7),
-                                                  n, h, w, c))
-    paddle = lambda: p2._launch(gates, x0, STEPS)  # noqa: E731
     row = {"step_probe_ms": time_ms(probe), "step_probe_queued_ms": time_queued_ms(probe),
-           "paddle2d_ms": time_ms(paddle), "paddle2d_queued_ms": time_queued_ms(paddle),
+           "paddle2d": time_paddle(name), "demo2d_split": time_demo2d_split(name),
            "probe_slopes": step_probe.run_probe(trials=PROBE_TRIALS)}
     log(f"  step_probe f32/f32 iters={PROBE_ROW_ITERS}: {row['step_probe_ms']:.4f} ms by events, "
-        f"{row['step_probe_queued_ms']:.4f} queued; paddle2d [{gates.shape[0]},8,{h},{w}]: "
-        f"{row['paddle2d_ms']:.4f} ms by events, {row['paddle2d_queued_ms']:.4f} queued on {name}")
+        f"{row['step_probe_queued_ms']:.4f} queued on {name}")
     for r in row["probe_slopes"]:
         log(f"  probe slope {r['gate_dtype']}/{r['state_dtype']}: {r['ns_per_iter']:.3f} ns per "
             f"iteration, {r['ps_per_px_iter']:.5f} ps per px-iteration, {r['Tops_per_s']:.3f} "
@@ -1274,13 +1345,19 @@ def ptxas_usage(build, names) -> dict:
     return usage
 
 
+# the libraries of the kernels on the column march (rows 1-6)
+MARCH_LIBS = ("cspn2d_fwd", "cspn2d_bwd", "cspn2d_tiled", "cspn2d_halo_seg",
+              "cspn2d_halo_seg_bwd", "paddle2d")
+
+
 def routes_of(checkout: str) -> int:
     """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes (without
     counting launches), time_halo_seg_routes and time_probe_and_paddle on
     the cspn_tpu_torch of CHECKOUT (another tree's kernels built from its
     own sources, or this one's with "."), and ptxas_usage of its probe and
-    segment kernels; prints the card line and one JSON object, and runs
-    nothing else.  One harness times a parent and a change in turns."""
+    its march kernels (rows 1-6, MARCH_LIBS); prints the card line and one
+    JSON object, and runs nothing else.  One harness times a parent and a
+    change in turns."""
     root = os.path.abspath(checkout)
     sys.path.insert(0, root)
     import cspn_tpu_torch
@@ -1293,7 +1370,7 @@ def routes_of(checkout: str) -> int:
     rows = time_fwd_routes(name, count_launches=False)
     seg_rows = time_halo_seg_routes(name)
     probe_row = time_probe_and_paddle(name)
-    usage = ptxas_usage(_build, ("step_probe", "cspn2d_halo_seg", "cspn2d_halo_seg_bwd"))
+    usage = ptxas_usage(_build, ("step_probe", *MARCH_LIBS))
     print(card, flush=True)
     print(json.dumps({"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS,
                       "fwd_routes": rows, "halo_seg_routes": seg_rows,
@@ -1314,6 +1391,46 @@ def train_step_ms(model, optimizer, loss_fn, x, target) -> float:
     return time_ms(step, reps=11, warmup=2)
 
 
+def ddp_steps_ms(name: str, peaks: dict) -> dict:
+    """The nyu_train b8 train step (make_train_step) through
+    DistributedDataParallel on a 1-rank NCCL group made here, on the
+    sync-BN route and the bf16 route (train_step_ms's timing: median of 11
+    whole steps); each route's peak memory into `peaks`."""
+    import torch.distributed as dist
+
+    from cspn_tpu_torch.config import PRESETS
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.parallel import make_mesh
+    from cspn_tpu_torch.parallel.data import DataParallel
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loop import make_train_step
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.utils.profiling import NYU_HW
+
+    cfg = PRESETS["nyu_train"]
+    ds = SyntheticDepthDataset(length=8, hw=NYU_HW, n_sample=cfg.data.n_sample, seed=1)
+    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(8)])).cuda()
+    depth = torch.from_numpy(np.stack([ds[i]["depth"] for i in range(8)])).cuda()
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(None, 1, dist.group.WORLD)
+        for route in ("sync", "bf16"):
+            model = build_model(cfg, train=True, device="cuda", seed=0)
+            dp = DataParallel(model, mesh, None if route == "sync" else "bfloat16")
+            step = make_train_step(model, make_optimizer(model.parameters()), data_parallel=dp)
+            torch.cuda.reset_peak_memory_stats()
+            label = f"nyu_train b8 ddp {route}"
+            out[label] = time_ms(functools.partial(step, x, depth), reps=11, warmup=2)
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"  {label} train step: {out[label]:.3f} ms, peak {peaks[label]:.3f} GiB on {name}")
+            del model, dp, step
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def steps_of(checkout: str) -> int:
     """`chip_smoke.py --steps-of CHECKOUT`: the paths' end-to-end figures on
     the cspn_tpu_torch of CHECKOUT (a parent's or this one, "."), so that
@@ -1321,9 +1438,12 @@ def steps_of(checkout: str) -> int:
     b4 and kitti_sharded b4 (S = 2) train steps (train_step_ms) and their
     peak device memory, the two KITTI models' b4 eval forwards, and
     nyu_eval's and kitti_benchmark's served frames/s over SERVE_WINDOW
-    requests (served_rate).  CHECKOUT's package builds the models, data,
-    loss, optimizer and server; the timing is this script's.  Prints the
-    card line and one JSON object."""
+    requests (served_rate); where CHECKOUT has parallel/data.py, also the
+    nyu_train b8 step through DDP on a 1-rank NCCL group on both reduce
+    routes (`nyu_train b8 ddp sync` / `ddp bf16`, its make_train_step).
+    CHECKOUT's package builds the models, data, loss, optimizer and server;
+    the timing is this script's.  Prints the card line and one JSON
+    object."""
     root = os.path.abspath(checkout)
     sys.path.insert(0, root)
     import cspn_tpu_torch
@@ -1373,6 +1493,8 @@ def steps_of(checkout: str) -> int:
                 result["eval_forward_ms"][label] = time_ms(lambda: model(x), reps=11, warmup=2)
             log(f"  {label} eval forward: {result['eval_forward_ms'][label]:.3f} ms on {name}")
         del model, x, depth
+    if importlib.util.find_spec("cspn_tpu_torch.parallel.data") is not None:
+        result["steps_ms"].update(ddp_steps_ms(name, result["step_peak_gib"]))
     for label, cfg, buckets, sizes in (("nyu_eval", nyu, BUCKETS, REQUESTS),
                                        ("kitti_benchmark", kitti, KITTI_BUCKETS, KITTI_REQUESTS)):
         h, w = cfg.data.crop_hw
@@ -1389,50 +1511,77 @@ def steps_of(checkout: str) -> int:
     return 0
 
 
-def paddle_inputs(gen, n, h, w, c):
+def paddle_inputs(gen, n, h, w, c, channel_first=False):
     """Raw guidance [n,h,w,8c] (zero in one corner: centre weight 1 there)
-    and features [n,h,w,c] for cspn_nd's 2D branch."""
+    and features [n,h,w,c] for cspn_nd's 2D branch; [n,8c,h,w] and
+    [n,c,h,w] with channel_first."""
     guide = torch.randn(n, h, w, 8 * c, device="cuda", generator=gen)
     guide[0, :3, :4] = 0.0
-    return guide, torch.randn(n, h, w, c, device="cuda", generator=gen)
+    feat = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    if channel_first:
+        return guide.movedim(-1, 1).contiguous(), feat.movedim(-1, 1).contiguous()
+    return guide, feat
+
+
+# the paddle kernel's launch splits (12 steps a launch)
+PADDLE_SPLITS = (0, 1, 11, 12, 13, STEPS)
 
 
 def check_paddle2d_kernel(name: str) -> dict:
-    """Phase 3: the paddle 2D kernel, through cspn2d_paddle_cuda (layout,
-    kernel, autograd of the plain propagation), against cspn_nd_reference,
-    forward and gradients under a random cotangent; then timed at each
-    case's maps (CUDA events around one call, and queued)."""
+    """Phase 3: the paddle 2D kernel, through cspn2d_paddle_cuda (the raw
+    guide in cspn_nd's layout, autograd of the plain version for the
+    backward), against its plain version (cspn_nd_reference) in both
+    layouts at each case, forward and gradients under a random cotangent;
+    its CUDA launches a call counted from the host's records at the launch
+    splits; then timed at each case's maps (CUDA events around one call,
+    and queued): the kernel and cspn_nd's whole 2D forward."""
     from cspn_tpu_torch.ops import cspn_paddle2d_cuda as p2
-    from cspn_tpu_torch.ops import cspn_ref
+    from cspn_tpu_torch.ops.cspn import cspn_nd
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     max_err = 0.0
     times = []
     for n, h, w, c in PADDLE_CASES:
+        for cf in (False, True):
+            guide, feat = paddle_inputs(gen, n, h, w, c, cf)
+            ct = torch.randn(feat.shape, device="cuda", generator=gen)
+            outs = {}
+            for label, fn in (("kernel", p2.cspn2d_paddle_cuda), ("plain", p2.paddle2d_reference)):
+                gd, ft = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+                out = fn(gd, ft, steps=STEPS, channel_first=cf)
+                outs[label] = (out, *torch.autograd.grad(out, (gd, ft), ct))
+            torch.cuda.synchronize()
+            layout = "channel-first" if cf else "channel-last"
+            for what, a, x in zip(("out", "d guide", "d feat"), outs["kernel"], outs["plain"]):
+                max_err = max(max_err, _check_close(
+                    f"paddle2d [{n},{h},{w}] C={c} {layout} steps={STEPS} {what}", a, x))
         guide, feat = paddle_inputs(gen, n, h, w, c)
-        ct = torch.randn(feat.shape, device="cuda", generator=gen)
-        outs = {}
-        for label, fn in (("kernel", p2.cspn2d_paddle_cuda), ("plain", cspn_ref.cspn_nd_reference)):
-            gd, ft = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
-            out = fn(gd, ft, steps=STEPS)
-            outs[label] = (out, *torch.autograd.grad(out, (gd, ft), ct))
-        torch.cuda.synchronize()
-        for what, a, x in zip(("out", "d guide", "d feat"), outs["kernel"], outs["plain"]):
-            max_err = max(max_err, _check_close(
-                f"paddle2d [{n},{h},{w}] C={c} (cspn_nd) steps={STEPS} {what}", a, x))
-        gates, x0 = p2.paddle2d_layout(guide, feat)
-        paddle = lambda: p2._launch(gates, x0, STEPS)  # noqa: E731
+        if (n, h, w, c) == PADDLE_CASES[0]:
+            for k in PADDLE_SPLITS:
+                launches_per_call(lambda: p2._launch(guide, feat, k), ("paddle2d",),
+                                  p2.cuda_launches(k), f"paddle2d at steps={k}")
+        paddle = lambda: p2._launch(guide, feat, STEPS)  # noqa: E731
+
+        def forward():
+            with torch.no_grad():
+                return cspn_nd(guide, feat, steps=STEPS)
+
+        counted, _ = launches_per_call(forward, ("paddle2d",), p2.cuda_launches(STEPS),
+                                       f"cspn_nd 2D forward [{n},{h},{w}] C={c}")
         ms, queued_ms = time_ms(paddle), time_queued_ms(paddle)
-        plain_ms = time_ms(lambda: cspn_ref.propagate_nd_reference(gates, x0, STEPS), reps=5, warmup=1)
-        px = gates.shape[0] * h * w
-        # read 8 gates + x0, write 1; 8 FMA + the centre product per step, the centre sum once
-        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, 10 * px * 4, (17 * STEPS + 8) * px)
-        log(f"  paddle2d [{gates.shape[0]},8,{h},{w}] steps={STEPS}: kernel {ms:.4f} ms "
-            f"({queued_ms:.4f} queued), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms, operations "
-            f"{ops_ms:.4f} ms) on {name}")
-        times.append((ms, plain_ms, bound_ms, bound_by, queued_ms))
-    ms, plain_ms, bound_ms, bound_by, queued_ms = times[0]  # the demo's maps: the main path's shape
+        fwd_ms, fwd_queued_ms = time_ms(forward), time_queued_ms(forward)
+        plain_ms = time_ms(lambda: p2.paddle2d_reference(guide, feat, steps=STEPS), reps=5, warmup=1)
+        px = n * c * h * w
+        # read 8 gates + x0, write 1; 8 FMA + the centre product per step, the normalization once
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(name, 10 * px * 4, (17 * STEPS + 26) * px)
+        log(f"  paddle2d [{n * c},8,{h},{w}] steps={STEPS}: kernel {ms:.4f} ms ({queued_ms:.4f} "
+            f"queued), cspn_nd's 2D forward {fwd_ms:.4f} ({fwd_queued_ms:.4f}; "
+            f"{counted} CUDA launches), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+            f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms) on {name}")
+        times.append({"ms": ms, "queued_ms": queued_ms, "cspn_nd_ms": fwd_ms,
+                      "cspn_nd_queued_ms": fwd_queued_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    main = times[0]  # the demo's maps: the main path's shape
     return {
         "name": "paddle2d",
         "route": "cuda",
@@ -1440,13 +1589,14 @@ def check_paddle2d_kernel(name: str) -> dict:
         "replaces": "cspn_tpu/ops/cspn_pallas.py:666",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes a 24-step CSPN
-        "queued_ms": queued_ms,
-        "ms_4x228x304_c2": times[1][0],
+        "queued_ms": main["queued_ms"],
+        "cuda_launches_per_call": p2.cuda_launches(STEPS),
+        "by_case": {"x".join(map(str, case)): t for case, t in zip(PADDLE_CASES, times)},
     }
 
 
@@ -1863,12 +2013,13 @@ def _same_state(a, b) -> None:
             raise AssertionError(f"resumed momentum buffer {i} differs")
 
 
-def check_against_oracle(kernel, plain, oracle) -> None:
+def check_against_oracle(kernel, plain, oracle, labels=("kernel", "plain CSPN")) -> None:
     """Raise unless a train step through the kernels agrees with the same
     step through the plain CSPN (loss within LOSS_RTOL) and each gradient
     lies within GRAD_TOL x its max of the float64 oracle's, or within
     ORACLE_FACTOR x the plain float32 step's own distance from it.  Each
-    argument is (loss, {name: gradient})."""
+    argument is (loss, {name: gradient}); `labels` name the two float32
+    steps in the log."""
     (loss_k, grads_k), (loss_r, grads_r), (_, grads_64) = kernel, plain, oracle
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
     # per tensor: |kernel - f64| within GRAD_TOL of max|f64|, or within
@@ -1889,7 +2040,7 @@ def check_against_oracle(kernel, plain, oracle) -> None:
                 worst[what] = (k, v)
         if not (d_k <= GRAD_TOL * scale or d_k <= ORACLE_FACTOR * d_r):
             failed.append(f"{k}: |kernel - f64| {d_k:.3e}, |plain - f64| {d_r:.3e}, max {scale:.3e}")
-    log(f"  one train step, kernel vs plain CSPN (deterministic cuDNN): loss {loss_k:.6f} vs "
+    log(f"  one train step, {labels[0]} vs {labels[1]} (deterministic cuDNN): loss {loss_k:.6f} vs "
         f"{loss_r:.6f} (rel {loss_rel:.2e}, tol {LOSS_RTOL:g})")
     for what, (k, v) in worst.items():
         log(f"    worst {what}: {v:.3e} ({k}){' of max|f64 grad|' if 'distance' not in what else ''}")
@@ -2704,6 +2855,139 @@ def probe_slice(name: str) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_slice(name: str) -> dict:
+    """Phase 12: nyu_train's b8 step through DistributedDataParallel on a
+    1-rank NCCL group in this process (parallel/data.py), on both routes
+    (sync-BN with the float32 reduce; per-replica BN with the bf16 reduce),
+    against the unwrapped step (train/loop.py:make_train_step) from the
+    same weights on the same batch, with deterministic cuDNN.  The sync-BN
+    route's gradients are held to the float64 oracle by phase 5's rule
+    (within ORACLE_FACTOR x the unwrapped step's distance, trap 5); the bf16
+    route's to the unwrapped step's within half a bf16 ulp (2^-8 of each
+    value: one rank reduces bf16(g) / 1).  The reduce hook's bytes: float32
+    4 x the parameters a step, bf16 half of that.  Then the three steps
+    timed in turns with their peak memory, and `bench-scaling --mode train`
+    (its one point on one card).  Returns each kernel's launches during the
+    two DDP steps compared."""
+    import torch.distributed as dist
+
+    from cspn_tpu_torch import cli
+    from cspn_tpu_torch.parallel import make_mesh
+    from cspn_tpu_torch.parallel.data import DataParallel
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.factory import build_loaders
+    from cspn_tpu_torch.train.loop import make_train_step
+    from cspn_tpu_torch.train.state import make_optimizer
+
+    cfg = _train_cfg("")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(None, 1, dist.group.WORLD)
+        frames = [build_loaders(cfg)[0].dataset[i] for i in range(cfg.data.batch_size_train)]
+        x = torch.from_numpy(np.stack([f["rgbd"] for f in frames])).cuda()
+        models, steps, dps = {}, {}, {}
+        for label in ("unwrapped", "sync", "bf16", "float64"):
+            model = build_model(cfg, train=True, device="cuda", seed=0)
+            if label == "float64":
+                model = model.double()
+                model.cspn_backend = "reference"
+            models[label] = model
+            if label in ("sync", "bf16"):
+                dps[label] = DataParallel(model, mesh, None if label == "sync" else "bfloat16")
+            steps[label] = make_train_step(model, make_optimizer(model.parameters()),
+                                           data_parallel=dps.get(label))
+        n_params = sum(p.numel() for p in models["unwrapped"].parameters())
+        # ground truth 1 to 2 above or below the prediction (no L1 sign flip under rounding)
+        state = {k: v.clone() for k, v in models["unwrapped"].state_dict().items()}
+        with torch.no_grad():
+            pred = models["unwrapped"](x)
+        models["unwrapped"].load_state_dict(state)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        side = torch.where(torch.rand(pred.shape, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+        depth = pred + side * (1.0 + torch.rand(pred.shape, device="cuda", generator=gen))
+        results = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            for label in ("sync", "bf16"):
+                loss, _ = steps[label](x, depth)
+                results[label] = (loss.item(), {k: p.grad.clone() for k, p in
+                                                models[label].named_parameters()})
+            torch.cuda.synchronize()
+            launches = read_launches()
+            for label in ("unwrapped", "float64"):
+                dt = next(models[label].parameters()).dtype
+                loss, _ = steps[label](x.to(dt), depth.to(dt))
+                results[label] = (loss.item(), {k: p.grad for k, p in
+                                                models[label].named_parameters()})
+        finally:
+            torch.backends.cudnn.deterministic = False
+        per_fwd = d2s_per_forward(models["unwrapped"])
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=2, cspn2d_bwd=2,
+                        d2s=2 * per_fwd, s2d=2 * per_fwd)
+        log(f"  nyu_train b8 through DDP (1-rank NCCL group): launches {launches} over the two "
+            f"routes' steps (expected {expected})")
+        if launches != expected:
+            raise AssertionError(f"the DDP steps launched {launches}, expected {expected}")
+        check_against_oracle(results["sync"], results["unwrapped"], results["float64"],
+                             ("DDP sync-BN", "unwrapped"))
+        loss_b, grads_b = results["bf16"]
+        loss_u, grads_u = results["unwrapped"]
+        worst = max(((grads_b[k] - g).abs() / g.abs().clamp_min(1e-30)).max().item()
+                    for k, g in grads_u.items() if g.abs().max() > 0)
+        off = [k for k, g in grads_u.items() if not ((grads_b[k] - g).abs() <= 2.0 ** -8 * g.abs()).all()]
+        loss_rel = abs(loss_b - loss_u) / abs(loss_u)
+        log(f"  bf16 route against the unwrapped step: loss {loss_b:.6f} vs {loss_u:.6f} (rel "
+            f"{loss_rel:.2e}), worst gradient element {worst:.3e} of its value (tol 2^-8 = "
+            f"{2.0 ** -8:.3e}, half a bf16 ulp)")
+        if off or not loss_rel <= LOSS_RTOL:
+            raise AssertionError(f"bf16-route gradients off the unwrapped step's by more than "
+                                 f"bf16 rounding: {off[:5]}, loss rel {loss_rel:.2e}")
+        for label, want in (("sync", {"float32": 4 * n_params}),
+                            ("bf16", {"float32": 4 * n_params, "bfloat16": 2 * n_params})):
+            got = dict(dps[label].hook.bytes)
+            log(f"  {label} route: the reduce hook's bytes for one step {got} ({n_params} "
+                "parameters)")
+            if got != want:
+                raise AssertionError(f"{label} route reduced {got}, expected {want}")
+        del results, grads_b, grads_u, models["float64"]
+
+        times = {label: [] for label in ("unwrapped", "sync", "bf16")}
+        peaks = {}
+        for label in ("unwrapped", "sync", "bf16", "bf16", "sync", "unwrapped"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times[label].append(time_ms(functools.partial(steps[label], x, depth), reps=5,
+                                        warmup=1))
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        for label, ts in times.items():
+            log(f"  train step {label} (batch 8, median of 5, CUDA events, in turns U S B B S U): "
+                f"{ts[0]:.3f} / {ts[1]:.3f} ms; peak device memory {peaks[label]:.2f} GiB on {name}")
+        del models, steps, dps
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(["bench-scaling", "--mode", "train"])
+    records = args.fn(args)
+    log(f"  bench-scaling --mode train: {records} ({time.perf_counter() - t0:.1f} s, the spawned "
+        "rank included)")
+    if not (len(records) == 1 and records[0]["devices"] == 1 and records[0]["frames_per_s"] > 0
+            and records[0]["device"] == name):
+        raise AssertionError(f"bench-scaling on one card gave {records}")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
@@ -2728,7 +3012,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/11] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/12] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -2736,9 +3020,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/11] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/12] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/11] kernels against their plain versions")
+    log("[3/12] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -2750,33 +3034,36 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/11] nyu_eval served through DepthServer")
+    log("[4/12] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/11] nyu_train trained through Trainer.fit")
+    log("[5/12] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/11] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/12] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/11] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/12] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/11] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/12] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/11] kitti_benchmark trained through Trainer.fit")
+    log("[9/12] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/11] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/12] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/11] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/12] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
+
+    log("[12/12] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    by_path["ddp"] = ddp_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

@@ -7,14 +7,18 @@
         --batch-size 4 --height 256 --width 512 [--train-list scene_flow.csv]
     python -m cspn_tpu_torch eval-stereo ... [--checkpoint best_model] [--dump-images]
     python -m cspn_tpu_torch demo --dim-num 2 [--prop-step 24 --batch-size 3 --iter-num 20]
+    torchrun --nproc-per-node N -m cspn_tpu_torch train --mesh-data N [--grad-reduce-dtype bfloat16] ...
+    python -m cspn_tpu_torch bench-scaling --mode train|eval|stereo [--force-cpu-devices N]
 
 All run on `--device` (default cuda).  The stereo subcommands train on the
 synthetic stereo pairs unless --train-list names a Scene Flow manifest.
+`train` and `train-stereo` train data-parallel when a launcher (torchrun)
+starts them as ranks of a process group (parallel/distributed.py): one
+card a rank, `--mesh-data` x `--mesh-spatial` ranks (train/loop.py).
 The NYU/KITTI file datasets, export
-and the other subcommands wait for later slices (ROADMAP.md Queue 1), as do
-the train flags that raise: --dtype other than float32 (Queue 1 item 3),
---grad-reduce-dtype and a --mesh-* larger than 1 (item 2, data-parallel
-training).  --tf32 computes float32 convolutions in TF32 (default off).
+and the other subcommands wait for later slices (ROADMAP.md Queue 1), as
+does --dtype other than float32 (Queue 1 item 3), which raises.  --tf32
+computes float32 convolutions in TF32 (default off).
 """
 
 from __future__ import annotations
@@ -74,9 +78,13 @@ def _add_train_overrides(p: argparse.ArgumentParser):
                    choices=["bfloat16"],
                    help="store the SGD momentum in this dtype (update math stays f32)")
     p.add_argument("--grad-reduce-dtype", dest="grad_reduce_dtype", default=None,
-                   choices=["bfloat16"], help="not ported (raises)")
-    p.add_argument("--mesh-data", type=int, default=None, help="only 1 is ported")
-    p.add_argument("--mesh-spatial", type=int, default=1, help="only 1 is ported")
+                   choices=["bfloat16"],
+                   help="data-parallel gradient reduce in this dtype, with per-replica BN "
+                        "(default: float32 with sync-BN)")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel ranks (default: every rank of the process group)")
+    p.add_argument("--mesh-spatial", type=int, default=1,
+                   help="spatial axis of the mesh: replicates the step, as the JAX Trainer")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run to this dir")
 
@@ -129,10 +137,12 @@ def _build_config(args):
 def cmd_train(args):
     import contextlib
 
+    from cspn_tpu_torch.parallel.distributed import initialize_multihost
     from cspn_tpu_torch.train.factory import build_loaders
     from cspn_tpu_torch.train.loop import Trainer
     from cspn_tpu_torch.utils.profiling import trace
 
+    initialize_multihost()  # under torchrun: this rank's process group
     cfg = _build_config(args)
     train_loader, val_loader = build_loaders(cfg)
     pretrained = None
@@ -223,8 +233,10 @@ def cmd_train_stereo(args):
     """Train the PSMNet + 3D-CSPN stereo model on Scene Flow manifests
     (--train-list/--eval-list CSVs with left,right,disp columns; disparity
     as PFM) or on the synthetic stereo pairs."""
+    from cspn_tpu_torch.parallel.distributed import initialize_multihost
     from cspn_tpu_torch.train.stereo_loop import StereoTrainer
 
+    initialize_multihost()  # under torchrun: this rank's process group
     cfg, train_loader, val_loader = _build_stereo(args)
     return StereoTrainer(cfg, train_loader, val_loader, device=args.device, tf32=args.tf32).fit()
 
@@ -266,6 +278,24 @@ def cmd_demo(args):
         losses.append(loss.item())
         print(f"iter={i:02d}  out={losses[-1]:.4f}", flush=True)
     return losses
+
+
+def cmd_bench_scaling(args):
+    """Throughput against the data axis' size (utils/scaling.py); one JSON
+    line a mesh size.  --force-cpu-devices N: N gloo ranks on the CPU (the
+    mechanics, not scaling), as the JAX package's virtual CPU mesh."""
+    import json
+
+    from cspn_tpu_torch.utils.scaling import run_scaling_bench
+
+    cpu = args.force_cpu_devices > 0
+    records = run_scaling_bench(
+        arch=args.model, hw=(args.height, args.width), batch_per_device=args.batch_per_device,
+        cspn_steps=args.cspn_step, mode=args.mode, spatial=args.mesh_spatial_bench,
+        max_devices=args.force_cpu_devices if cpu else None, device="cpu" if cpu else "cuda")
+    for r in records:
+        print(json.dumps(r), flush=True)
+    return records
 
 
 def _add_stereo_args(p: argparse.ArgumentParser):
@@ -336,6 +366,21 @@ def build_parser() -> argparse.ArgumentParser:
     p_demo.add_argument("--iter-num", type=int, default=20)
     p_demo.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p_demo.set_defaults(fn=cmd_demo)
+
+    p_sc = sub.add_parser("bench-scaling",
+                          help="throughput vs mesh size (DP weak scaling; one JSON line per size)")
+    p_sc.add_argument("--model", default="resnet18")
+    p_sc.add_argument("--height", type=int, default=228)
+    p_sc.add_argument("--width", type=int, default=304)
+    p_sc.add_argument("--batch-per-device", type=int, default=4)
+    p_sc.add_argument("--cspn-step", type=int, default=24)
+    p_sc.add_argument("--mode", default="train", choices=["train", "eval", "stereo"],
+                      help="stereo = DP weak scaling of the stereo trainer")
+    p_sc.add_argument("--mesh-spatial-bench", type=int, default=1,
+                      help="spatial axis size (halo-exchange CSPN) per mesh")
+    p_sc.add_argument("--force-cpu-devices", type=int, default=0,
+                      help="N>0: N gloo ranks on the CPU (default: one card a rank)")
+    p_sc.set_defaults(fn=cmd_bench_scaling)
     return parser
 
 

@@ -1,9 +1,10 @@
 // The column march of the 2D CSPN's tile kernels.  Forward (march_tile):
 // cspn2d_tiled.cu (the tiled forward, PERF row 3), cspn2d_fwd.cu (the
 // forward that keeps its states, PERF row 1), the replay of cspn2d_bwd.cu
-// (PERF row 2) and both routes of the sharded segment, cspn2d_halo_seg.cu
-// (PERF row 4); as its adjoint: the reverse tiles of cspn2d_bwd.cu and
-// cspn2d_halo_seg_bwd.cu (cspn2d_reverse.cuh).
+// (PERF row 2), both routes of the sharded segment, cspn2d_halo_seg.cu
+// (PERF row 4), and with the centre tap (kCentre) the paddle-semantics 2D
+// CSPN, paddle2d.cu (PERF row 6); as its adjoint: the reverse tiles of
+// cspn2d_bwd.cu and cspn2d_halo_seg_bwd.cu (cspn2d_reverse.cuh).
 // See those files for the function each computes.
 //
 // One block of kMarchThreads threads owns one kExt x kExt extended tile of
@@ -20,7 +21,8 @@
 // else of the state touches shared memory.
 //
 // Why the interior is exact.  A cell of the extended tile that lies outside
-// the image has gates and base 0, so it stays exactly 0 at every step: that
+// the image has gates and base (with the centre tap: centre weight) 0, so
+// it stays exactly 0 at every step: that
 // is the reference's zero padding at the image border.  A cell inside the
 // image but on the extended tile's edge reads zeros in place of its true
 // neighbours (lanes 0 and 31 and warps 0 and kWarps - 1 see a ring of
@@ -55,11 +57,13 @@ struct Exchange {
 
 // One step on the registers of one thread.  Forward (kAdjoint false):
 //   x'[p] = sum_d g_d[p] x[p + off_d] + e[p]
+// with the centre tap (kCentre, e[p] the centre weight c[p]):
+//   x'[p] = sum_d g_d[p] x[p + off_d] + c[p] x[p]
 // adjoint (g_d[q] holding the transposed gate G_d[q - off_d], e unused):
 //   x'[q] = sum_d g_d[q] x[q - off_d]
-// the FMA chain in reference gate order d = 0..7, starting from e (forward)
-// or 0 (adjoint); a neighbour outside the image adds g * 0.
-template <bool kAdjoint>
+// the FMA chain in reference gate order d = 0..7, starting from e (forward),
+// c x (centre tap) or 0 (adjoint); a neighbour outside the image adds g * 0.
+template <bool kAdjoint, bool kCentre = false>
 __device__ __forceinline__ void march_step(const float (&g)[kRows][2][8], const float (&e)[kRows][2],
                                            float (&x)[kRows][2], Exchange& ex, int buf, int warp,
                                            int lane) {
@@ -85,7 +89,7 @@ __device__ __forceinline__ void march_step(const float (&g)[kRows][2][8], const 
   for (int r = 0; r < kRows; ++r) {
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      float acc = kAdjoint ? 0.0f : e[r][c];
+      float acc = kAdjoint ? 0.0f : kCentre ? e[r][c] * win[r + 1][c + 1] : e[r][c];
 #pragma unroll
       for (int d = 0; d < 8; ++d) {
         const int sy = kAdjoint ? -ref_dy(d) : ref_dy(d);
@@ -115,8 +119,12 @@ __host__ __device__ constexpr int tile_launches(int steps) {
 //   kFolded: gather-form gates and base, as they are (the folded copy a
 //     first launch stored, or the halo segment's gates without keep);
 //   kKeep: the halo segment's gather-form gates, base and keep, with
-//     keep * gate_d (keep is 0, 1 or 2, so the product is exact).
-enum class Load { kRaw, kFolded, kKeep };
+//     keep * gate_d (keep is 0, 1 or 2, so the product is exact);
+//   kPaddle: the paddle 2D CSPN's raw per-pixel guide in the caller's
+//     layout (paddle_pixel): gates |g_d| / max(sum |g|, 1e-12) in reference
+//     order, and the centre weight c = 1 - sum_d w_d in e; every step with
+//     the centre tap (march_step's kCentre), x in the caller's layout.
+enum class Load { kRaw, kFolded, kKeep, kPaddle };
 
 // What one launch of march_tile reads and writes.
 struct MarchArgs {
@@ -133,7 +141,77 @@ struct MarchArgs {
   float* states;      // kStates: [total - 1,N,H,W], x_t in states[t - 1]
   long long plane;    // N*H*W, the stride of states
   int h, w, k, t0, total, norm_abs;
+  // kPaddle: x_in, x_out and the guide in `gates` in the caller's layout
+  // (paddle_layout): map m = n C + ch of C = chans channels, channel-last
+  // ([N,H,W,C], guide [N,H,W,C*8]) or channel-first ([N,C,H,W], guide
+  // [N,C*8,H,W]).
+  int chans, channel_last;
 };
+
+// Where map m of a kPaddle launch lies in the caller's layout: x of pixel
+// p at x + x_off + p * ps; raw gate d (raster order) of pixel p at gates +
+// g_off + p * gps + d * gds.
+struct PaddleLayout {
+  long long x_off, g_off;
+  int ps, gps, gds;
+};
+
+__device__ __forceinline__ PaddleLayout paddle_layout(const MarchArgs& a, long long m, int hw) {
+  const long long n = m / a.chans, ch = m % a.chans;
+  if (a.channel_last) return {n * hw * a.chans + ch, (n * hw * a.chans + ch) * 8, a.chans,
+                              8 * a.chans, 1};
+  return {m * hw, m * 8 * hw, 1, 1, hw};
+}
+
+// x[i, j] of a map whose pixels lie ps floats apart, 0 outside it
+// (load_or_zero's clamped, unconditional load).
+__device__ __forceinline__ float load_or_zero_px(const float* img, int i, int j, int h, int w,
+                                                 int ps) {
+  const float v =
+      __ldg(img + ((long long)min(max(i, 0), h - 1) * w + min(max(j, 0), w - 1)) * ps);
+  return inside(i, j, h, w) ? v : 0.0f;
+}
+
+// Pixel (i, j)'s raw paddle gates (raster order, neighbor_offsets(2, 3):
+// (-1,-1) (-1,0) (-1,1) (0,-1) (0,1) (1,-1) (1,0) (1,1), the exact reverse
+// of the reference order) into g in reference order, normalized: w_d =
+// |g_d| * (1 / max(sum |g|, 1e-12)) (one reciprocal, not 8 divisions:
+// within 2 ulp of the quotient), summed in raster order; returns the
+// centre weight 1 - sum_d w_d.  Outside the image: gates and centre 0.
+// vec: a pixel's 8 gates are 8 floats in a row, 16-byte aligned (the
+// channel-last guide), read as two float4s.
+__device__ __forceinline__ float paddle_pixel(const float* g_map, const PaddleLayout& l, int i,
+                                              int j, int h, int w, bool vec, float (&g)[8]) {
+  const float* at =
+      g_map + ((long long)min(max(i, 0), h - 1) * w + min(max(j, 0), w - 1)) * l.gps;
+  float raw[8];
+  if (vec) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(at));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(at) + 1);
+    raw[0] = lo.x, raw[1] = lo.y, raw[2] = lo.z, raw[3] = lo.w;
+    raw[4] = hi.x, raw[5] = hi.y, raw[6] = hi.z, raw[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int d = 0; d < 8; ++d) raw[d] = __ldg(at + (long long)d * l.gds);
+  }
+  float sum = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    raw[d] = fabsf(raw[d]);
+    sum = __fadd_rn(sum, raw[d]);
+  }
+  const float inv = __frcp_rn(fmaxf(sum, 1e-12f));
+  float wsum = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    raw[d] = __fmul_rn(raw[d], inv);
+    wsum = __fadd_rn(wsum, raw[d]);
+  }
+  const bool in = inside(i, j, h, w);
+#pragma unroll
+  for (int d = 0; d < 8; ++d) g[7 - d] = in ? raw[d] : 0.0f;
+  return in ? __fsub_rn(1.0f, wsum) : 0.0f;
+}
 
 // Stores a thread's kRows x 2 pixels (image rows i0.., columns j0, j0 + 1)
 // into an [H,W] plane, the part inside the image; a float2 a row where the
@@ -151,6 +229,21 @@ __device__ __forceinline__ void store_pairs(float* img, const float (&x)[kRows][
     } else {
       if (j0 < w) row[j0] = x[r][0];
       if (j0 + 1 < w) row[j0 + 1] = x[r][1];
+    }
+  }
+}
+
+// store_pairs into a map whose pixels lie ps floats apart (the paddle 2D
+// CSPN's caller layout), one float a store.
+__device__ __forceinline__ void store_pairs_px(float* img, const float (&x)[kRows][2], int i0,
+                                               int j0, int h, int w, int ps) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = i0 + r;
+    if (i >= h) break;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (j0 + c < w) img[((long long)i * w + j0 + c) * ps] = x[r][c];
     }
   }
 }
@@ -178,8 +271,13 @@ __device__ __forceinline__ void store_folded(const MarchArgs& a, long long map, 
 //   kStates: after step t (t = t0 + 1 .. t0 + k) the interior's threads
 //     store x_t into states[t - 1] (t < total) or x_out (t = total): stores
 //     that nothing waits for, so they overlap the next step.
+// kPaddle (the paddle 2D CSPN): each step has the centre tap (march_step's
+// kCentre), e holding the centre weight; x_in and x_out lie in the
+// caller's layout (paddle_layout).
 template <Load kLoad, bool kStates>
 __device__ __forceinline__ void march_tile(const MarchArgs& a) {
+  constexpr bool kCentre = kLoad == Load::kPaddle;
+  static_assert(!kCentre || !kStates, "the centre-tap march keeps no states");
   __shared__ Exchange ex;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int h = a.h, w = a.w, hw = h * w;
@@ -187,9 +285,23 @@ __device__ __forceinline__ void march_tile(const MarchArgs& a) {
   const int er0 = warp * kRows, ec0 = 2 * lane;          // extended row and column of own (0, 0)
   const int i0 = blockIdx.y * kTile - kHalo + er0;      // their image row
   const int j0 = blockIdx.x * kTile - kHalo + ec0;      // and column
-  const float* x_img = a.x_in + map * hw;
+  PaddleLayout lay{};
+  if constexpr (kCentre) lay = paddle_layout(a, map, hw);
+  const float* x_img = a.x_in + (kCentre ? lay.x_off : map * hw);
   float g[kRows][2][8], e[kRows][2], x[kRows][2];
-  if constexpr (kLoad == Load::kRaw) {
+  if constexpr (kLoad == Load::kPaddle) {
+    const float* g_map = a.gates + lay.g_off;
+    const bool vec_g = lay.gds == 1 && (reinterpret_cast<uintptr_t>(a.gates) & 15) == 0;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = i0 + r, j = j0 + c;
+        e[r][c] = paddle_pixel(g_map, lay, i, j, h, w, vec_g, g[r][c]);
+        x[r][c] = load_or_zero_px(x_img, i, j, h, w, lay.ps);
+      }
+    }
+  } else if constexpr (kLoad == Load::kRaw) {
     const float* g_img = a.gates + map * 8 * hw;
     const float* blur_img = a.base + map * hw;
     const float* sparse_img = a.mask != nullptr ? a.mask + map * hw : nullptr;
@@ -255,14 +367,18 @@ __device__ __forceinline__ void march_tile(const MarchArgs& a) {
                    ((reinterpret_cast<uintptr_t>(a.states) | reinterpret_cast<uintptr_t>(a.x_out)) &
                     7) == 0;
   for (int s = 0; s < a.k; ++s) {
-    march_step<false>(g, e, x, ex, s & 1, warp, lane);
+    march_step<false, kCentre>(g, e, x, ex, s & 1, warp, lane);
     if (kStates && own) {
       const int t = a.t0 + s + 1;
       float* dst = t < a.total ? a.states + (long long)(t - 1) * a.plane : a.x_out;
       store_pairs(dst + map * hw, x, i0, j0, h, w, vec);
     }
   }
-  if (!kStates && own) store_pairs(a.x_out + map * hw, x, i0, j0, h, w, false);
+  if constexpr (kCentre) {
+    if (own) store_pairs_px(a.x_out + lay.x_off, x, i0, j0, h, w, lay.ps);
+  } else {
+    if (!kStates && own) store_pairs(a.x_out + map * hw, x, i0, j0, h, w, false);
+  }
 }
 
 using MarchKernel = void (*)(MarchArgs);

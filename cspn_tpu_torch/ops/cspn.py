@@ -129,7 +129,9 @@ def cspn_nd(
         if ndim == 2 and kernel_size == 3:
             from cspn_tpu_torch.ops.cspn_paddle2d_cuda import cspn2d_paddle_cuda
 
-            return cspn2d_paddle_cuda(guide, feat, steps=steps, channel_first=channel_first)
+            # the kernel reads either layout as it lies; a view is copied first
+            return cspn2d_paddle_cuda(guide.contiguous(), feat.contiguous(), steps=steps,
+                                      channel_first=channel_first)
         if backend == "kernel":
             raise NotImplementedError(f"no CSPN kernel for {ndim}D with kernel_size {kernel_size}")
     g = guide.movedim(1, -1) if channel_first else guide

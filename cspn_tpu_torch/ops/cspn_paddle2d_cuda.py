@@ -2,24 +2,27 @@
 cspn_tpu/ops/cspn_pallas.py:_cspn2d_paddle_vjp and its _paddle2d_kernel,
 cspn_nd's 2D branch).
 
-The kernel is hand-written CUDA C++ in csrc/paddle2d.cu (the paddle
-instantiation of the K-step tile stencil of csrc/cspn2d_tile.cuh; its
-header says what bounds it), built by ops/_build.py and called through
-ctypes on PyTorch's current stream.  It runs `steps` propagation steps on
-fixed normalized gates; `paddle2d_layout` puts the guide and features into
-its layout in PyTorch (abs, per-channel sum-normalization with the
-max(., 1e-12) guard, the C channels folded into the maps, raster gate
-order), as JAX does in XLA around its kernel (cspn_pallas.py:709-718).
+The kernel is hand-written CUDA C++ in csrc/paddle2d.cu (the 2D CSPN's
+column march of csrc/cspn2d_march.cuh with a centre tap; its header says
+what bounds it), built by ops/_build.py and called through ctypes on
+PyTorch's current stream.  It reads the raw guide and the features in
+cspn_nd's own 2D layouts and writes the output in the same layout: the
+gates' abs, per-channel sum-normalization with the max(., 1e-12) guard,
+the centre weight and the gate order's reversal happen in registers as it
+loads, where JAX runs them in XLA around its kernel
+(cspn_pallas.py:709-718).  So on the card cspn_nd's 2D forward is the
+kernel's launches and nothing else.
 
-`propagate2d` is the kernel's wrapper.  A tensor on the CPU goes to the
-plain version (ops/cspn_ref.py:propagate_nd_reference) because it lies on
-the CPU; a CUDA tensor goes to the kernel or raises.  The backward is
-autograd of that plain version on the same device, as JAX rematerializes
-its gradient through its XLA reference (cspn_pallas.py:757-766): the only
-backward this function has on any device, not a fallback.
+`cspn2d_paddle_cuda` is the kernel's wrapper.  A tensor on the CPU goes to
+the plain version (`paddle2d_reference`, ops/cspn_ref.py:cspn_nd_reference)
+because it lies on the CPU; a CUDA tensor goes to the kernel or raises.
+The backward is autograd of that plain version at the saved raw guide and
+features, on their device, as JAX rematerializes its gradient through its
+XLA reference (cspn_pallas.py:757-766): the only backward this function
+has on any device, not a fallback.
 
-`launches` counts the kernel's runs (one per forward: ceil(steps / 8)
-tile launches on the card).
+`launches` counts the kernel's runs (one per forward: `cuda_launches(steps)`
+march launches on the card).
 """
 
 from __future__ import annotations
@@ -29,68 +32,74 @@ import torch
 from cspn_tpu_torch.ops import cspn_ref
 
 N_GATES = 8
-# csrc/cspn2d_tile.cuh: kTile (interior side) and kHalo (steps a launch)
-TILE, HALO = 32, 8
+STEPS_PER_LAUNCH = 12  # csrc/cspn2d_march.cuh: kHalo
 
 launches = 0
 
 
-def paddle2d_layout(guide: torch.Tensor, feat: torch.Tensor, channel_first: bool = False):
-    """The kernel's inputs from cspn_nd's 2D arguments.
+def cuda_launches(steps: int) -> int:
+    """The CUDA launches of one forward: ceil(steps / 12), none at 0 steps
+    (a device-to-device copy)."""
+    return -(-steps // STEPS_PER_LAUNCH) if steps > 0 else 0
 
-    Args:
-        guide: [N, H, W, C*8] raw guidance (or [N, C*8, H, W] with
-            channel_first=True), each channel's 8 gates in paddle raster
-            order (neighbor_offsets(2, 3)).
-        feat: [N, H, W, C] (or [N, C, H, W]).
-    Returns (gates [N*C, 8, H, W] normalized, raster order; x0 [N*C, H, W]),
-    both contiguous, differentiable in guide and feat.
-    """
-    g = guide if channel_first else guide.movedim(-1, 1)
-    f = feat if channel_first else feat.movedim(-1, 1)
-    if f.ndim != 4 or g.ndim != 4:
+
+def _check_args(guide: torch.Tensor, feat: torch.Tensor, channel_first: bool) -> tuple:
+    """(N, C, H, W) of cspn_nd's 2D arguments; raises on others."""
+    if feat.ndim != 4 or guide.ndim != 4:
         raise ValueError(f"2D CSPN takes 4-d guide and feat, got {tuple(guide.shape)}, "
                          f"{tuple(feat.shape)}")
-    c = f.shape[1]
-    if g.shape[1] != c * N_GATES:
-        raise ValueError(f"guide channels {g.shape[1]} != C*8 = {c * N_GATES}")
-    gates = cspn_ref.normalize_gates_nd(g.movedim(1, -1), N_GATES)  # [N,H,W,C,8]
-    gates = gates.permute(0, 3, 4, 1, 2).flatten(0, 1).contiguous()  # [N*C,8,H,W]
-    return gates, f.flatten(0, 1).contiguous()
+    if channel_first:
+        n, c, h, w = feat.shape
+        want = (n, c * N_GATES, h, w)
+    else:
+        n, h, w, c = feat.shape
+        want = (n, h, w, c * N_GATES)
+    if tuple(guide.shape) != want:
+        raise ValueError(f"guide {tuple(guide.shape)} must be {want}: C*8 = {c * N_GATES} "
+                         "gate channels on feat's map")
+    return n, c, h, w
 
 
-def _check_inputs(gates, x0):
-    if gates.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {gates.device}")
-    if gates.ndim != 4 or gates.shape[1] != N_GATES:
-        raise ValueError(f"gates must be [M,8,H,W], got {tuple(gates.shape)}")
-    m, _, h, w = gates.shape
-    if m > 65535:
-        raise ValueError(f"{m} maps exceed the kernel's grid limit 65535")
-    for name, t in (("gates", gates), ("x0", x0)):
-        if t.device != gates.device:
-            raise ValueError(f"{name} on {t.device}, gates on {gates.device}")
+def paddle2d_reference(guide: torch.Tensor, feat: torch.Tensor, *, steps: int = 24,
+                       channel_first: bool = False) -> torch.Tensor:
+    """The kernel's plain version: cspn_nd_reference in the caller's layout."""
+    _check_args(guide, feat, channel_first)
+    if channel_first:
+        guide, feat = guide.movedim(1, -1), feat.movedim(1, -1)
+    out = cspn_ref.cspn_nd_reference(guide, feat, kernel_size=3, steps=steps)
+    return out.movedim(-1, 1) if channel_first else out
+
+
+def _check_inputs(guide, feat, channel_first: bool) -> tuple:
+    if guide.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {guide.device}")
+    n, c, h, w = _check_args(guide, feat, channel_first)
+    if n * c > 65535:
+        raise ValueError(f"{n * c} maps exceed the kernel's grid limit 65535")
+    for name, t in (("guide", guide), ("feat", feat)):
+        if t.device != guide.device:
+            raise ValueError(f"{name} on {t.device}, guide on {guide.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tuple(x0.shape) != (m, h, w):
-        raise ValueError(f"x0 must be [{m},{h},{w}], got {tuple(x0.shape)}")
+    return n, c, h, w
 
 
-def _launch(gates, x0, steps: int) -> torch.Tensor:
-    """Run the kernel on checked inputs; returns [M, H, W] f32."""
+def _launch(guide, feat, steps: int, channel_first: bool = False) -> torch.Tensor:
+    """Run the kernel on checked inputs; returns feat's shape and layout, f32."""
     global launches
     from cspn_tpu_torch.ops import _build
 
+    n, c, h, w = _check_inputs(guide, feat, channel_first)
     lib = _build.load("paddle2d")
-    m, _, h, w = gates.shape
-    out = torch.empty_like(x0)
-    x_scratch = torch.empty_like(x0)
-    with torch.cuda.device(gates.device):  # the runtime launches on the current device
+    out = torch.empty_like(feat)
+    x_scratch = torch.empty_like(feat)
+    with torch.cuda.device(guide.device):  # the runtime launches on the current device
         err = lib.paddle2d_f32(
-            gates.data_ptr(), x0.data_ptr(), out.data_ptr(), x_scratch.data_ptr(),
-            m, h, w, int(steps), TILE, HALO, torch.cuda.current_stream(gates.device).cuda_stream,
+            guide.data_ptr(), feat.data_ptr(), out.data_ptr(), x_scratch.data_ptr(),
+            n, c, h, w, int(steps), int(not channel_first),
+            torch.cuda.current_stream(guide.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"paddle2d_f32 launch failed: cudaError_t {err}")
@@ -98,38 +107,25 @@ def _launch(gates, x0, steps: int) -> torch.Tensor:
     return out
 
 
-class _Propagate2d(torch.autograd.Function):
+class _Paddle2d(torch.autograd.Function):
     """Forward: the CUDA kernel.  Backward: autograd of the plain version at
-    the saved inputs, on their device (JAX's remat backward)."""
+    the saved raw guide and features, on their device (JAX's remat
+    backward)."""
 
     @staticmethod
-    def forward(ctx, gates, x0, steps):
-        ctx.save_for_backward(gates, x0)
-        ctx.steps = steps
-        return _launch(gates, x0, steps)
+    def forward(ctx, guide, feat, steps, channel_first):
+        ctx.save_for_backward(guide, feat)
+        ctx.steps, ctx.channel_first = steps, channel_first
+        return _launch(guide, feat, steps, channel_first)
 
     @staticmethod
     def backward(ctx, grad_out):
-        gates, x0 = ctx.saved_tensors
+        guide, feat = ctx.saved_tensors
         with torch.enable_grad():
-            g, x = gates.detach().requires_grad_(True), x0.detach().requires_grad_(True)
-            y = cspn_ref.propagate_nd_reference(g, x, ctx.steps)
-            dg, dx = torch.autograd.grad(y, (g, x), grad_out, allow_unused=True)
-        return torch.zeros_like(gates) if dg is None else dg, dx, None  # steps=0: y is x
-
-
-def propagate2d(gates: torch.Tensor, x0: torch.Tensor, *, steps: int = 24) -> torch.Tensor:
-    """`steps` paddle 2D propagation steps on fixed normalized gates.
-
-    Args:
-        gates: [M, 8, H, W] per-pixel gates in neighbor_offsets(2, 3) order.
-        x0: [M, H, W].
-    Returns [M, H, W], differentiable in gates and x0.
-    """
-    if gates.device.type == "cpu":
-        return cspn_ref.propagate_nd_reference(gates, x0, steps)
-    _check_inputs(gates, x0)
-    return _Propagate2d.apply(gates, x0, steps)
+            g, f = guide.detach().requires_grad_(True), feat.detach().requires_grad_(True)
+            y = paddle2d_reference(g, f, steps=ctx.steps, channel_first=ctx.channel_first)
+            dg, df = torch.autograd.grad(y, (g, f), grad_out, allow_unused=True)
+        return torch.zeros_like(guide) if dg is None else dg, df, None, None  # steps=0: y is f
 
 
 def cspn2d_paddle_cuda(
@@ -139,11 +135,11 @@ def cspn2d_paddle_cuda(
     steps: int = 24,
     channel_first: bool = False,
 ) -> torch.Tensor:
-    """Multi-step 2D CSPN module (paddle demo semantics, demo.py:20-54):
-    `paddle2d_layout`, then `steps` kernel steps.  Takes and returns
-    cspn_nd's 2D layout (feat [N, H, W, C], or [N, C, H, W] with
-    channel_first=True), float32."""
-    gates, x0 = paddle2d_layout(guide, feat, channel_first)
-    n, c = feat.shape[0], (feat.shape[1] if channel_first else feat.shape[-1])
-    out = propagate2d(gates, x0, steps=steps).unflatten(0, (n, c))
-    return out if channel_first else out.movedim(1, -1)
+    """Multi-step 2D CSPN module (paddle demo semantics, demo.py:20-54) in
+    cspn_nd's 2D layout: guide [N, H, W, C*8] raw, each channel's 8 gates in
+    paddle raster order (neighbor_offsets(2, 3)), and feat [N, H, W, C]; or
+    [N, C*8, H, W] and [N, C, H, W] with channel_first=True.  Returns feat's
+    shape, float32, differentiable in guide and feat."""
+    if guide.device.type == "cpu":
+        return paddle2d_reference(guide, feat, steps=steps, channel_first=channel_first)
+    return _Paddle2d.apply(guide, feat, steps, channel_first)

@@ -1,9 +1,15 @@
-"""The spatial mesh (counterpart of cspn_tpu/parallel/mesh.py:make_mesh).
+"""The device mesh (counterpart of cspn_tpu/parallel/mesh.py: make_mesh,
+shard_batch, replicate).
 
-The JAX package shards image rows (or cost-volume depth) over the
-'spatial' axis of a `jax.sharding.Mesh` and exchanges halo rows with
-`lax.ppermute`.  Here a `Mesh` says where the S row blocks live, and moves
-rows between them:
+The JAX package lays its devices out as a `jax.sharding.Mesh` of D x S:
+the batch is sharded over the 'data' axis (data parallelism), and image
+rows (or cost-volume depth) over the 'spatial' axis, with halo rows
+exchanged by `lax.ppermute`.  Here a `Mesh` of a process group of D x S
+ranks (rank r at data index r // S and spatial index r % S, as JAX
+reshapes its devices) says which rows of a global batch this rank holds
+(`shard_batch`; the D ranks of one spatial index form `data_group`, over
+which DistributedDataParallel reduces), and where the S row blocks live,
+and moves rows between them:
 
   - in process (`make_mesh(spatial=S)`): the S blocks live on the caller's
     device, stacked along the batch dimension (block-major: block s holds
@@ -23,14 +29,14 @@ rows between them:
     backward gathers the row blocks' cotangents and the gather's backward
     keeps this rank's rows, so every rank ends with the full gradient.
 
-Rows are dimension 1 of every tensor the mesh moves.  A data axis larger
-than 1 is data parallelism, not ported yet (ROADMAP.md Queue 1 item 2,
-DDP); `shard_batch` and `replicate` belong to it.
+Rows are dimension 1 of every tensor the mesh moves.  A mesh without a
+process group holds one data index (D = 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -39,10 +45,18 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """S = `spatial` row blocks, in this process (`group` None) or one per
-    rank of the torch.distributed process group `group`."""
+    rank of the torch.distributed process group `group`; and D = `data`
+    data indices, one per rank of `data_group` (None: this process alone)."""
 
     spatial: int
     group: object = None
+    data: int = 1
+    data_group: object = None
+
+    @property
+    def data_rank(self) -> int:
+        """This process's data index."""
+        return 0 if self.data_group is None else dist.get_rank(self.data_group)
 
     @property
     def local_blocks(self) -> int:
@@ -77,18 +91,60 @@ class Mesh:
         return _HaloExchange.apply(x, k, self.group)
 
 
-def make_mesh(data: int | None = 1, spatial: int = 1, group=None) -> Mesh:
-    """A 1 x `spatial` mesh: the S blocks in this process, or one per rank
-    of `group` (its size must be S)."""
-    if data not in (None, 1):
-        raise NotImplementedError(
-            f"a data axis of {data} is data-parallel training, not ported yet (ROADMAP.md "
-            "Queue 1 item 2: DDP); make_mesh takes data=1")
+def make_mesh(data: int | None = None, spatial: int = 1, group=None) -> Mesh:
+    """A `data` x `spatial` mesh.  Without `group`: the S blocks in this
+    process, one data index.  With `group` (a process group of D x S ranks;
+    `data` None: every rank on the data axis, D = ranks / S): rank r of
+    `group` holds data index r // S and spatial index r % S.  Every rank of
+    `group` must call it (it creates the data and spatial subgroups)."""
     if spatial < 1:
         raise ValueError(f"spatial must be >= 1, got {spatial}")
-    if group is not None and dist.get_world_size(group) != spatial:
-        raise ValueError(f"group of {dist.get_world_size(group)} ranks for {spatial} blocks")
-    return Mesh(spatial, group)
+    if group is None:
+        if data not in (None, 1):
+            raise ValueError(f"a data axis of {data} needs a process group of {data} x {spatial} "
+                             "ranks (torchrun, or parallel/distributed.py:initialize_multihost)")
+        return Mesh(spatial)
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    data = size // spatial if data is None else data
+    if data < 1 or data * spatial != size:
+        raise ValueError(f"group of {size} ranks for a {data} x {spatial} mesh")
+    ranks = [dist.get_global_rank(group, r) for r in range(size)]
+
+    def subgroup(members):
+        # new_group is collective: every rank creates every subgroup, in one order
+        return group if len(members) == size else dist.new_group(members)
+
+    data_groups = [subgroup(ranks[s::spatial]) for s in range(spatial)]
+    spatial_groups = [subgroup(ranks[d * spatial:(d + 1) * spatial]) for d in range(data)]
+    return Mesh(spatial, spatial_groups[rank // spatial] if spatial > 1 else None, data,
+                data_groups[rank % spatial])
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of each [B, ...] array or tensor in `batch` (B / D
+    rows, data index `mesh.data_rank`; the S ranks of one data index hold
+    the same rows), as JAX's shard_batch shards the leading axis over
+    'data'."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % mesh.data:
+            raise ValueError(f"{k}: a batch of {v.shape[0]} does not split over {mesh.data} "
+                             "data indices")
+        rows = v.shape[0] // mesh.data
+        out[k] = v[mesh.data_rank * rows:(mesh.data_rank + 1) * rows]
+    return out
+
+
+def replicate(module: torch.nn.Module, group=None, src: int = 0) -> torch.nn.Module:
+    """Every parameter and buffer of `module` broadcast from rank `src` of
+    `group` (JAX's replicate puts one copy on every device); a no-op
+    without an initialized process group."""
+    if not dist.is_initialized():
+        return module
+    with torch.no_grad():
+        for t in itertools.chain(module.parameters(), module.buffers()):
+            dist.broadcast(t, dist.get_global_rank(group or dist.group.WORLD, src), group=group)
+    return module
 
 
 def _send_recv(to_prev: torch.Tensor, to_next: torch.Tensor, group):

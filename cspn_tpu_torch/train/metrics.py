@@ -35,6 +35,21 @@ METRIC_KEYS = (
 )
 
 
+# metrics that are the root of a masked mean (weighted by their squares
+# when shards are joined: parallel/data.py)
+ROOT_KEYS = ("RMSE", "iRMSE")
+
+
+def metric_counts(gt_depth: torch.Tensor, pred_depth: torch.Tensor) -> dict:
+    """The pixels each metric of `evaluate_error` averages over: the valid
+    ones (gt > 1e-4), and for iRMSE, iMAE and LG10 those with pred > 1e-4
+    too.  The weights that join shards' metrics into the whole batch's."""
+    mask = gt_depth > VALID_THRESHOLD
+    n = mask.sum()
+    n_pos = (mask & (pred_depth > VALID_THRESHOLD)).sum()
+    return {k: n_pos if k in ("LG10", "iRMSE", "iMAE") else n for k in METRIC_KEYS}
+
+
 def evaluate_error(gt_depth: torch.Tensor, pred_depth: torch.Tensor) -> dict:
     """Metric dict over a batch.  Shapes: any matching [..., H, W]."""
     one = torch.ones((), dtype=pred_depth.dtype, device=pred_depth.device)

@@ -673,27 +673,51 @@ def test_states_forward_at_its_launch_edges(gen, shape, steps):
 # --- the paddle-semantics 2D CSPN (csrc/paddle2d.cu) ----------------------
 
 
-@pytest.mark.parametrize("steps", [0, 1, 8, 9, 24])
-@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 64, 128), (2, 13, 17), (8, 228, 304)])
-def test_paddle2d_kernel_matches_plain(gen, shape, steps):
-    guide = torch.randn(shape[0], *shape[1:], 8, device="cuda", generator=gen)
+def _paddle_inputs(gen, n, h, w, c, channel_first):
+    guide = torch.randn(n, h, w, 8 * c, device="cuda", generator=gen)
     guide[0, :3, :4] = 0.0  # all-zero gates: centre weight 1
-    gates, x0 = cspn_paddle2d_cuda.paddle2d_layout(guide, torch.randn(*shape, 1, device="cuda",
-                                                                       generator=gen))
-    ct = torch.randn(shape, device="cuda", generator=gen)
-    gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
-    before = cspn_paddle2d_cuda.launches
-    got = cspn_paddle2d_cuda.propagate2d(gk, xk, steps=steps)
-    got_grads = torch.autograd.grad(got, (gk, xk), ct)
-    torch.cuda.synchronize()
-    assert cspn_paddle2d_cuda.launches == before + 1
-    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
-    want = cspn_ref.propagate_nd_reference(gp, xp, steps)
-    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True)
-    want_grads = (torch.zeros_like(gates) if want_grads[0] is None else want_grads[0], want_grads[1])
-    for a, b in ((got, want), *zip(got_grads, want_grads)):
+    feat = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    if channel_first:
+        return guide.movedim(-1, 1).contiguous(), feat.movedim(-1, 1).contiguous()
+    return guide, feat
+
+
+@pytest.mark.parametrize("channel_first", [False, True])
+@pytest.mark.parametrize("steps", [0, 1, 11, 12, 13, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (3, 64, 128, 1), (2, 13, 17, 2), (4, 228, 304, 2)])
+def test_paddle2d_kernel_matches_plain(gen, shape, steps, channel_first):
+    """The kernel from the raw guide in either of cspn_nd's layouts, at odd
+    H and W, C = 2 and the march's launch splits, against its plain version;
+    the gradients (autograd of the plain version at the saved inputs) too."""
+    guide, feat = _paddle_inputs(gen, *shape, channel_first)
+    ct = torch.randn(feat.shape, device="cuda", generator=gen)
+    outs = {}
+    for label, fn in (("kernel", cspn_paddle2d_cuda.cspn2d_paddle_cuda),
+                      ("plain", cspn_paddle2d_cuda.paddle2d_reference)):
+        g, f = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+        before = cspn_paddle2d_cuda.launches
+        out = fn(g, f, steps=steps, channel_first=channel_first)
+        outs[label] = (out, *torch.autograd.grad(out, (g, f), ct, allow_unused=True))
+        torch.cuda.synchronize()
+        assert cspn_paddle2d_cuda.launches == before + (label == "kernel")
+    for a, b in zip(outs["kernel"], outs["plain"]):
+        if b is None:  # steps=0: the output is feat, the guide has no gradient
+            assert steps == 0 and not a.any()
+            continue
         assert a.shape == b.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 11, 12, 13, 24])
+def test_paddle2d_cuda_launches(gen, steps):
+    """ceil(steps / 12) CUDA launches a forward by the host's records (2 at
+    24 steps), and cspn_nd's 2D forward launches nothing else."""
+    guide, feat = _paddle_inputs(gen, 3, 64, 128, 1, False)
+    want = cspn_paddle2d_cuda.cuda_launches(steps)
+    assert want == (0 if steps == 0 else 1 if steps <= 12 else 2)
+    assert _host_launches(lambda: cspn_paddle2d_cuda._launch(guide, feat, steps)) == want
+    with torch.no_grad():
+        assert _host_launches(lambda: cspn_nd(guide, feat, steps=steps)) == want
 
 
 @pytest.mark.parametrize("channels", [1, 2])
@@ -718,16 +742,16 @@ def test_cspn_nd_2d_runs_the_paddle_kernel(gen, channels):
 
 
 def test_paddle2d_wrapper_refuses_what_the_kernel_does_not_take(gen):
-    gates = torch.rand(2, 8, 5, 7, device="cuda", generator=gen)
-    x0 = torch.randn(2, 5, 7, device="cuda", generator=gen)
+    guide = torch.rand(2, 5, 7, 8, device="cuda", generator=gen)
+    feat = torch.randn(2, 5, 7, 1, device="cuda", generator=gen)
     with pytest.raises(TypeError):
-        cspn_paddle2d_cuda.propagate2d(gates.double(), x0.double())
+        cspn_paddle2d_cuda.cspn2d_paddle_cuda(guide.double(), feat.double())
     with pytest.raises(ValueError, match="contiguous"):
-        cspn_paddle2d_cuda.propagate2d(gates, x0.transpose(1, 2).contiguous().transpose(1, 2))
-    with pytest.raises(ValueError, match=r"\[M,8,H,W\]"):
-        cspn_paddle2d_cuda.propagate2d(gates[:, :7].contiguous(), x0)
-    with pytest.raises(ValueError, match=r"must be \[2,5,7\]"):
-        cspn_paddle2d_cuda.propagate2d(gates, x0[:, :4].contiguous())
+        cspn_paddle2d_cuda.cspn2d_paddle_cuda(guide, feat.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="C\\*8"):
+        cspn_paddle2d_cuda.cspn2d_paddle_cuda(guide[..., :7].contiguous(), feat)
+    with pytest.raises(ValueError, match="C\\*8"):
+        cspn_paddle2d_cuda.cspn2d_paddle_cuda(guide, feat[:, :4].contiguous())
 
 
 # --- the step-body probe (csrc/step_probe.cu) -----------------------------

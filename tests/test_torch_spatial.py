@@ -251,7 +251,8 @@ def test_exchange_counter_matches_the_formulas(steps, halo_k, with_sparse):
 
 
 def test_mesh_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="DDP"):
+    # a data axis of 2 is two ranks' (DDP): one process holds one data index
+    with pytest.raises(ValueError, match="process group of 2 x 2 ranks"):
         make_mesh(data=2, spatial=2)
     with pytest.raises(ValueError):
         make_mesh(spatial=0)

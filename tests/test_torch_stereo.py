@@ -358,10 +358,11 @@ def test_trainer_fit_validate_and_run_eval(tmp_path):
 def test_model_options_raise_where_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         stereo_loop.build_stereo_model(stereo_loop.StereoConfig(dtype="bfloat16"), device="cpu")
-    # the spatial mesh is ported; a data axis on it is data parallelism (DDP)
+    # a data axis of 2 is two ranks' (DDP, tests/test_torch_data_parallel.py);
+    # one process holds one data index
     from cspn_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="process group of 2 x 2 ranks"):
         stereo.PSMNetCSPN(spatial_mesh=make_mesh(data=2, spatial=2))
     zero = stereo.PSMNetCSPN(max_disp=8, features=4, cspn_steps=2, guidance_zero_init=True,
                              generator=torch.Generator().manual_seed(0))

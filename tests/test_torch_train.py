@@ -284,10 +284,21 @@ def test_trainer_fit_and_resume(tmp_path, capsys):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """One process: the bf16 gradient reduce rounds each gradient to bf16
+    (JAX's shard_map step on one device); a data axis of 2 needs a process
+    group of 2 ranks (tests/test_torch_data_parallel.py runs them); bf16
+    models are not ported."""
     loaders = (None, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        loop.Trainer(_smoke_cfg(tmp_path, grad_reduce_dtype="bfloat16"), *loaders, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    trainer = loop.Trainer(_smoke_cfg(tmp_path, grad_reduce_dtype="bfloat16"), *loaders,
+                           device="cpu")
+    assert trainer.data_parallel.group is None and trainer.data_parallel.module is trainer.state.model
+    rng = np.random.default_rng(0)
+    trainer.train_step(torch.tensor(rng.standard_normal((2, 32, 48, 4)), dtype=torch.float32),
+                       torch.tensor(np.abs(rng.standard_normal((2, 32, 48))), dtype=torch.float32))
+    grads = [p.grad for p in trainer.state.model.parameters()]
+    assert all(torch.equal(g, g.bfloat16().float()) for g in grads)
+    assert any(g.abs().sum() > 0 for g in grads)
+    with pytest.raises(ValueError, match="process group of 2 x 1 ranks"):
         loop.Trainer(dataclasses.replace(_smoke_cfg(tmp_path), mesh_data=2), *loaders, device="cpu")
     cfg = _smoke_cfg(tmp_path)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
@@ -310,10 +321,12 @@ def test_train_cli_on_cpu(tmp_path, capsys):
                      "--best-model-dir", str(tmp_path), "--crop-hw", "32,48", "--cspn-step", "2",
                      "--runs", "1"]) == 0
     assert f"==> loaded {tmp_path / 'best_model.pt'}" in capsys.readouterr().out
-    for flag, match in ((["--grad-reduce-dtype", "bfloat16"], "Queue 1 item 2"),
-                        (["--mesh-spatial", "2"], "Queue 1 item 2"),
-                        (["--dtype", "bfloat16"], "not ported yet")):
-        with pytest.raises(NotImplementedError, match=match):
+    # one process: a spatial axis replicates the step (the JAX Trainer hands
+    # its mesh to no model), a data axis needs as many ranks
+    assert cli.main(args + ["--num-epoch", "1", "--mesh-spatial", "2"]) == 0
+    for flag, error, match in ((["--mesh-data", "2"], ValueError, "process group"),
+                               (["--dtype", "bfloat16"], NotImplementedError, "not ported yet")):
+        with pytest.raises(error, match=match):
             cli.main(args + flag)
 
 
