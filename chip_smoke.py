@@ -71,7 +71,17 @@ paths on the card and fails (non-zero exit) if any phase fails:
      sync-BN route (float32 reduce) and the bf16 route, against the
      unwrapped step, the float64 oracle and bf16 rounding; the reduce
      hook's bytes per dtype; the steps timed in turns with peak memory; and
-     `bench-scaling --mode train`'s one point (ddp_slice).
+     `bench-scaling --mode train`'s one point (ddp_slice);
+ 13. precision: nyu_eval (buckets 1, 8, 32) and kitti_benchmark (1, 4)
+     served through load_server on the bf16 and int8 paths, with dynamic
+     and static activation scales: warmup peaks, launches and per-path
+     counters, every request's output against a plain twin's (the same
+     models on the plain 2D CSPN and depth-to-space), each bucket's
+     depth-to-space calls bit for bit against the plain versions, frames/s
+     and both paths' forwards per bucket, rel-norms against float32; and
+     the bf16 nyu_train b8 and stereo b4 steps against their plain twins
+     and the float64 oracle, timed beside float32 (precision_serve,
+     precision_train).
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -86,7 +96,8 @@ backward, splits the backward's two kernels, fits the forward's device
 time as fixed + per volume-step (through 4 and 24 steps) beside the same
 slope on a grid with one warp of work a block (BARRIER_SHAPE: the grid
 barrier and a step's latency), and fits the sharded segment's per
-voxel-step cost (choose_halo's 3D constant); and the
+voxel-step cost (choose_halo's 3D constant); the same on bf16 gates
+(check_cspn3d_bf16_gates), timed beside float32; and the
 depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
 shapes, an odd one with C=1, and in float64 and bfloat16; it holds the 2D
@@ -121,6 +132,8 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import functools
 import importlib.util
@@ -180,6 +193,18 @@ D2S_STAGES = (
 REQUESTS = (1, 3, 8, 11)
 BUCKETS = (1, 8)
 SERVE_WINDOW = 240  # requests of a served-rate window, cycling through a path's requests
+# phase 13 (precision): nyu_eval's buckets and requests (1 on bf16; 5 and 8 on
+# bucket 8, 20 and 32 on bucket 32, int8 from 8, the JAX package's default),
+# kitti_benchmark's (its buckets stop at 4, so int8 from 4 there, to run both
+# paths), and the frames of a bucket's served-rate window
+PRECISION_BUCKETS, PRECISION_REQUESTS, PRECISION_INT8_FROM = (1, 8, 32), (1, 5, 8, 20, 32), 8
+KITTI_PRECISION_REQUESTS, KITTI_INT8_FROM = (1, 3, 4), 4
+PRECISION_WINDOW = 256
+# phase 13's served outputs against the plain twin's (the plain 2D CSPN and
+# depth-to-space on the same bf16 / int8 models and cuDNN algorithms), x
+# max|plain|: half a bf16 ulp, the rounding of a bf16 output (the 2D CSPN's
+# float32 kernel and plain version differ by 1e-4 at most, KERNEL_TOL)
+PRECISION_TWIN_TOL = 2.0**-8
 KITTI_SHAPE = (4, 352, 1216)  # N, H, W: kitti_benchmark's training batch
 KITTI_RAGGED = (2, 75, 101)  # ragged last tiles in both axes, several tiles each way
 # the 2D CSPN's shapes on the main paths (N, H, W): NYU buckets 1 and 8
@@ -435,6 +460,14 @@ CSPN2D_CASES = tuple(
     for label, shape in (("main", MAIN_SHAPE), ("odd 3x13x17", (3, 13, 17)),
                          ("kitti b4", KITTI_SHAPE), ("ragged", KITTI_RAGGED))
     for norm in ("8sum", "8sum_abs") for sparse in (True, False))
+# the tiled forward's further cases: the served buckets CSPN2D_CASES lacks
+# (NYU bucket 1 of phases 4 and 13, bucket 32 of phase 13, KITTI bucket 1),
+# with sparse
+TILED_SERVED_CASES = tuple(
+    (f"{label} {norm}", shape, True, norm)
+    for label, shape in (("nyu bucket 1", (1, 228, 304)), ("nyu bucket 32", (32, 228, 304)),
+                         ("kitti bucket 1", (1, 352, 1216)))
+    for norm in ("8sum", "8sum_abs"))
 # the tile kernels' edges: 1-row and 1-column maps, sides no multiple of the
 # tile (ops/cspn_cuda.py:TILE), every launch split of `steps`
 CSPN2D_EDGE_SHAPES = ((2, 1, 300), (2, 300, 1), (3, 97, 145))
@@ -917,6 +950,101 @@ def check_cspn3d_bwd_kernel(name: str) -> dict:
     }
 
 
+def check_cspn3d_bf16_gates(name: str, fwd: dict, bwd: dict) -> None:
+    """Phase 3: the 3D kernels on bf16 gates (gate_dtype bfloat16, the
+    stereo and demo paths' route) against their plain version (the float32
+    plain sweep on the gates rounded to bf16, its autograd for the
+    backward) at every case of the float32 check, the kept states too, and
+    timed beside the float32 route at every path's shape with their CUDA
+    launches a call.  The rows `fwd` / `bwd` take the bf16 route's time and
+    bound at the stereo b4 volume as "ms" / "bound_ms"; the float32 route's
+    stay beside them (the sharded segment runs it)."""
+    from cspn_tpu_torch.ops import cspn3d_cuda
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for label, (m, d, h, w), steps, zero_corner in cspn3d_cases():
+        gates = gates3d(gen, m, d, h, w, zero_corner)
+        x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+        got = cspn3d_cuda.propagate3d(gk, xk, steps=steps, gate_dtype=bf16)
+        got_g = torch.autograd.grad(got, (gk, xk), ct)
+        gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+        want = cspn3d_cuda.propagate3d_reference(gp, xp, steps=steps, gate_dtype=bf16)
+        want_g = torch.autograd.grad(want, (gp, xp), ct)
+        torch.cuda.synchronize()
+        what = f"[{m},26,{d},{h},{w}] steps={steps} bf16 gates"
+        err["fwd"] = max(err["fwd"], _check_close(f"cspn3d_fwd {label} {what}", got.detach(),
+                                                  want.detach()))
+        for part, a, b in zip(("d gates", "d x0"), got_g, want_g):
+            err["bwd"] = max(err["bwd"], _check_close(f"cspn3d_bwd {label} {what} {part}", a, b))
+        out, states = cspn3d_cuda._launch(gates.to(bf16), x0, steps, keep_states=True)
+        if not torch.equal(out, got.detach()):
+            raise AssertionError(f"cspn3d_fwd {label} bf16 gates: keeping the states changed the "
+                                 "output")
+        rounded, want_states = cspn3d_cuda.round_gates(gates, bf16), [x0]
+        for _ in range(steps - 1):
+            want_states.append(cspn3d_cuda.propagate3d_reference(rounded, want_states[-1], steps=1))
+        if steps > 1:
+            err["fwd"] = max(err["fwd"], _check_close(
+                f"cspn3d_fwd {label} bf16 gates, kept states x_1..x_{steps - 1}", states,
+                torch.stack(want_states[1:])))
+    by_shape = {"fwd": {}, "bwd": {}}
+    for label, (m, d, h, w), steps in cspn3d_path_shapes():
+        gates = gates3d(gen, m, d, h, w).to(bf16)
+        x0 = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        ct = torch.randn(m, d, h, w, device="cuda", generator=gen)
+        plan = cspn3d_cuda.device_plan(gates.device, d, h, w, 2)
+        plan32 = cspn3d_cuda.device_plan(gates.device, d, h, w, 4)
+        ms = time_ms(lambda: cspn3d_cuda._launch(gates, x0, steps))
+        kept = time_ms(lambda: cspn3d_cuda._launch(gates, x0, steps, keep_states=True))
+        states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
+        bwd_ms = time_ms(lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps))
+        n_fwd, _ = launches_per_call(lambda: cspn3d_cuda._launch(gates, x0, steps), CSPN3D_KERNELS,
+                                     cspn3d_cuda.cuda_launches_per_call(steps)[0],
+                                     f"cspn3d_fwd {label} bf16 gates")
+        n_bwd, split = launches_per_call(
+            lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps), CSPN3D_KERNELS,
+            cspn3d_cuda.cuda_launches_per_call(steps)[1], f"cspn3d_bwd {label} bf16 gates")
+        f32_fwd, f32_bwd = fwd["ms_by_path"][label]["ms"], bwd["ms_by_path"][label]["ms"]
+        by_shape["fwd"][label] = {"ms": ms, "kept_states_ms": kept, "float32_ms": f32_fwd,
+                                  "n_smem": plan.n_smem, "n_smem_float32": plan32.n_smem,
+                                  "cuda_launches_per_call": n_fwd}
+        by_shape["bwd"][label] = {"ms": bwd_ms, "float32_ms": f32_bwd,
+                                  "cuda_launches_per_call": n_bwd,
+                                  "split_ms": {k: v["ms"] for k, v in split.items()}}
+        log(f"  cspn3d {label} [{m},26,{d},{h},{w}] steps={steps}, bf16 gates: forward {ms:.4f} ms "
+            f"(float32 gates {f32_fwd:.4f}), keeping its states {kept:.4f} ms, backward "
+            f"{bwd_ms:.4f} ms (float32 {f32_bwd:.4f}); gate planes in shared memory {plan.n_smem} "
+            f"of 26 ({plan.smem_bytes} B a block; float32 {plan32.n_smem}, {plan32.smem_bytes} B); "
+            f"{n_fwd} + {n_bwd} CUDA launches a call on {name}")
+    m, d, h, w = STEREO_SHAPE
+    voxels = m * d * h * w
+    # forward: read 26 bf16 gates + x0, write 1 (60 B a voxel); backward:
+    # read 26 bf16 gates, x0 and the cotangent, write 26 + 1 float32 planes
+    bounds = {"fwd": bound(name, 60 * voxels, (54 * STEPS + 26) * voxels),
+              "bwd": bound(name, 168 * voxels, (54 * (STEPS - 1) + 108 * STEPS + 52) * voxels)}
+    for key, row in (("fwd", fwd), ("bwd", bwd)):
+        row.update({
+            "gate_dtype": "bfloat16 (stereo, demo3d); float32 (stereo_sharded's segment)",
+            "ms_float32": row["ms"], "bound_ms_float32": row["bound_ms"],
+            "bound_by_float32": row["bound_by"],
+            "ms": by_shape[key]["stereo b4"]["ms"],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "max_abs_err": max(row["max_abs_err"], err[key]),
+            "bf16_gates_by_path": by_shape[key],
+        })
+        if key == "fwd":
+            row["kept_states_ms_float32"] = row["kept_states_ms"]
+            row["kept_states_ms"] = by_shape[key]["stereo b4"]["kept_states_ms"]
+        log(f"  cspn3d_{key} stereo b4 [{m},26,{d},{h},{w}] steps={STEPS}: bf16 gates "
+            f"{row['ms']:.4f} ms against a bound of {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"float32 gates {row['ms_float32']:.4f} ms against {row['bound_ms_float32']:.4f} ms "
+            f"on {name}")
+
+
 def check_d2s_kernels(name: str) -> list[dict]:
     """Phase 3: the depth-to-space kernel and its adjoint against the plain
     version and its autograd, bit for bit, under a random cotangent; then
@@ -933,9 +1061,10 @@ def check_d2s_kernels(name: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(5)
     layer3 = D2S_STAGES[2]
     cases = [(f"{stage} float32", shape, crop, torch.float32) for stage, shape, crop, _ in D2S_STAGES]
+    cases += [(f"{stage} bfloat16", shape, crop, torch.bfloat16)
+              for stage, shape, crop, _ in D2S_STAGES]  # the bf16 decoder's (phase 13)
     cases += [("odd C=1 float32", (3, 4, 5, 7), (9, 13), torch.float32),
-              ("layer3 float64", layer3[1], layer3[2], torch.float64),
-              ("layer3 bfloat16", layer3[1], layer3[2], torch.bfloat16)]
+              ("layer3 float64", layer3[1], layer3[2], torch.float64)]
     max_err = {"d2s": 0.0, "s2d": 0.0}
     for label, (n, c4, h, w), (oh, ow), dtype in cases:
         x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
@@ -955,34 +1084,40 @@ def check_d2s_kernels(name: str) -> list[dict]:
                                      f"(max|err| {err:.3e})")
             max_err[what] = max(max_err[what], err)
 
-    sums = {k: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0) for k in max_err}
-    for stage, (n, c4, h, w), (oh, ow), calls in D2S_STAGES:
-        x = torch.randn(n, c4, h, w, device="cuda", generator=gen)
-        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen)
-        full = torch.randn(n, c4 // 4, 2 * h, 2 * w, device="cuda", generator=gen)
-        kept = n * (c4 // 4) * oh * ow * 4  # bytes of the values the crop keeps
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {k: dict.fromkeys(keys, 0.0) for k in max_err}
+    sums_bf16 = {k: dict.fromkeys(keys, 0.0) for k in max_err}
+    for (stage, (n, c4, h, w), (oh, ow), calls), dtype in itertools.product(
+            D2S_STAGES, (torch.float32, torch.bfloat16)):
+        x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
+        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen).to(dtype)
+        full = torch.randn(n, c4 // 4, 2 * h, 2 * w, device="cuda", generator=gen).to(dtype)
+        # bytes of the values the crop keeps
+        kept = n * (c4 // 4) * oh * ow * x.element_size()
         timed = {
             "d2s": (time_queued_ms(lambda: d2s._launch(x, oh, ow)),
                     time_queued_ms(lambda: d2s.depth_to_space2_ref(x, oh, ow)),
                     time_queued_ms(lambda: F.pixel_shuffle(x, 2)), 2 * kept),
             "s2d": (time_queued_ms(lambda: d2s._launch_bwd(ct, h, w)),
                     time_queued_ms(lambda: d2s.space_to_depth2_ref(ct, h, w)),
-                    time_queued_ms(lambda: F.pixel_unshuffle(full, 2)), kept + x.numel() * 4),
+                    time_queued_ms(lambda: F.pixel_unshuffle(full, 2)),
+                    kept + x.numel() * x.element_size()),
         }
         for what, (ms, plain_ms, lib_ms, bytes_moved) in timed.items():
             bound_ms = bound(name, bytes_moved, 0)[0]
-            log(f"  {what} {stage} [{n},{c4},{h},{w}] <-> [{n},{c4 // 4},{oh},{ow}] f32: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.pixel_{'un' if what == 's2d' else ''}"
-                f"shuffle {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB) "
-                f"on {name}; {calls} per {'forward' if what == 'd2s' else 'backward'}")
-            for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                              (ms, plain_ms, lib_ms, bound_ms)):
-                sums[what][key] += calls * v
+            log(f"  {what} {stage} [{n},{c4},{h},{w}] <-> [{n},{c4 // 4},{oh},{ow}] "
+                f"{'bf16' if dtype == torch.bfloat16 else 'f32'}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, F.pixel_{'un' if what == 's2d' else ''}shuffle {lib_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB) on {name}; {calls} per "
+                f"{'forward' if what == 'd2s' else 'backward'}")
+            for key, v in zip(keys, (ms, plain_ms, lib_ms, bound_ms)):
+                (sums if dtype == torch.float32 else sums_bf16)[what][key] += calls * v
     rows = []
     for what, tpu_line in (("d2s", 118), ("s2d", 137)):
-        log(f"  {what} per b8 {'forward' if what == 'd2s' else 'backward'} (9 calls): kernel "
-            f"{sums[what]['ms']:.4f} ms, plain {sums[what]['plain_ms']:.4f} ms, library "
-            f"{sums[what]['library_ms']:.4f} ms, bound {sums[what]['bound_ms']:.4f} ms on {name}")
+        for label, sm in (("f32", sums[what]), ("bf16", sums_bf16[what])):
+            log(f"  {what} per b8 {'forward' if what == 'd2s' else 'backward'} (9 calls), {label}: "
+                f"kernel {sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, library "
+                f"{sm['library_ms']:.4f} ms, bound {sm['bound_ms']:.4f} ms on {name}")
         rows.append({
             "name": what,
             "route": "cuda",
@@ -995,25 +1130,29 @@ def check_d2s_kernels(name: str) -> list[dict]:
             # F.pixel_shuffle / pixel_unshuffle: the same bytes in PyTorch's
             # channel order (c*4 + py*2 + px), without the crop
             "library_ms": sums[what]["library_ms"],
+            # the bf16 decoder's (phase 13: bf16 serving and training)
+            "dtype": "float32 (nyu_train, the float32 paths); bfloat16 (phase 13)",
+            **{f"{k}_bfloat16": sums_bf16[what][k] for k in keys},
         })
     return rows
 
 
 def check_tiled_kernel(name: str) -> dict:
     """Phase 3: the tiled 2D CSPN forward against its plain version and
-    cspn2d_fwd's values at every CSPN2D_CASES case; cspn2d_cuda's routing
-    at kitti_benchmark's training batch (no backward: tiled; with one:
-    cspn2d_fwd keeping its states, then cspn2d_bwd, against autograd of the
-    plain version under a random cotangent); then timed beside cspn2d_fwd
-    at the KITTI batch, its CUDA launches a call counted by torch.profiler,
-    and cspn2d_bwd timed there on both routes (the KITTI train step's
-    backward runs on the kept states)."""
+    cspn2d_fwd's values at every CSPN2D_CASES and TILED_SERVED_CASES case;
+    cspn2d_cuda's routing at kitti_benchmark's training batch (no backward:
+    tiled; with one: cspn2d_fwd keeping its states, then cspn2d_bwd, against
+    autograd of the plain version under a random cotangent); then timed
+    beside cspn2d_fwd at the KITTI batch, its CUDA launches a call counted
+    by torch.profiler, and cspn2d_bwd timed there on both routes (the KITTI
+    train step's backward runs on the kept states)."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     n, h, w = KITTI_SHAPE
     max_err = 0.0
-    for label, (cn, ch, cw), with_sparse, norm in CSPN2D_CASES:
+    cases = CSPN2D_CASES + TILED_SERVED_CASES
+    for label, (cn, ch, cw), with_sparse, norm in cases:
         g, b, s = cspn_inputs(gen, cn, ch, cw, with_sparse, negative=0.2)
         g[0, :, :6, :6] = 0.0  # zero gates: the 0/0 guard
         got = cspn_cuda._launch_tiled(g, b, s, STEPS, norm)
@@ -1025,7 +1164,7 @@ def check_tiled_kernel(name: str) -> dict:
         if not torch.equal(got, kept):
             raise AssertionError(f"cspn2d_tiled {label}: values differ from cspn2d_fwd's "
                                  f"(max {(got - kept).abs().max().item():.3e})")
-    log(f"  cspn2d_tiled equals cspn2d_fwd value for value in all {len(CSPN2D_CASES)} cases")
+    log(f"  cspn2d_tiled equals cspn2d_fwd value for value in all {len(cases)} cases")
 
     # through the wrapper: a forward without a backward runs the tiled
     # kernel, one with a backward cspn2d_fwd and cspn2d_bwd
@@ -1939,7 +2078,7 @@ def serve_slice(name: str) -> dict:
         f"{elapsed:.4f} s; launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"served run launched {launches}, expected {expected}")
-    if srv.served["float32"] != sum(REQUESTS):
+    if srv.served != {"bf16": sum(REQUESTS), "int8": 0}:  # one model: DepthServer's first path
         raise AssertionError(f"served counter {srv.served} != {sum(REQUESTS)}")
 
     avg = ErrorAverager()
@@ -2177,6 +2316,18 @@ def _stereo_loaders(cfg, n_train: int, n_val: int):
     return train, val
 
 
+def plain_stereo_twin(cfg, train: bool = False, seed=None, gate_dtype=torch.bfloat16):
+    """`cfg`'s stereo model on the plain 3D CSPN reading its gates as the
+    kernels do at `gate_dtype` (bf16, the kernel route's default; float32,
+    the sharded segments'): the twin every stereo phase holds the kernel
+    route to."""
+    from cspn_tpu_torch.train.stereo_loop import build_stereo_model
+
+    model = build_stereo_model(cfg, train=train, device="cuda", seed=seed, cspn_backend="reference")
+    model.cspn_gate_dtype = gate_dtype
+    return model
+
+
 def _stereo_model_line(cfg) -> str:
     from cspn_tpu_torch.utils.profiling import STEREO_HW
 
@@ -2223,7 +2374,7 @@ def stereo_eval_slice(name: str) -> dict:
             raise AssertionError(f"non-finite stereo metrics {metrics}")
 
     model.eval()
-    model_ref = build_stereo_model(cfg, device="cuda", seed=None, cspn_backend="reference")
+    model_ref = plain_stereo_twin(cfg)
     model_ref.load_state_dict(model.state_dict())
     step_k = make_stereo_eval_step(model, cfg.max_disp)
     step_r = make_stereo_eval_step(model_ref, cfg.max_disp)
@@ -2265,12 +2416,7 @@ def stereo_train_slice(name: str, kernel_ms: dict) -> dict:
     returns each kernel's launches during the fit."""
     from cspn_tpu_torch.models.stereo import smooth_l1_disparity_loss
     from cspn_tpu_torch.train.state import make_optimizer
-    from cspn_tpu_torch.train.stereo_loop import (
-        StereoConfig,
-        StereoTrainer,
-        build_stereo_model,
-        make_stereo_train_step,
-    )
+    from cspn_tpu_torch.train.stereo_loop import StereoConfig, StereoTrainer, make_stereo_train_step
     from cspn_tpu_torch.utils.profiling import stereo_batch, train_step_split_ms
 
     def optimizer(model):
@@ -2331,8 +2477,7 @@ def stereo_train_slice(name: str, kernel_ms: dict) -> dict:
     left, right, disp = stereo_batch(cfg, cfg.batch_size, seed=0)
     models = {"kernel": model_k}
     for label, dtype in (("plain", torch.float32), ("float64", torch.float64)):
-        models[label] = build_stereo_model(cfg, train=True, device="cuda", seed=None,
-                                           cspn_backend="reference").to(dtype)
+        models[label] = plain_stereo_twin(cfg, train=True).to(dtype)
         models[label].load_state_dict(model_k.state_dict())
     results = {}
     torch.backends.cudnn.deterministic = True
@@ -2738,11 +2883,11 @@ def sharded_stereo_slice(name: str) -> dict:
                               nesterov=False)
 
     plain = build_stereo_model(cfg, train=True, device="cuda", seed=0)
+    plain.cspn_gate_dtype = torch.float32  # the sharded segments' gates
     with torch.device("cuda"):
         sharded = PSMNetCSPN(max_disp=cfg.max_disp, features=cfg.features,
                              cspn_steps=cfg.cspn_steps, spatial_mesh=mesh)
-    oracle = build_stereo_model(cfg, train=True, device="cuda", seed=None,
-                                cspn_backend="reference").to(torch.float64)
+    oracle = plain_stereo_twin(cfg, train=True, gate_dtype=torch.float32).to(torch.float64)
     models = {"kernel": sharded, "plain": plain, "float64": oracle}
     for m in (sharded, oracle):
         m.load_state_dict(plain.state_dict())
@@ -2822,8 +2967,9 @@ def demo_slice(name: str, dim: int) -> dict:
                          device="cuda")
     feat = torch.tensor(rng.random((args.batch_size, *map_shape, 1)), dtype=torch.float32,
                         device="cuda")
-    with torch.no_grad():
-        plain = cspn_nd(guide, feat, steps=args.prop_step, backend="reference").mean().item()
+    with torch.no_grad():  # the 3D kernels' bf16 gate rounding on the plain route
+        plain = cspn_nd(guide, feat, steps=args.prop_step, backend="reference",
+                        gate_dtype=torch.bfloat16 if dim == 3 else None).mean().item()
     rel = abs(losses[0] - plain) / abs(plain)
     log(f"  first loss {losses[0]:.7f} vs the plain cspn_nd's {plain:.7f} (rel {rel:.2e}, tol "
         f"{LOSS_RTOL:g})")
@@ -2852,6 +2998,344 @@ def probe_slice(name: str) -> dict:
                     step_probe=len(step_probe.PAIRS) * 2 * (PROBE_TRIALS + 1))
     if launches != expected:
         raise AssertionError(f"the probe path launched {launches}, expected {expected}")
+    return launches
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@contextlib.contextmanager
+def decoder_d2s(fn):
+    """The depth-to-space of the decoders (models/decoder.py and the int8
+    subpixel convs, utils/quant.py) replaced by `fn` within the block."""
+    from cspn_tpu_torch.models import decoder
+    from cspn_tpu_torch.utils import quant
+
+    saved = decoder.depth_to_space2, quant.depth_to_space2
+    decoder.depth_to_space2 = quant.depth_to_space2 = fn
+    try:
+        yield
+    finally:
+        decoder.depth_to_space2, quant.depth_to_space2 = saved
+
+
+def check_d2s_on_path(label: str, model, x, gen) -> set:
+    """Phase 13: each depth-to-space call of `model`'s forward on `x` run by
+    the `d2s` kernel and its adjoint by the `s2d` kernel (under a random
+    cotangent), both held bit for bit against the plain versions on the
+    forward's own activations; returns the (input shape, crop, dtype)
+    cases."""
+    from cspn_tpu_torch.ops import d2s
+
+    cases = set()
+
+    def checked(t, oh, ow):
+        y = d2s._launch(t.contiguous(), oh, ow)
+        ct = torch.randn(y.shape, device="cuda", generator=gen).to(t.dtype)
+        back = d2s._launch_bwd(ct, t.shape[2], t.shape[3])
+        if not (torch.equal(y, d2s.depth_to_space2_ref(t, oh, ow))
+                and torch.equal(back, d2s.space_to_depth2_ref(ct, t.shape[2], t.shape[3]))):
+            raise AssertionError(f"{label}: d2s / s2d at {tuple(t.shape)} -> ({oh},{ow}) "
+                                 f"{t.dtype} differ from the plain versions")
+        cases.add((tuple(t.shape), (oh, ow), str(t.dtype).removeprefix("torch.")))
+        return y
+
+    with decoder_d2s(checked), torch.inference_mode():
+        model(x)
+    return cases
+
+
+def plain_twin(model):
+    """A copy of a served model on the plain 2D CSPN (its bf16 or int8
+    convs, weight cache and activation scales kept)."""
+    twin = copy.deepcopy(model)
+    twin.cspn_backend = "reference"
+    return twin
+
+
+def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, requests,
+                    calib_batch: int) -> dict:
+    """Phase 13, serving: `cfg`'s model (seeded random weights, BN
+    statistics calibrated on a synthetic batch, saved as best_model) served
+    through load_server on both paths, with dynamic and then with static
+    activation scales: each bucket's warmup with its peak memory, the
+    requests' launches and per-path counters, frames/s per bucket (host
+    clock) and its forward (events), and the outputs' rel-norms, bf16
+    against float32 and int8 against bf16.  Each request's output is held
+    to a plain twin's (the same models on the plain 2D CSPN and the plain
+    depth-to-space, served through a DepthServer of their own), and each
+    bucket's depth-to-space calls to the plain versions bit for bit
+    (check_d2s_on_path).  Returns the kernels' launches on the served
+    requests."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.ops import d2s
+    from cspn_tpu_torch.serving import DepthServer, chunk_plan, load_server, pick_bucket
+    from cspn_tpu_torch.utils.profiling import calibrated_model
+
+    h, w = cfg.data.crop_hw
+    model32 = calibrated_model(cfg, calib_batch=calib_batch)
+    ds = SyntheticDepthDataset(length=max(*buckets, *requests), hw=(h, w),
+                               n_sample=cfg.data.n_sample, seed=1, split="val")
+    frames = np.stack([ds[i]["rgbd"] for i in range(len(ds))])
+    chunks = [s_ for n in requests for s_ in chunk_plan(n, buckets)]
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as ckpt_dir:
+        torch.save(model32.state_dict(), os.path.join(ckpt_dir, "best_model.pt"))
+        cfg = dataclasses.replace(cfg, best_model_dir=ckpt_dir)
+        for static in (False, True):
+            t0 = time.perf_counter()
+            srv = load_server(cfg, buckets=buckets, device="cuda", int8_from=int8_from,
+                              act_static=static)
+            scales = "static activation scales" if static else "dynamic activation scales"
+            log(f"  {label}, {scales}: load_server(buckets {buckets}, int8_from {int8_from}) in "
+                f"{time.perf_counter() - t0:.1f} s (bf16 cast, int8 weight cache"
+                f"{', calibration on 8 val frames' if static else ''})")
+            for b in buckets:  # the warmup, a bucket at a time, with its peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                srv._run_bucket(torch.zeros((b, h, w, 4), device="cuda"), b)
+                torch.cuda.synchronize()
+                log(f"    warmup bucket {b} ({srv.path_for(b)}): peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (cuDNN's algorithm "
+                    "timing included) on " + name)
+            for k in srv.served:
+                srv.served[k] = 0
+            torch.cuda.synchronize()
+            reset_launches()
+            outs = [srv.predict(frames[:n]) for n in requests]
+            got = read_launches()
+            forwards = len(chunks)
+            expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=forwards,
+                            d2s=d2s_per_forward(srv.models["bf16"]) * forwards)
+            want_served = {p_: sum(c for c in chunks if srv.path_for(pick_bucket(c, buckets)) == p_)
+                           for p_ in ("bf16", "int8")}
+            log(f"    requests {requests}: launches {got} (expected {expected}); served "
+                f"{srv.served} (expected {want_served})")
+            if got != expected or srv.served != want_served or not want_served["int8"] \
+                    or not want_served["bf16"]:
+                raise AssertionError(f"{label} served run: launches {got}, served {srv.served}")
+            for k, v in got.items():
+                launches[k] += v
+            for n, out in zip(requests, outs):
+                if out.shape != (n, h, w) or not np.isfinite(out).all():
+                    raise AssertionError(f"{label}: bad output {out.shape}")
+            twin = DepthServer(plain_twin(srv.models["bf16"]), buckets,
+                               plain_twin(srv.models["int8"]), int8_from)
+            torch.cuda.synchronize()
+            reset_launches()
+            with decoder_d2s(d2s.depth_to_space2_ref):
+                wants = [twin.predict(frames[:n]) for n in requests]
+            torch.cuda.synchronize()
+            if any(read_launches().values()) or twin.served != want_served:
+                raise AssertionError(f"{label} plain twin: launches {read_launches()}, served "
+                                     f"{twin.served}")
+            worst = 0.0
+            for n, out, want in zip(requests, outs, wants):
+                err, scale = float(np.abs(out - want).max()), float(np.abs(want).max())
+                path = srv.path_for(pick_bucket(min(n, buckets[-1]), buckets))
+                if not err <= PRECISION_TWIN_TOL * scale:
+                    raise AssertionError(f"{label} request {n} ({path}): served output vs plain "
+                                         f"twin {err:.3e} > {PRECISION_TWIN_TOL * scale:.3e}")
+                worst = max(worst, err / scale)
+            log(f"    served outputs vs the plain twin (plain 2D CSPN and depth-to-space, "
+                f"requests {requests}): max|err| / max|plain| = {worst:.3e} (tol "
+                f"{PRECISION_TWIN_TOL:.3e})")
+            del twin, wants
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            for b in buckets:
+                cases = check_d2s_on_path(f"{label} bucket {b}", srv.models[srv.path_for(b)],
+                                          torch.from_numpy(frames[:b]).cuda(), gen)
+                log(f"    bucket {b} ({srv.path_for(b)}): d2s / s2d bit for bit at the "
+                    f"forward's {len(cases)} shapes: " + ", ".join(
+                        f"{list(sh)}->({oh},{ow}) {dt}" for sh, (oh, ow), dt in sorted(cases)))
+            with torch.inference_mode():
+                fwd = {}
+                for b in buckets:
+                    path, req = srv.path_for(b), frames[:b]
+                    window = max(PRECISION_WINDOW // b, 4)
+                    t0 = time.perf_counter()
+                    for _ in range(window):
+                        srv.predict(req)
+                    fps = b * window / (time.perf_counter() - t0)
+                    x = torch.from_numpy(req).cuda()
+                    # both paths' forwards at every bucket: the crossover
+                    for p_ in ("bf16", "int8"):
+                        fwd[p_, b] = time_ms(lambda: srv.models[p_](x), reps=5, warmup=1)
+                    log(f"    bucket {b} ({path}): served {fps:.2f} frames/s (host clock, "
+                        f"{window} requests of {b}); forward (events) bf16 {fwd['bf16', b]:.3f} "
+                        f"ms = {b * 1e3 / fwd['bf16', b]:.2f} frames/s, int8 "
+                        f"{fwd['int8', b]:.3f} ms = {b * 1e3 / fwd['int8', b]:.2f} frames/s on "
+                        f"{name}")
+                wins = [b for b in buckets if fwd["int8", b] < fwd["bf16", b]]
+                log(f"    int8 forward faster than bf16 at buckets {wins} of {buckets} (the "
+                    f"server routes int8 from {int8_from})")
+                b8 = min(b for b in buckets if srv.path_for(b) == "int8")
+                x = torch.from_numpy(frames[:b8]).cuda()
+                o32, o16, o8 = model32(x), srv.models["bf16"](x), srv.models["int8"](x)
+            rel16, rel8 = _rel(o16, o32), _rel(o8, o16)
+            log(f"    b{b8} outputs: rel-norm bf16 vs float32 {rel16:.4e}, int8 vs bf16 {rel8:.4e} "
+                "(random weights; JAX bounds int8 at 0.08 of float, tests/test_quant.py)")
+            if not (np.isfinite(rel16) and np.isfinite(rel8)):
+                raise AssertionError(f"{label}: non-finite outputs")
+            del srv, o32, o16, o8
+    return launches
+
+
+def _bf16_step_models(build, cfg32, cfg16):
+    """(float32 kernel, bf16 kernel, bf16 plain CSPN, float64 oracle)
+    models from `build(cfg, backend)`, the float32 kernel model's weights in
+    all four."""
+    m32 = build(cfg32, "auto")
+    models = {"float32": m32, "bf16 kernel": build(cfg16, "auto"),
+              "bf16 plain": build(cfg16, "reference"),
+              "float64": build(cfg32, "reference").to(torch.float64)}
+    for m in models.values():
+        if m is not m32:
+            m.load_state_dict(m32.state_dict())
+    return models
+
+
+def _bf16_step(name: str, label: str, models, step_fn, inputs, target, want_launches):
+    """One train step of each model from the same weights on the same batch
+    (deterministic cuDNN): the bf16 kernel step's launches, the bf16 kernel
+    step held to the bf16 plain-CSPN step and the float64 oracle by phase
+    5's rule, both float32 and bf16 distances from the oracle printed; then
+    the float32 and bf16 steps timed in turns."""
+    results = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for k, m in models.items():
+            dt = next(m.parameters()).dtype
+            torch.cuda.synchronize()
+            reset_launches()
+            loss = step_fn(m)(*(t.to(dt) for t in inputs), target.to(dt))[0]
+            torch.cuda.synchronize()
+            if k == "bf16 kernel":
+                launches = read_launches()
+                if launches != want_launches:
+                    raise AssertionError(f"{label} bf16 step launched {launches}, expected "
+                                         f"{want_launches}")
+            results[k] = (loss.item(), {n_: p.grad for n_, p in m.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss64, g64 = results["float64"]
+    for k in ("float32", "bf16 kernel"):
+        loss, grads = results[k]
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label} {k} step: loss {loss}")
+        flat = torch.cat([grads[n_].double().flatten() for n_ in g64])
+        flat64 = torch.cat([g.flatten() for g in g64.values()])
+        log(f"  {label} {k} step: loss {loss:.6f} (float64 oracle {loss64:.6f}, rel "
+            f"{abs(loss - loss64) / abs(loss64):.3e}); gradients' rel-norm from the oracle "
+            f"{_rel(flat, flat64):.4e}")
+    check_against_oracle(results["bf16 kernel"], results["bf16 plain"], results["float64"],
+                         labels=("bf16 kernel", "bf16 plain CSPN"))
+    times = {"float32": [], "bf16 kernel": []}
+    for k in ("float32", "bf16 kernel", "bf16 kernel", "float32"):
+        m = models[k]
+        torch.cuda.reset_peak_memory_stats()
+        split = train_step_split(m, step_fn, inputs, target)
+        times[k].append((split, torch.cuda.max_memory_allocated() / 2**30))
+    n = target.shape[0]
+    for k, runs in times.items():
+        log(f"  {label} train step b{n}, {k}: " + " / ".join(
+            f"{sp['step']:.3f} ms (forward {sp['forward']:.3f}, backward {sp['backward']:.3f}, "
+            f"optimizer {sp['optimizer']:.3f}; peak {gib:.2f} GiB)" for sp, gib in runs)
+            + f" on {name}")
+    return launches
+
+
+def train_step_split(model, step_fn, inputs, target) -> dict:
+    """utils/profiling.train_step_split_ms of `model` with the optimizer
+    and loss `step_fn` builds for it."""
+    from cspn_tpu_torch.utils.profiling import train_step_split_ms
+
+    step = step_fn(model)
+    return train_step_split_ms(model, step.optimizer, step.loss_fn, inputs, target)
+
+
+def precision_train(name: str) -> dict:
+    """Phase 13, training: one bf16 nyu_train b8 step (the 2D CSPN float32,
+    the d2s / s2d kernels at bf16) and one bf16 stereo b4 step (the 3D
+    kernels on bf16 gates), each from the float32 model's weights, beside
+    the float32 step (_bf16_step).  The plain-CSPN stereo twin and the
+    float64 oracle round the gates to bf16 as the kernels do.  Returns the
+    kernels' launches on the two bf16 kernel steps."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.models.stereo import smooth_l1_disparity_loss
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loss import LOSSES
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.train.stereo_loop import StereoConfig, build_stereo_model
+    from cspn_tpu_torch.utils.profiling import stereo_batch
+
+    def stepper(loss_fn, nesterov):
+        def step_fn(model):
+            opt = make_optimizer(model.parameters(), 0.01, momentum=0.9, weight_decay=1e-4,
+                                 nesterov=nesterov)
+
+            def step(*args):
+                *inputs, target = args
+                model.train()
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model(*inputs), target)
+                loss.backward()
+                opt.step()
+                return loss.detach(), None
+
+            step.optimizer, step.loss_fn = opt, loss_fn
+            return step
+        return step_fn
+
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    cfg32 = _train_cfg("")
+    cfg16 = dataclasses.replace(cfg32, model=dataclasses.replace(cfg32.model, dtype="bfloat16"))
+
+    def build_unet(cfg, backend):
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, cspn_backend=backend))
+        return build_model(cfg, train=True, device="cuda", seed=0)
+
+    models = _bf16_step_models(build_unet, cfg32, cfg16)
+    ds = SyntheticDepthDataset(length=8, hw=tuple(cfg32.data.crop_hw), n_sample=cfg32.data.n_sample,
+                               seed=1)
+    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(8)])).cuda()
+    # ground truth 1 to 2 above or below the float32 prediction (train_slice's
+    # rule): no L1 derivative flips its sign under rounding
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        pred = models["float32"](x)
+    side = torch.where(torch.rand(pred.shape, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+    depth = pred + side * (1.0 + torch.rand(pred.shape, device="cuda", generator=gen))
+    per = d2s_per_forward(models["bf16 kernel"])
+    got = _bf16_step(name, "nyu_train", models, stepper(LOSSES["l1"], True), (x,), depth,
+                     dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=1, cspn2d_bwd=1, d2s=per,
+                          s2d=per))
+    for k, v in got.items():
+        launches[k] += v
+    del models
+
+    scfg32 = StereoConfig()
+    scfg16 = dataclasses.replace(scfg32, dtype="bfloat16")
+
+    def build_stereo(cfg, backend):
+        if backend == "reference":  # the plain twin and the oracle: the kernels' gate rounding
+            return plain_stereo_twin(cfg, train=True, seed=0)
+        return build_stereo_model(cfg, train=True, device="cuda", seed=0)
+
+    left, right, disp = stereo_batch(scfg32, scfg32.batch_size, seed=0)
+    models = _bf16_step_models(build_stereo, scfg32, scfg16)
+    models["float32"].cspn_gate_dtype = torch.float32  # the float32 step as the float32 paths run it
+
+    def stereo_loss(out, d):
+        return smooth_l1_disparity_loss(out, d, scfg32.max_disp)
+
+    got = _bf16_step(name, "stereo", models, stepper(stereo_loss, False), (left, right), disp,
+                     dict(dict.fromkeys(KERNEL_NAMES, 0), cspn3d_fwd=1, cspn3d_bwd=1))
+    for k, v in got.items():
+        launches[k] += v
     return launches
 
 
@@ -3012,7 +3496,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/12] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/13] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -3020,13 +3504,14 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/12] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/13] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/12] kernels against their plain versions")
+    log("[3/13] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
             check_paddle2d_kernel(name), check_step_probe(name), *check_halo_seg_kernels(name)]
+    check_cspn3d_bf16_gates(name, rows[2], rows[3])
     tiled["fwd_routes"] = time_fwd_routes(name)
     kernel_ms = {r["name"]: r["ms"] for r in rows}
     kernel_ms["cspn3d_fwd_kept"] = rows[2]["kept_states_ms"]  # the training forward
@@ -3034,36 +3519,46 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/12] nyu_eval served through DepthServer")
+    log("[4/13] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/12] nyu_train trained through Trainer.fit")
+    log("[5/13] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/12] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/13] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/12] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/13] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/12] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/13] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/12] kitti_benchmark trained through Trainer.fit")
+    log("[9/13] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/12] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/13] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/12] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/13] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/12] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/13] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
+
+    log("[13/13] precision: bf16 and int8 serving through load_server, bf16 training")
+    from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
+
+    serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
+                             PRECISION_INT8_FROM, PRECISION_REQUESTS, 8),
+             precision_serve(name, "kitti_benchmark", _kitti_cfg(), KITTI_BUCKETS, KITTI_INT8_FROM,
+                             KITTI_PRECISION_REQUESTS, KITTI_BUCKETS[-1])]
+    by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
+    by_path["precision_train"] = precision_train(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

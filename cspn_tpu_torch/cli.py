@@ -2,7 +2,8 @@
 
     python -m cspn_tpu_torch train --preset nyu_train --dataset synthetic --crop-hw 228,304
     python -m cspn_tpu_torch eval  --preset nyu_eval --dataset synthetic --runs 5
-    python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8
+    python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8,32 \
+        [--int8-from 8] [--act-static]
     python -m cspn_tpu_torch train-stereo --max-disp 192 --features 32 --prop-step 24 \
         --batch-size 4 --height 256 --width 512 [--train-list scene_flow.csv]
     python -m cspn_tpu_torch eval-stereo ... [--checkpoint best_model] [--dump-images]
@@ -15,10 +16,15 @@ synthetic stereo pairs unless --train-list names a Scene Flow manifest.
 `train` and `train-stereo` train data-parallel when a launcher (torchrun)
 starts them as ranks of a process group (parallel/distributed.py): one
 card a rank, `--mesh-data` x `--mesh-spatial` ranks (train/loop.py).
-The NYU/KITTI file datasets, export
-and the other subcommands wait for later slices (ROADMAP.md Queue 1), as
-does --dtype other than float32 (Queue 1 item 3), which raises.  --tf32
-computes float32 convolutions in TF32 (default off).
+`--dtype bfloat16` computes the conv nets in bf16 on float32 parameters
+(train, eval, infer, train-stereo, eval-stereo); `--dtype int8` serves
+(eval, infer) the bf16 model with int8 convs, `--act-static` with static
+activation scales calibrated at load.  `infer` serves through
+`load_server`: bf16 below `--int8-from`, int8 from it up.  The 2D and
+3D CSPNs run float32 states at every dtype.  The NYU/KITTI file
+datasets, export and the other subcommands wait for later slices
+(ROADMAP.md Queue 1).  --tf32 computes float32 convolutions in TF32
+(default off).
 """
 
 from __future__ import annotations
@@ -44,6 +50,12 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--cspn-backend", default=None, choices=["auto", "kernel", "reference"])
     p.add_argument("--best-model-dir", default=None,
                    help="directory of <checkpoint>.pt (a torch.save state dict)")
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16", "int8"],
+                   help="compute dtype of the conv net: bf16 on float32 parameters; int8 "
+                        "serves (eval, infer) the bf16 model with int8 convs")
+    p.add_argument("--act-static", dest="act_static", action="store_true",
+                   help="int8 serving: static activation scales calibrated at load (no "
+                        "abs-max reduce per quantized conv and call)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _add_tf32(p)
 
@@ -56,8 +68,6 @@ def _add_tf32(p: argparse.ArgumentParser):
 
 def _add_train_overrides(p: argparse.ArgumentParser):
     p.add_argument("--batch-size-train", type=int, default=None)
-    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16", "int8"],
-                   help="only float32 is ported (the others raise)")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--momentum", type=float, default=None)
     p.add_argument("--weight-decay", dest="weight_decay", type=float, default=None)
@@ -122,6 +132,8 @@ def _build_config(args):
             setattr(obj, dst, v)
     if args.no_cspn:
         model.use_cspn = False
+    if getattr(args, "act_static", False):
+        model.act_static = True
     cfg = dataclasses.replace(cfg, model=model, data=data, optim=optim)
     for src, dst in [("save_dir", "save_dir"), ("best_model_dir", "best_model_dir"),
                      ("pretrain_path", "pretrained_path"), ("mesh_data", "mesh_data"),
@@ -176,7 +188,8 @@ def cmd_infer(args):
 
     cfg = _build_config(args)
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    srv = load_server(cfg, buckets=buckets, device=args.device, tf32=args.tf32)
+    srv = load_server(cfg, buckets=buckets, device=args.device, tf32=args.tf32,
+                      int8_from=args.int8_from if args.int8_from > 0 else None)
     ds = build_dataset(cfg, "val", seed=args.seed)
     h, w = ds[0]["rgbd"].shape[:2]
     srv.warmup(h, w)
@@ -192,7 +205,7 @@ def cmd_infer(args):
     preds = np.concatenate(preds)
     if args.out:
         np.save(args.out, preds)
-    print(f"==> served {srv.served['float32']} frames of {h}x{w} on {srv.device} in "
+    print(f"==> served {srv.served} frames of {h}x{w} on {srv.device} in "
           f"{dt:.3f} s" + (f", wrote {args.out}" if args.out else ""))
     return preds
 
@@ -304,7 +317,8 @@ def _add_stereo_args(p: argparse.ArgumentParser):
     p.add_argument("--prop-step", type=int, default=12)
     p.add_argument("--no-cspn", action="store_true")
     p.add_argument("--dtype", dest="stereo_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="only float32 is ported (bfloat16 raises)")
+                   help="conv and activation dtype (bf16 on float32 parameters; the 3D CSPN "
+                        "and the disparity regression stay float32)")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--num-epoch", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=2)
@@ -340,6 +354,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common_overrides(p_inf)
     p_inf.add_argument("--buckets", default="1,8,32,128",
                        help="comma-separated batch buckets")
+    p_inf.add_argument("--int8-from", type=int, default=8,
+                       help="smallest bucket served int8 (<=0: bf16 only); default 8, the JAX "
+                            "package's v5e crossover")
     p_inf.add_argument("--max-frames", type=int, default=None)
     p_inf.add_argument("--seed", type=int, default=0)
     p_inf.add_argument("--out", default=None, help="save predictions to this .npy")

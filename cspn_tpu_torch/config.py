@@ -25,7 +25,7 @@ class ModelConfig:
     cspn_steps: int = 24
     cspn_norm_type: str = "8sum"  # '8sum' | '8sum_abs'
     cspn_backend: str = "auto"  # 'auto' | 'kernel' | 'reference' (ops/cspn.py)
-    dtype: str = "float32"  # 'float32' (ported) | 'bfloat16' | 'int8' (not yet)
+    dtype: str = "float32"  # 'float32' | 'bfloat16' | 'int8' (serving: the bf16 model, int8 convs)
     # modules kept high-precision under int8 serving (see CSPNUNet.quant_exclude)
     quant_exclude: tuple = ("gud_up_proj_layer4",)
     # int8 serving: static per-site activation scales calibrated at load

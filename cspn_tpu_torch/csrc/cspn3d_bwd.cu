@@ -13,6 +13,12 @@
 //             (x_t[p + off_d] = 0 outside the volume)
 //   x0bar     = v_0
 //
+// cspn3d_bwd_bf16 reads the gates in bf16, as the TPU backward does by
+// default (gate_dtype bf16, cspn3d_pallas.py:448,484-491): the adjoint
+// above at the rounded gates, c summed from them in f32 (the exact adjoint
+// of cspn3d_fwd_bf16); the gate cotangents come from the f32 states and do
+// not read the gates, so the pass is the same kernel.
+//
 // Both launches are in gather form: a thread writes only its own voxel, so
 // there are no atomics and the result is deterministic.
 //
@@ -42,20 +48,21 @@
 // HBM3 at 700 W (chip_smoke.py phase 3) the b4 backward takes 1.32 ms, 2.9x
 // faster than the 49-launch version and 13x its bound: the reverse sweep
 // 0.86 ms, the gate pass 0.42 ms.  Not carried over: the TPU kernel's
-// lane-unshifted gate layout, its XLA-side centre input, its H/W padding
-// and its checkpoints every <= 4 steps (VMEM).  What it leaves open: bf16
-// gates, and folding the gate cotangents into the sweep.
+// lane-unshifted gate layout, its XLA-side centre input (from the
+// unrounded gates, where this one sums the gates it reads), its H/W
+// padding and its checkpoints every <= 4 steps (VMEM).  What it leaves
+// open: folding the gate cotangents into the sweep.
 
 #include "cspn3d_common.cuh"  // sweep, launch_sweep, CSPN3D_FOR_SMEM_PLANES, off_*, inside3
 
 namespace {
 
-template <int kSmem, bool kLoop>
+template <int kSmem, bool kLoop, typename G>
 __global__ void __launch_bounds__(kSweepThreads, 1)
-    cspn3d_adj_sweep_kernel(const float* __restrict__ gates, const float* ct, float* x0bar,
+    cspn3d_adj_sweep_kernel(const G* __restrict__ gates, const float* ct, float* x0bar,
                             float* vs, int m, int d, int h, int w, int steps, int nslots,
                             int parts, int cols) {
-  sweep<kSmem, true, kLoop>(gates, ct, x0bar, vs, m, d, h, w, steps, nslots, parts, cols);
+  sweep<kSmem, true, kLoop, G>(gates, ct, x0bar, vs, m, d, h, w, steps, nslots, parts, cols);
 }
 
 // wbar_d[p] = sum_t v_{t+1}[p] (x_t[p + off_d] - x_t[p]), 26 accumulators
@@ -99,33 +106,22 @@ __global__ void __launch_bounds__(kThreads3d, 4) cspn3d_gate_grad_kernel(const f
   for (int dd = 0; dd < kGates3d; ++dd) out[dd * vol] = acc[dd];
 }
 
-cudaError_t launch_adjoint(int n_smem, const float* gates, const float* ct, float* x0bar,
+template <typename G>
+cudaError_t launch_adjoint(int n_smem, const G* gates, const float* ct, float* x0bar,
                            float* vs, int m, int d, int h, int w, int steps, int grid, int parts,
                            int cols, cudaStream_t s) {
   const bool loop = grid < (d + kSlab - 1) / kSlab * parts;
-#define CSPN3D_ADJ(S, L)                                                                   \
-  launch_sweep(cspn3d_adj_sweep_kernel<S, L>, S, gates, ct, x0bar, vs, m, d, h, w, steps, \
+#define CSPN3D_ADJ(S, L)                                                                      \
+  launch_sweep(cspn3d_adj_sweep_kernel<S, L, G>, S, gates, ct, x0bar, vs, m, d, h, w, steps, \
                steps - 1, grid, parts, cols, s)
   CSPN3D_FOR_SMEM_PLANES(loop, n_smem, CSPN3D_ADJ)
 #undef CSPN3D_ADJ
 }
 
-}  // namespace
-
-// Runs the whole backward on `stream`.  The caller allocates every buffer
-// (contiguous f32):
-//   gates [m,26,d,h,w], x0/ct [m,d,h,w], states [max(steps-1,0),m,d,h,w]
-//   (the forward's x_1..x_{T-1}) (inputs),
-//   wbar [m,26,d,h,w], x0bar [m,d,h,w] (outputs),
-//   vs [max(steps-1,0),m,d,h,w] (scratch: v_1..v_{T-1}).
-// (grid, parts, cols, n_smem) is plan_volume's plan.  Launches: steps == 0:
-// a copy and a memset; else the reverse sweep (cooperative) and the
-// gate-cotangent pass.  Returns the first CUDA error, else 0.
-extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* states,
-                              const float* ct, float* wbar, float* x0bar, float* vs, int m, int d,
-                              int h, int w, int steps, int grid, int parts, int cols, int n_smem,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename G>
+int run_bwd(const G* gates, const float* x0, const float* states, const float* ct, float* wbar,
+            float* x0bar, float* vs, int m, int d, int h, int w, int steps, int grid, int parts,
+            int cols, int n_smem, cudaStream_t s) {
   const long long vol = (long long)d * h * w;
   const long long plane = (long long)m * vol;
   cudaError_t err;
@@ -137,6 +133,35 @@ extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* 
   err = launch_adjoint(n_smem, gates, ct, x0bar, vs, m, d, h, w, steps, grid, parts, cols, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 pass_grid((unsigned)((vol + kThreads3d - 1) / kThreads3d), m);
-  cspn3d_gate_grad_kernel<<<pass_grid, kThreads3d, 0, s>>>(x0, states, vs, ct, wbar, m, d, h, w, steps);
+  cspn3d_gate_grad_kernel<<<pass_grid, kThreads3d, 0, s>>>(x0, states, vs, ct, wbar, m, d, h, w,
+                                                           steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Runs the whole backward on `stream`.  The caller allocates every buffer
+// (contiguous f32, the gates bf16 for cspn3d_bwd_bf16):
+//   gates [m,26,d,h,w], x0/ct [m,d,h,w], states [max(steps-1,0),m,d,h,w]
+//   (the forward's x_1..x_{T-1}) (inputs),
+//   wbar [m,26,d,h,w], x0bar [m,d,h,w] (outputs),
+//   vs [max(steps-1,0),m,d,h,w] (scratch: v_1..v_{T-1}).
+// (grid, parts, cols, n_smem) is plan_volume's plan at the gates' element
+// size.  Launches: steps == 0:
+// a copy and a memset; else the reverse sweep (cooperative) and the
+// gate-cotangent pass.  Returns the first CUDA error, else 0.
+extern "C" int cspn3d_bwd_f32(const float* gates, const float* x0, const float* states,
+                              const float* ct, float* wbar, float* x0bar, float* vs, int m, int d,
+                              int h, int w, int steps, int grid, int parts, int cols, int n_smem,
+                              void* stream) {
+  return run_bwd(gates, x0, states, ct, wbar, x0bar, vs, m, d, h, w, steps, grid, parts, cols,
+                 n_smem, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cspn3d_bwd_bf16(const __nv_bfloat16* gates, const float* x0, const float* states,
+                               const float* ct, float* wbar, float* x0bar, float* vs, int m,
+                               int d, int h, int w, int steps, int grid, int parts, int cols,
+                               int n_smem, void* stream) {
+  return run_bwd(gates, x0, states, ct, wbar, x0bar, vs, m, d, h, w, steps, grid, parts, cols,
+                 n_smem, static_cast<cudaStream_t>(stream));
 }

@@ -17,10 +17,17 @@
 // state; the grid synchronizes between steps.
 // ops/cspn3d_cuda.py:plan_volume computes (grid, parts, cols, n_smem) and
 // the wrapper passes them in.
+//
+// The gates are float32 or bf16 (G; bf16 is the JAX TPU route's default
+// gate dtype, cspn3d_pallas.py:188-191): read as stored and widened to
+// float32 at use; states, sums and the centre weight are float32 either
+// way.  At bf16 a voxel's shared-memory slot packs two gates a word
+// (slot_words), so more planes fit: all 26 of the stereo model's b4 volume.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,6 +51,42 @@ __device__ __forceinline__ int off_x(int d) { return off_index(d) % 3 - 1; }
 
 __device__ __forceinline__ bool inside3(int z, int y, int x, int d, int h, int w) {
   return z >= 0 && z < d && y >= 0 && y < h && x >= 0 && x < w;
+}
+
+// A gate widened to float32, and a float32 value stored as a gate (exact
+// for a value read from a gate of that type).
+__device__ __forceinline__ float gate_f(float g) { return g; }
+__device__ __forceinline__ float gate_f(__nv_bfloat16 g) { return __bfloat162float(g); }
+template <typename G>
+__device__ __forceinline__ G to_gate(float v);
+template <>
+__device__ __forceinline__ float to_gate<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_gate<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The 4-byte words of shared memory one voxel takes: its float32 centre
+// weight, then kSmem gates of type G (two bf16 a word), padded to an odd
+// count so that the 32 lanes of a warp, on consecutive voxels, hit 32 banks
+// (ops/cspn3d_cuda.py:slot_words).
+template <typename G>
+__host__ __device__ constexpr int slot_words(int smem) {
+  return sizeof(G) == 4 ? smem + 1 : (1 + smem / 2) | 1;
+}
+
+// Gate dd of a voxel's shared-memory slot, widened: float32 one a word,
+// bf16 read as the aligned pair that holds it.
+template <typename G>
+__device__ __forceinline__ float slot_gate(const float* slot, int dd);
+template <>
+__device__ __forceinline__ float slot_gate<float>(const float* slot, int dd) {
+  return slot[1 + dd];
+}
+template <>
+__device__ __forceinline__ float slot_gate<__nv_bfloat16>(const float* slot, int dd) {
+  const __nv_bfloat162 pair = reinterpret_cast<const __nv_bfloat162*>(slot + 1)[dd >> 1];
+  return (dd & 1) ? __high2float(pair) : __low2float(pair);
 }
 
 // a / b and a % b for 0 <= a < 2^22 through the float reciprocal inv_b:
@@ -92,19 +135,19 @@ __device__ __forceinline__ void load_plane(const float* src, int z, int col, int
 // Forward (kAdjoint false):
 //   x_{t+1}[p] = c[p] x_t[p] + sum_d w_d[p] x_t[p + off_d]
 // adjoint: v_t[q] = c[q] v_{t+1}[q] + sum_d w_d[q - off_d] v_{t+1}[q - off_d]
-// with c = 1 - sum_d w_d (all 26 gates, summed in d order) and a
-// neighbour outside the volume contributing 0.  kOnChip: the brick the
-// block holds in shared memory (sg: per voxel c and kSmem gates, stride
-// kSmem + 1), the other gates read from L2; else (kSmem 0) every gate and
-// c come from device memory, in the same order, so the result is the same.
-// A thread owns one column and marches up the brick with the 3x3x3 window
-// of the state around its voxel in registers, loading one plane of it per
-// voxel.
-template <int kSmem, bool kAdjoint, bool kOnChip>
-__device__ __forceinline__ void brick_step(const float* __restrict__ gm, const float* sg,
+// with c = 1 - sum_d w_d (all 26 gates as read, widened, summed in d
+// order) and a neighbour outside the volume contributing 0.  kOnChip: the
+// brick the block holds in shared memory (sg: per voxel c and kSmem gates,
+// slot_words<G>(kSmem) words a voxel), the other gates read from L2; else
+// (kSmem 0) every gate and c come from device memory, in the same order,
+// so the result is the same.  A thread owns one column and marches up the
+// brick with the 3x3x3 window of the state around its voxel in registers,
+// loading one plane of it per voxel.
+template <int kSmem, bool kAdjoint, bool kOnChip, typename G>
+__device__ __forceinline__ void brick_step(const G* __restrict__ gm, const float* sg,
                                            const float* src, float* dst, int z0, int part0,
                                            int cols, int d, int h, int w) {
-  constexpr int kStride = kSmem + 1;
+  constexpr int kStride = slot_words<G>(kSmem);
   const int hw = h * w;
   const int vol = hw * d;  // < 2^31: launch_sweep checks
   const int lane = threadIdx.x & 31;
@@ -138,7 +181,7 @@ __device__ __forceinline__ void brick_step(const float* __restrict__ gm, const f
         float gsum = 0.0f;
 #pragma unroll
         for (int dd = 0; dd < kGates3d; ++dd) {
-          gsum += own ? __ldg(gm + (long long)dd * vol + z * hw + col) : 0.0f;
+          gsum += own ? gate_f(__ldg(gm + (long long)dd * vol + z * hw + col)) : 0.0f;
         }
         acc = own ? (1.0f - gsum) * mid[4] : 0.0f;
       }
@@ -153,14 +196,15 @@ __device__ __forceinline__ void brick_step(const float* __restrict__ gm, const f
         const float nb = pl[3 * (sy + 1) + sx + 1];
         float g;
         if (kOnChip && dd < kSmem) {
-          g = own ? slot[1 + dd] : 0.0f;
+          g = own ? slot_gate<G>(slot, dd) : 0.0f;
         } else if (!kAdjoint) {
-          g = own ? __ldg(gm + (long long)dd * vol + z * hw + col) : 0.0f;
+          g = own ? gate_f(__ldg(gm + (long long)dd * vol + z * hw + col)) : 0.0f;
         } else {  // w_d at the source voxel, which must lie inside
           const bool ok = own && (sz < 0 ? zlo : sz > 0 ? zhi : true) &&
                           (sy < 0 ? ylo : sy > 0 ? yhi : true) &&
                           (sx < 0 ? xlo : sx > 0 ? xhi : true);
-          g = ok ? __ldg(gm + (long long)dd * vol + (z + sz) * hw + col + sy * w + sx) : 0.0f;
+          g = ok ? gate_f(__ldg(gm + (long long)dd * vol + (z + sz) * hw + col + sy * w + sx))
+                 : 0.0f;
         }
         acc = fmaf(g, nb, acc);
       }
@@ -197,15 +241,15 @@ __device__ __forceinline__ void brick_step(const float* __restrict__ gm, const f
 // see this step's stores).  kSmem, the gate planes in shared memory, is a
 // constant of the instantiation, so that where a gate comes from is
 // decided at compile time.
-template <int kSmem, bool kAdjoint, bool kLoop>
-__device__ __forceinline__ void sweep(const float* __restrict__ gates,  // [M,26,D,H,W]
+template <int kSmem, bool kAdjoint, bool kLoop, typename G>
+__device__ __forceinline__ void sweep(const G* __restrict__ gates,  // [M,26,D,H,W]
                                       const float* src0, float* out, float* states,
                                       int m_count, int d, int h, int w, int steps, int nslots,
                                       int parts, int cols) {
   static_assert(!kLoop || kSmem == 0, "a looping sweep holds no gates in shared memory");
   // per owned voxel its centre weight and kSmem gates, voxel-major: an odd
-  // stride (kSmem is even), so that the 32 lanes of a warp hit 32 banks
-  constexpr int kStride = kSmem + 1;
+  // stride in words, so that the 32 lanes of a warp hit 32 banks
+  constexpr int kStride = slot_words<G>(kSmem);
   extern __shared__ float sg[];  // [kSlab][cols][kStride]
   const int hw = h * w;
   const int vol = hw * d;  // < 2^31: launch_sweep checks
@@ -215,7 +259,7 @@ __device__ __forceinline__ void sweep(const float* __restrict__ gates,  // [M,26
   const int part0 = blockIdx.x % parts * cols;
 
   for (int m = 0; m < m_count; ++m) {
-    const float* gm = gates + (long long)m * kGates3d * vol;
+    const G* gm = gates + (long long)m * kGates3d * vol;
     for (int t = threadIdx.x; !kLoop && t < cols; t += kSweepThreads) {
       const int col = part0 + t;
       if (col >= hw) break;
@@ -230,16 +274,16 @@ __device__ __forceinline__ void sweep(const float* __restrict__ gates,  // [M,26
         float gsum = 0.0f;
 #pragma unroll
         for (int dd = 0; dd < kGates3d; ++dd) {
-          const float own_g = gm[(long long)dd * vol + idx];
-          gsum += own_g;
+          const G own_g = gm[(long long)dd * vol + idx];
+          gsum += gate_f(own_g);
           if (dd < kSmem) {
-            float v = own_g;
+            G v = own_g;
             if (kAdjoint) {
               const int sz = z - off_z(dd), sy = jj - off_y(dd), sx = k - off_x(dd);
               v = inside3(sz, sy, sx, d, h, w) ? gm[(long long)dd * vol + (sz * h + sy) * w + sx]
-                                               : 0.0f;
+                                               : to_gate<G>(0.0f);
             }
-            slot[1 + dd] = v;
+            reinterpret_cast<G*>(slot + 1)[dd] = v;
           }
         }
         slot[0] = 1.0f - gsum;
@@ -255,11 +299,11 @@ __device__ __forceinline__ void sweep(const float* __restrict__ gates,  // [M,26
       src += (long long)m * vol;
       dst += (long long)m * vol;
       if (!kLoop) {
-        brick_step<kSmem, kAdjoint, true>(gm, sg, src, dst, z0, part0, cols, d, h, w);
+        brick_step<kSmem, kAdjoint, true, G>(gm, sg, src, dst, z0, part0, cols, d, h, w);
       } else {
         for (int b = blockIdx.x; b < bricks; b += gridDim.x) {
-          brick_step<0, kAdjoint, false>(gm, sg, src, dst, b / parts * kSlab, b % parts * cols,
-                                         cols, d, h, w);
+          brick_step<0, kAdjoint, false, G>(gm, sg, src, dst, b / parts * kSlab,
+                                            b % parts * cols, cols, d, h, w);
         }
       }
       if (step < steps - 1) cg::this_grid().sync();  // the cooperative launch's grid barrier
@@ -270,8 +314,8 @@ __device__ __forceinline__ void sweep(const float* __restrict__ gates,  // [M,26
 // Launches `kernel` (its instantiation at n_smem gate planes in shared
 // memory, or the looping one at 0) cooperatively on `grid` blocks; refuses
 // a plan it cannot run.
-template <typename Kernel>
-cudaError_t launch_sweep(Kernel kernel, int n_smem, const float* gates, const float* src0,
+template <typename Kernel, typename G>
+cudaError_t launch_sweep(Kernel kernel, int n_smem, const G* gates, const float* src0,
                          float* out, float* states, int m, int d, int h, int w, int steps,
                          int nslots, int grid, int parts, int cols, cudaStream_t stream) {
   const long long hw = (long long)h * w;
@@ -284,7 +328,8 @@ cudaError_t launch_sweep(Kernel kernel, int n_smem, const float* gates, const fl
     return cudaErrorInvalidValue;
   }
   // the looping sweep keeps nothing in shared memory
-  const size_t smem = grid < bricks ? 0 : sizeof(float) * (size_t)(n_smem + 1) * kSlab * cols;
+  const size_t smem =
+      grid < bricks ? 0 : sizeof(float) * (size_t)slot_words<G>(n_smem) * kSlab * cols;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;

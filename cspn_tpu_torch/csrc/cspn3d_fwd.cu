@@ -12,7 +12,11 @@
 // out-of-volume neighbours contributing 0 while their gates still count in
 // the centre weight (cspn3d_pallas.py:295-297, :521).  The gates arrive
 // normalized (abs and per-voxel sum-normalization stay in PyTorch, as JAX
-// leaves them to XLA); all arithmetic is f32.
+// leaves them to XLA); all arithmetic is f32.  cspn3d_fwd_bf16 reads the
+// gates in bf16, the TPU kernel's default (gate_dtype None,
+// cspn3d_pallas.py:188-191,230): the same function on the rounded gates,
+// its centre weight 1 - sum_d w_d summed from them in f32, as _seg_kernel
+// sums it from its bf16 gate buffer.
 //
 // What bounds it on this card.  The fused op must read 26 gate planes and
 // x_0 and write one plane: 28 f32 planes, 176 MB for the stereo model's
@@ -48,24 +52,41 @@
 // than the per-step version and 15x its bound: 96 volume-steps of ~7 us,
 // of which ~4 us is the grid barrier and a step's latency (the slope on a
 // grid with one warp of work a block), the rest the stencil and the 8
-// planes read from L2.  Not carried
-// over from the TPU kernel: its lane-unshifted gates, H/W padding to 8/128
-// and K-step H-tile segments.  What it leaves open: bf16 gate storage (the
-// TPU kernel's default; it changes the function, and would keep all 26
-// planes on chip), fewer barriers (several steps a barrier on bricks with a
-// halo), and the gate normalization in front of the kernel (several
-// PyTorch passes).
+// planes read from L2.  With bf16 gates the bound's bytes fall to 15 f32
+// planes' worth (26 of 2 bytes, x_0 and the output), 93 MB, 0.028 ms; a
+// brick's 26 planes fit shared memory beside the centre weight (15 words a
+// voxel), so no gate is read from L2 during the steps.  Not carried over
+// from the TPU kernel: its lane-unshifted gates, H/W padding to 8/128 and
+// K-step H-tile segments.  What it leaves open: fewer barriers (several
+// steps a barrier on bricks with a halo), and the gate normalization in
+// front of the kernel (several PyTorch passes).
 
 #include "cspn3d_common.cuh"  // sweep, launch_sweep, CSPN3D_FOR_SMEM_PLANES
 
 namespace {
 
-template <int kSmem, bool kLoop>
+template <int kSmem, bool kLoop, typename G>
 __global__ void __launch_bounds__(kSweepThreads, 1)
-    cspn3d_fwd_sweep_kernel(const float* __restrict__ gates, const float* x0, float* out,
+    cspn3d_fwd_sweep_kernel(const G* __restrict__ gates, const float* x0, float* out,
                             float* states, int m, int d, int h, int w, int steps, int nslots,
                             int parts, int cols) {
-  sweep<kSmem, false, kLoop>(gates, x0, out, states, m, d, h, w, steps, nslots, parts, cols);
+  sweep<kSmem, false, kLoop, G>(gates, x0, out, states, m, d, h, w, steps, nslots, parts, cols);
+}
+
+template <typename G>
+int run_fwd(const G* gates, const float* x0, float* out, float* states, int m, int d, int h,
+            int w, int steps, int nslots, int grid, int parts, int cols, int n_smem,
+            cudaStream_t s) {
+  if (steps <= 0) {
+    return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * d * h * w,
+                                            cudaMemcpyDeviceToDevice, s));
+  }
+  const bool loop = grid < (d + kSlab - 1) / kSlab * parts;
+#define CSPN3D_FWD(S, L)                                                                      \
+  launch_sweep(cspn3d_fwd_sweep_kernel<S, L, G>, S, gates, x0, out, states, m, d, h, w, steps, \
+               nslots, grid, parts, cols, s)
+  CSPN3D_FOR_SMEM_PLANES(loop, n_smem, CSPN3D_FWD)
+#undef CSPN3D_FWD
 }
 
 }  // namespace
@@ -83,24 +104,22 @@ extern "C" int cspn3d_device_limits(int* sms, int* smem_optin) {
 }
 
 // Runs the whole forward on `stream`: one cooperative launch (a copy when
-// steps == 0).  The caller allocates every buffer (contiguous f32): gates
-// [m,26,d,h,w], x0/out [m,d,h,w], states [nslots,m,d,h,w]: nslots =
-// steps-1 keeps x_1..x_{T-1} for the backward, nslots = 2 (or steps-1 if
-// less) lets them go, two buffers in turn.  (grid, parts, cols, n_smem) is
-// plan_volume's plan.
-// Returns the launch's cudaError_t, else 0.
+// steps == 0).  The caller allocates every buffer (contiguous): gates
+// [m,26,d,h,w] (f32, or bf16 for cspn3d_fwd_bf16), x0/out [m,d,h,w] f32,
+// states [nslots,m,d,h,w] f32: nslots = steps-1 keeps x_1..x_{T-1} for the
+// backward, nslots = 2 (or steps-1 if less) lets them go, two buffers in
+// turn.  (grid, parts, cols, n_smem) is plan_volume's plan at the gates'
+// element size.  Returns the launch's cudaError_t, else 0.
 extern "C" int cspn3d_fwd_f32(const float* gates, const float* x0, float* out, float* states,
                               int m, int d, int h, int w, int steps, int nslots, int grid,
                               int parts, int cols, int n_smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (steps <= 0) {
-    return static_cast<int>(cudaMemcpyAsync(out, x0, sizeof(float) * (size_t)m * d * h * w,
-                                            cudaMemcpyDeviceToDevice, s));
-  }
-  const bool loop = grid < (d + kSlab - 1) / kSlab * parts;
-#define CSPN3D_FWD(S, L)                                                                   \
-  launch_sweep(cspn3d_fwd_sweep_kernel<S, L>, S, gates, x0, out, states, m, d, h, w, steps, \
-               nslots, grid, parts, cols, s)
-  CSPN3D_FOR_SMEM_PLANES(loop, n_smem, CSPN3D_FWD)
-#undef CSPN3D_FWD
+  return run_fwd(gates, x0, out, states, m, d, h, w, steps, nslots, grid, parts, cols, n_smem,
+                 static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cspn3d_fwd_bf16(const __nv_bfloat16* gates, const float* x0, float* out,
+                               float* states, int m, int d, int h, int w, int steps, int nslots,
+                               int grid, int parts, int cols, int n_smem, void* stream) {
+  return run_fwd(gates, x0, out, states, m, d, h, w, steps, nslots, grid, parts, cols, n_smem,
+                 static_cast<cudaStream_t>(stream));
 }

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cspn_tpu_torch.models.resnet import conv
+from cspn_tpu_torch.models.resnet import BatchNorm2d, conv
 from cspn_tpu_torch.ops.d2s import depth_to_space2
 
 
@@ -126,15 +126,17 @@ def subpixel_unpool_conv(x: torch.Tensor, w: torch.Tensor, oheight: int,
 
 
 class SubpixelUnpoolConv(nn.Conv2d):
-    """`unpool2x -> crop -> k x k conv` computed by `subpixel_unpool_conv`.
-    The parameter is the plain bias-free conv's (`weight`, OIHW), so state
-    dicts are interchangeable with the plain form."""
+    """`unpool2x -> crop -> k x k conv` computed by `subpixel_unpool_conv`,
+    in the input's dtype (the weight is cast before the reindex, which
+    moves data only: JAX's decoder.py:199-205).  The parameter is the plain
+    bias-free conv's (`weight`, OIHW), so state dicts are interchangeable
+    with the plain form."""
 
     def __init__(self, cin: int, features: int, kernel: int):
         super().__init__(cin, features, kernel, padding=(kernel - 1) // 2, bias=False)
 
     def forward(self, x, oheight: int, owidth: int):
-        return subpixel_unpool_conv(x, self.weight, oheight, owidth)
+        return subpixel_unpool_conv(x, self.weight.to(x.dtype), oheight, owidth)
 
 
 def _unpool_conv(cin: int, features: int, kernel: int, subpixel: bool) -> nn.Conv2d:
@@ -164,11 +166,11 @@ class UpProj(nn.Module):
     def __init__(self, cin: int, features: int):
         super().__init__()
         self.conv1 = conv(cin, features, 5)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = conv(features, features, 3)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.sc_conv1 = conv(cin, features, 5)
-        self.sc_bn1 = nn.BatchNorm2d(features)
+        self.sc_bn1 = BatchNorm2d(features)
 
     def forward(self, x, oheight: int = 0, owidth: int = 0):
         x = unpool2x(x, oheight or 2 * x.shape[2], owidth or 2 * x.shape[3])
@@ -184,11 +186,11 @@ class GudiUpProj(_UnpoolBlock):
         super().__init__()
         self.subpixel = subpixel
         self.conv1 = _unpool_conv(cin, features, 5, subpixel)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = conv(features, features, 3)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.sc_conv1 = _unpool_conv(cin, features, 5, subpixel)
-        self.sc_bn1 = nn.BatchNorm2d(features)
+        self.sc_bn1 = BatchNorm2d(features)
 
     def forward(self, x, oheight: int, owidth: int):
         out, sc = self._up(x, oheight, owidth, self.conv1, self.sc_conv1)
@@ -204,13 +206,13 @@ class GudiUpProjCat(_UnpoolBlock):
         super().__init__()
         self.subpixel = subpixel
         self.conv1 = _unpool_conv(cin, features, 5, subpixel)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv1_1 = conv(features + side_channels, features, 3)
-        self.bn1_1 = nn.BatchNorm2d(features)
+        self.bn1_1 = BatchNorm2d(features)
         self.conv2 = conv(features, features, 3)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.sc_conv1 = _unpool_conv(cin, features, 5, subpixel)
-        self.sc_bn1 = nn.BatchNorm2d(features)
+        self.sc_bn1 = BatchNorm2d(features)
 
     def forward(self, x, side_input, oheight: int, owidth: int):
         out, sc = self._up(x, oheight, owidth, self.conv1, self.sc_conv1)
@@ -230,7 +232,7 @@ class GudiUpConv(_UnpoolBlock):
         super().__init__()
         self.subpixel = subpixel
         self.conv1 = _unpool_conv(cin, features, 5, subpixel)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
 
     def forward(self, x, oheight: int, owidth: int):
         (out,) = self._up(x, oheight, owidth, self.conv1)

@@ -16,6 +16,18 @@ skip3 = layer1 output, skip2 = layer2 output.
 BatchNorm is `nn.BatchNorm2d` at torch defaults (eps 1e-5, momentum 0.1):
 biased batch variance to normalize, unbiased variance in the running-stat
 update -- the semantics the JAX package's `_TorchStatsBatchNorm` emulates.
+
+Mixed precision (the JAX modules' `dtype`): the activations' dtype flows
+from the model's input.  A conv computes in its input's dtype, casting a
+float32 master weight to a bf16 input's (`Conv2d`; JAX's `nn.Conv(dtype=)`);
+a BN (`BatchNorm2d`, `BatchNorm3d`) takes a bf16 input with float32
+(training) or bf16 (serving, utils/precision.py) parameters and writes
+bf16.  Its batch statistics are float32, JAX's promote(dtype, f32)
+(resnet.py:65-69); the normalization runs in the promoted dtype of its
+input, statistics and parameters, as JAX's does (resnet.py:96-112): float32
+rounded once on float32 parameters, and on the serving weights in bf16,
+each of x - mean, rsqrt(var + eps) * scale, the product and + bias rounded
+in turn.
 """
 
 from __future__ import annotations
@@ -55,14 +67,55 @@ def init_weights(module: nn.Module, generator: torch.Generator | None = None) ->
             he_normal_(m.weight, generator)
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in its input's dtype: a float32 weight is cast
+    to a bf16 input's (the master weight keeps its dtype and its gradient)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
+class Conv3d(nn.Conv3d):
+    """`nn.Conv3d` computing in its input's dtype, as `Conv2d`."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
+class NormInPromotedDtype:
+    """Batch-norm mixin: eval-mode normalization in the promoted dtype of
+    the input, the running statistics and the parameters, as the JAX
+    package's BatchNorm computes it (resnet.py:96-112).  Where that is bf16
+    (the serving weights cast by utils/precision.py), each op rounds to
+    bf16 in JAX's order; elsewhere torch's batch norm, which normalizes in
+    float32 and rounds once."""
+
+    def forward(self, x):
+        if self.training or self.running_mean is None or torch.promote_types(
+                torch.promote_types(x.dtype, self.running_mean.dtype),
+                self.weight.dtype) != torch.bfloat16:
+            return super().forward(x)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+class BatchNorm2d(NormInPromotedDtype, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` normalizing in the JAX package's dtype (module docstring)."""
+
+
+class BatchNorm3d(NormInPromotedDtype, nn.BatchNorm3d):
+    """`nn.BatchNorm3d` normalizing in the JAX package's dtype, as `BatchNorm2d`."""
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     """Bias-free conv with torch-style symmetric padding."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
     # downsample.0 = conv, downsample.1 = bn (torchvision _make_layer names)
-    return nn.Sequential(conv(cin, cout, 1, stride), nn.BatchNorm2d(cout))
+    return nn.Sequential(conv(cin, cout, 1, stride), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -71,9 +124,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 3, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv(planes, planes, 3)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = _downsample(inplanes, planes, stride) if downsample else None
 
     def forward(self, x):
@@ -89,11 +142,11 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv(planes, planes, 3, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = _downsample(inplanes, planes * 4, stride) if downsample else None
 
     def forward(self, x):
@@ -115,8 +168,8 @@ class ResNetEncoder(nn.Module):
         super().__init__()
         block_cls = BLOCKS[block]
         self.expansion = block_cls.expansion
-        self.conv1_1 = nn.Conv2d(in_channels, in_stem_features, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(in_stem_features)
+        self.conv1_1 = Conv2d(in_channels, in_stem_features, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(in_stem_features)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes = in_stem_features
         for stage, (planes, n_blocks, stride) in enumerate(
@@ -130,7 +183,7 @@ class ResNetEncoder(nn.Module):
                 inplanes = planes * self.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*blocks))
         self.conv2 = conv(inplanes, 512 * self.expansion, 3)
-        self.bn2 = nn.BatchNorm2d(512 * self.expansion)
+        self.bn2 = BatchNorm2d(512 * self.expansion)
 
     def forward(self, x):
         skips = {}

@@ -20,7 +20,11 @@ package's `conv3d_batched2d` is a TPU rewrite of a 3x3x3 conv; here it is
 `(d - 1) // 2 + 1` is the same.  BN is torch's (eps 1e-5, momentum 0.1), the
 semantics the JAX package's BatchNorm emulates.  The heads, the CSPN and
 the regression run in float32 (float64 stays float64), as the JAX model
-casts its heads to float32.
+casts its heads to float32.  `dtype=torch.bfloat16` (or 'bfloat16') runs
+the feature extractor, the cost volume, the hourglass and the heads' conv
+in bf16 on float32 parameters (the JAX modules' `dtype`, stereo.py:39-68):
+the inputs are cast once and every conv and BN follows its input's dtype
+(models/resnet.py).
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cspn_tpu_torch.models.resnet import conv, he_normal_
+from cspn_tpu_torch.models.resnet import BatchNorm2d, BatchNorm3d, Conv3d, conv, he_normal_
 from cspn_tpu_torch.ops.cspn import cspn_nd
 from cspn_tpu_torch.ops.resize import resize_trilinear
 from cspn_tpu_torch.parallel.halo import cspn_nd_spatial
+from cspn_tpu_torch.utils.precision import torch_dtype
 
 # PSMNetCSPN.forward's stages, in order (utils/profiling.py times each)
 STAGES = ("feature extractor", "cost volume", "hourglass", "heads", "3D CSPN",
@@ -53,7 +58,7 @@ class _ConvBnRelu(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
         self.conv = conv(cin, features, 3, stride)
-        self.bn = nn.BatchNorm2d(features)
+        self.bn = BatchNorm2d(features)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))
@@ -71,7 +76,7 @@ class StereoFeatureExtractor(nn.Module):
         for i in range(2):  # residual refinement
             setattr(self, f"res{i}a", _ConvBnRelu(2 * f, 2 * f))
             setattr(self, f"res{i}b", conv(2 * f, 2 * f, 3))
-            setattr(self, f"res{i}bn", nn.BatchNorm2d(2 * f))
+            setattr(self, f"res{i}bn", BatchNorm2d(2 * f))
         self.proj = conv(2 * f, f, 1)  # no bn/relu on matching features
 
     def forward(self, x):
@@ -98,8 +103,9 @@ def build_cost_volume(fl: torch.Tensor, fr: torch.Tensor, num_disp: int) -> torc
 
 
 def conv3d(cin: int, cout: int, stride: int = 1) -> nn.Conv3d:
-    """Bias-free 3x3x3 conv, padding 1 (the JAX package's Conv3d)."""
-    return nn.Conv3d(cin, cout, 3, stride=stride, padding=1, bias=False)
+    """Bias-free 3x3x3 conv, padding 1 (the JAX package's Conv3d), in its
+    input's dtype."""
+    return Conv3d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
 class Hourglass3D(nn.Module):
@@ -114,7 +120,7 @@ class Hourglass3D(nn.Module):
                   ("up0", "bnu0", 2 * f, f, 1))
         for conv_name, bn_name, cin, cout, stride in layers:
             setattr(self, conv_name, conv3d(cin, cout, stride))
-            setattr(self, bn_name, nn.BatchNorm3d(cout))
+            setattr(self, bn_name, BatchNorm3d(cout))
 
     def forward(self, x):
         x0 = torch.relu(self.bn0(self.conv0(x)))
@@ -134,9 +140,12 @@ class PSMNetCSPN(nn.Module):
     `generator` seeds the JAX package's init of every conv (he_normal, the
     two heads lecun_normal); without one the convs keep PyTorch's default
     init.  `guidance_zero_init` zeroes the 26-gate guidance head (the CSPN
-    is then an exact identity).  `cspn_backend` is ops/cspn.py's.
-    `spatial_mesh` (parallel/mesh.py:make_mesh) runs the 3D CSPN with the
-    cost volume's D axis split over the mesh and halo exchange
+    is then an exact identity).  `cspn_backend` is ops/cspn.py's, and the
+    attribute `cspn_gate_dtype` (None) its `gate_dtype`: None reads the 3D
+    gates in bf16 on the kernels and in float32 on the reference, as the
+    JAX package's backends do; a plain twin of the kernel route sets it to
+    bf16.  `spatial_mesh` (parallel/mesh.py:make_mesh) runs the 3D CSPN
+    with the cost volume's D axis split over the mesh and halo exchange
     (`spatial_halo` K; None: the cost model's), as the JAX model does."""
 
     def __init__(
@@ -153,10 +162,10 @@ class PSMNetCSPN(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype {dtype!r} is not ported yet (ROADMAP.md Queue 1 item 12: bf16 mixed "
-                "precision); the stereo model runs float32")
+        self.dtype = torch_dtype(dtype)
+        if dtype == "int8":
+            raise ValueError("the stereo model has no int8 form")
+        self.cspn_gate_dtype = None
         self.max_disp = max_disp
         self.cspn_steps = cspn_steps
         self.use_cspn = use_cspn
@@ -183,8 +192,9 @@ class PSMNetCSPN(nn.Module):
         when given, is called after each of STAGES."""
         mark = mark or (lambda stage: None)
         n, h, w, _ = left.shape
-        fl = self.feature(left.permute(0, 3, 1, 2).contiguous())
-        fr = self.feature(right.permute(0, 3, 1, 2).contiguous())
+        dt = left.dtype if self.dtype is None else self.dtype
+        fl = self.feature(left.permute(0, 3, 1, 2).contiguous().to(dt))
+        fr = self.feature(right.permute(0, 3, 1, 2).contiguous().to(dt))
         mark(STAGES[0])
         cost = build_cost_volume(fl, fr, self.max_disp // 4)
         mark(STAGES[1])
@@ -196,7 +206,7 @@ class PSMNetCSPN(nn.Module):
         wk = self.cost_head.weight
         if self.use_cspn:
             wk = torch.cat([wk, self.guidance3d_head.weight])
-        heads = F.conv3d(cost, wk, padding=1)
+        heads = F.conv3d(cost, wk.to(cost.dtype), padding=1)
         heads = heads.to(torch.promote_types(heads.dtype, torch.float32))
         logits = heads[:, :1]
         mark(STAGES[3])
@@ -206,7 +216,8 @@ class PSMNetCSPN(nn.Module):
                                      channel_first=True)
         elif self.use_cspn:
             logits = cspn_nd(heads[:, 1:], logits, kernel_size=3, steps=self.cspn_steps,
-                             backend=self.cspn_backend, channel_first=True)
+                             backend=self.cspn_backend, channel_first=True,
+                             gate_dtype=self.cspn_gate_dtype)
         mark(STAGES[4])
         full = resize_trilinear(logits, (self.max_disp, h, w), channel_first=True)[:, 0]
         # softmax disparity regression over the D axis

@@ -11,6 +11,15 @@ conv).
 
 Input: [N, H, W, 4] RGBD, as in the JAX package; channel 3 is the sparse
 depth used for anchoring.  Output: [N, H, W] dense depth.  Inside, NCHW.
+
+`dtype=torch.bfloat16` runs the conv net in bf16 (the JAX model's
+`dtype`, unet.py:88-90): the input is cast once, every conv and BN follows
+its input's dtype (models/resnet.py), the heads are cast back to float32
+and the 2D CSPN runs float32 at every dtype.  `quant` swaps the encoder's
+block convs and the decoder body's convs for int8 ones
+(utils/quant.py:QuantConv; JAX unet.py:91-101,126-154): the stem, the
+heads, the modules named in `quant_exclude` and the CSPN keep their
+precision.  Serving only: a model with `quant` refuses training.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from cspn_tpu_torch.models.decoder import (
 from cspn_tpu_torch.models.resnet import ResNetEncoder, init_weights
 from cspn_tpu_torch.ops.cspn import cspn2d
 from cspn_tpu_torch.parallel.halo import cspn2d_spatial
+from cspn_tpu_torch.utils import quant as quant_lib
 
 
 def ceil_half_chain(h: int, w: int, n: int = 5) -> list[tuple[int, int]]:
@@ -54,7 +64,10 @@ class CSPNUNet(ResNetEncoder):
     under the same keys.  `spatial_mesh` (parallel/mesh.py:make_mesh) runs
     the CSPN with the image rows split over the mesh and halo exchange
     (`spatial_halo` K; None: the cost model's), in place of `cspn_backend`
-    and `cspn_io_dtype`, as the JAX model does."""
+    and `cspn_io_dtype`, as the JAX model does.  `dtype`, `quant` and
+    `quant_exclude` are the module docstring's; an excluded name is a
+    decoder block (gud_up_proj_layer1..4) or 'encoder' (layer1..4 and
+    conv2)."""
 
     def __init__(
         self,
@@ -69,6 +82,9 @@ class CSPNUNet(ResNetEncoder):
         subpixel: bool = True,
         spatial_mesh=None,
         spatial_halo: int | None = None,
+        dtype: torch.dtype | None = None,
+        quant: bool = False,
+        quant_exclude: Sequence[str] = ("gud_up_proj_layer4",),
     ):
         super().__init__(block, layers)
         e = self.expansion
@@ -90,6 +106,21 @@ class CSPNUNet(ResNetEncoder):
             self.gud_up_proj_layer6 = GudiUpConvLast(64, 8, subpixel)
         if generator is not None:
             init_weights(self, generator)
+        self.dtype = dtype
+        self.quant = quant
+        if quant:
+            names = ["gud_up_proj_layer1", "gud_up_proj_layer2", "gud_up_proj_layer3",
+                     "gud_up_proj_layer4"]
+            if "encoder" not in quant_exclude:
+                names += ["layer1", "layer2", "layer3", "layer4", "conv2"]
+            for name in names:
+                if name not in quant_exclude:
+                    self.add_module(name, quant_lib.quantize_convs(getattr(self, name)))
+
+    def train(self, mode: bool = True):
+        if mode and self.quant:
+            raise ValueError("int8 quantization is serving-only (round has no gradient)")
+        return super().train(mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim != 4 or x.shape[-1] != 4:
@@ -97,13 +128,16 @@ class CSPNUNet(ResNetEncoder):
         h, w = x.shape[1:3]
         sizes = ceil_half_chain(h, w, 5)
         sparse_depth = x[..., 3].contiguous()
-        feats, skips = super().forward(x.permute(0, 3, 1, 2).contiguous())
+        x_net = x.permute(0, 3, 1, 2).contiguous()
+        feats, skips = super().forward(x_net if self.dtype is None else x_net.to(self.dtype))
         d = self.gud_up_proj_layer1(feats, *sizes[4])
         d = self.gud_up_proj_layer2(d, skips["skip2"], *sizes[3])
         d = self.gud_up_proj_layer3(d, skips["skip3"], *sizes[2])
         d = self.gud_up_proj_layer4(d, skips["skip4"], *sizes[1])
+        # the heads go back to float32 (float64 stays) for the CSPN
+        head_dtype = torch.promote_types(d.dtype, torch.float32)
         if not self.use_cspn:
-            return self.gud_up_proj_layer5(d, *sizes[0])[:, 0]
+            return self.gud_up_proj_layer5(d, *sizes[0])[:, 0].to(head_dtype)
         # one 9-channel head conv (channel 0 = depth, 1..8 = affinity): the
         # two heads' weights keep their own modules and are concatenated
         # along cout, the JAX package's fused head (unet.py:156-181); in the
@@ -111,11 +145,12 @@ class CSPNUNet(ResNetEncoder):
         # depth_to_space2 to the full size
         w_heads = torch.cat(
             [self.gud_up_proj_layer5.conv1.weight, self.gud_up_proj_layer6.conv1.weight]
-        )
+        ).to(d.dtype)
         if self.subpixel:
             heads = subpixel_unpool_conv(d, w_heads, *sizes[0])
         else:
             heads = F.conv2d(unpool2x(d, *sizes[0]), w_heads, padding=1)
+        heads = heads.to(head_dtype)
         if self.spatial_mesh is not None:
             return cspn2d_spatial(
                 heads[:, 1:],

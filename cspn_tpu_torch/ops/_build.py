@@ -46,12 +46,13 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "cspn3d_fwd": (
         "cspn3d_fwd.cu",
-        {"cspn3d_fwd_f32": [_c_void_p] * 4 + [_c_int] * 10 + [_c_void_p],
+        {**{f"cspn3d_fwd_{t}": [_c_void_p] * 4 + [_c_int] * 10 + [_c_void_p]
+            for t in ("f32", "bf16")},
          "cspn3d_device_limits": [_c_int_p] * 2},
     ),
     "cspn3d_bwd": (
         "cspn3d_bwd.cu",
-        {"cspn3d_bwd_f32": [_c_void_p] * 7 + [_c_int] * 9 + [_c_void_p]},
+        {f"cspn3d_bwd_{t}": [_c_void_p] * 7 + [_c_int] * 9 + [_c_void_p] for t in ("f32", "bf16")},
     ),
     "d2s": (
         "d2s.cu",

@@ -12,7 +12,12 @@ Backends:
 `cspn_nd` on CUDA with kernel_size 3 runs the 2D or 3D kernels at every
 size (no fallback to the reference by size, unlike cspn_pallas.py:1492-1494);
 other kernel sizes, for which the JAX package has no kernel either, run the
-reference under 'auto'.
+reference under 'auto'.  The 3D kernels read their gates in bf16 by
+default, the JAX TPU route's `gate_dtype` (cspn_pallas.py:1484-1501 ->
+cspn3d_pallas.py:188-191), and the reference is the exact float32 function,
+as JAX's reference backend; `gate_dtype` picks either on either route (the
+kernel route at float32, the reference at bf16: ops/cspn3d_cuda.py's plain
+version of the bf16 route).
 """
 
 from __future__ import annotations
@@ -107,11 +112,14 @@ def cspn_nd(
     steps: int = 24,
     backend: str = "auto",
     channel_first: bool = False,
+    gate_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Multi-step 2D/3D CSPN module (paddle demo semantics); see
     cspn_ref.cspn_nd_reference.  guide is [N, *spatial, C*(k^n-1)] and feat
     [N, *spatial, C], or [N, C*(k^n-1), *spatial] and [N, C, *spatial] with
-    channel_first=True."""
+    channel_first=True.  `gate_dtype` is the 3D gates' (module docstring;
+    None: bf16 on the kernels, float32 on the reference); the 2D op reads
+    float32 gates only."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     on_cuda = feat.device.type == "cuda"
@@ -121,11 +129,15 @@ def cspn_nd(
             "use 'reference' (or 'auto') on the CPU"
         )
     ndim = feat.ndim - 2
+    if gate_dtype not in (None, torch.float32) and not (ndim == 3 and kernel_size == 3):
+        raise ValueError(f"gate_dtype {gate_dtype} is the 3D kernels' (kernel_size 3); "
+                         f"the {ndim}D op reads float32 gates")
     if on_cuda and backend != "reference":
         if ndim == 3 and kernel_size == 3:
             from cspn_tpu_torch.ops.cspn3d_cuda import cspn3d_cuda
 
-            return cspn3d_cuda(guide, feat, steps=steps, channel_first=channel_first)
+            return cspn3d_cuda(guide, feat, steps=steps, channel_first=channel_first,
+                               gate_dtype=gate_dtype or torch.bfloat16)
         if ndim == 2 and kernel_size == 3:
             from cspn_tpu_torch.ops.cspn_paddle2d_cuda import cspn2d_paddle_cuda
 
@@ -134,6 +146,11 @@ def cspn_nd(
                                       channel_first=channel_first)
         if backend == "kernel":
             raise NotImplementedError(f"no CSPN kernel for {ndim}D with kernel_size {kernel_size}")
+    if gate_dtype not in (None, torch.float32):  # the plain version of the kernels' bf16 route
+        from cspn_tpu_torch.ops.cspn3d_cuda import cspn3d_reference
+
+        return cspn3d_reference(guide, feat, steps=steps, channel_first=channel_first,
+                                gate_dtype=gate_dtype)
     g = guide.movedim(1, -1) if channel_first else guide
     f = feat.movedim(1, -1) if channel_first else feat
     out = cspn_ref.cspn_nd_reference(g, f, kernel_size=kernel_size, steps=steps)

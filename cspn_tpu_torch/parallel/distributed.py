@@ -19,6 +19,8 @@ import time
 import torch
 import torch.distributed as dist
 
+_FILE = "file://"
+
 
 def initialize_multihost(
     init_method: str | None = None,
@@ -35,9 +37,13 @@ def initialize_multihost(
     the environment) and when a group exists.  Under a launcher (torchrun),
     the group is joined from the environment, at any world size.
 
-    Every attempt waits at most `timeout_s` for the rendezvous; a failed
-    attempt (workers racing the first process at start-up) is retried
-    `retries` times with linear backoff before the error propagates."""
+    Every attempt waits at most `timeout_s` for the rendezvous (and the
+    group's collectives at most as long); a failed attempt (workers racing
+    the first process at start-up) is retried `retries` times with linear
+    backoff before the error propagates.  A `file://` rendezvous takes the
+    rest of the string as the store's path, as it is: torch's URL parsing
+    would cut a path at a '?' or '#' (two runs whose paths share the part
+    before one would meet in one store)."""
     if dist.is_initialized():
         return
     if init_method is None and world_size is None and "WORLD_SIZE" in os.environ:
@@ -48,8 +54,11 @@ def initialize_multihost(
     last_err: Exception | None = None
     for attempt in range(max(retries, 1)):
         try:
-            dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                                    rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+            kw = (dict(store=dist.FileStore(init_method[len(_FILE):], world_size))
+                  if init_method and init_method.startswith(_FILE)
+                  else dict(init_method=init_method))
+            dist.init_process_group(backend, world_size=world_size, rank=rank,
+                                    timeout=datetime.timedelta(seconds=timeout_s), **kw)
             return
         except (RuntimeError, ValueError) as e:  # DistStoreError is a RuntimeError
             last_err = e

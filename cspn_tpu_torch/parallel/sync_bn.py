@@ -2,7 +2,7 @@
 the JAX package's GSPMD train step, which computes BatchNorm's batch
 statistics over the whole sharded batch: cspn_tpu/train/loop.py:1-12).
 
-`SyncBatchNorm` keeps the semantics of the port's `nn.BatchNorm2d`
+`SyncBatchNorm` keeps the semantics of the port's `BatchNorm2d`
 (models/resnet.py): eps 1e-5, momentum 0.1, the batch's biased variance to
 normalize, and a running variance that is unbiased over the GLOBAL count.
 In training mode each call gathers every rank's per-channel count, mean
@@ -12,8 +12,8 @@ cancels) and normalizes with them in one fused pass (eval-mode
 `F.batch_norm` on the global statistics); its backward all-reduces the
 two per-channel sums of the input gradient, sum dy and sum dy * x_hat.
 The weight and bias gradients stay this rank's, for DistributedDataParallel
-to average.  In eval mode it is a plain batch norm on the running
-statistics.
+to average.  In eval mode it is the port's batch norm on the running
+statistics (models/resnet.py: normalizing in the JAX package's dtype).
 
 One implementation on both devices: `torch.nn.SyncBatchNorm` refuses CPU
 tensors, so the CPU tests could not hold it against the JAX package.
@@ -29,13 +29,17 @@ from torch import nn
 from torch.nn import functional as F
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from cspn_tpu_torch.models.resnet import NormInPromotedDtype
+
 
 def _stats(x: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(global count, mean [C], biased variance [C]) of x [N, C, ...] over
-    every rank of `group`."""
+    every rank of `group`, in promote(x's dtype, float32): a bf16 input's
+    statistics are float32, as JAX's BatchNorm takes them."""
     dims = [0, *range(2, x.ndim)]
     count = x.numel() // x.shape[1]
-    var, mean = torch.var_mean(x, dims, correction=0)  # one pass
+    var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)), dims,
+                               correction=0)  # one pass
     part = torch.cat([mean.new_full((1,), float(count)), mean, var * count])
     parts = [torch.empty_like(part) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, part, group=group)
@@ -68,6 +72,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         dims = [0, *range(2, dy.ndim)]
         shape = (1, -1, *[1] * (dy.ndim - 2))
         x_hat = torch.addcmul((-mean * invstd).view(shape), x, invstd.view(shape))
+        out_dtype, dy = dy.dtype, dy.to(x_hat.dtype)  # a bf16 cotangent sums in float32
         sum_dy = dy.sum(dims)
         sum_dy_xhat = (dy * x_hat).sum(dims)
         sums = torch.cat([sum_dy, sum_dy_xhat])
@@ -77,12 +82,12 @@ class _SyncBatchNorm(torch.autograd.Function):
         scale = weight * invstd
         dx = torch.addcmul((-scale * g_dy / n).view(shape), x_hat,
                            (-scale * g_dy_xhat / n).view(shape))
-        dx = torch.addcmul(dx, dy, scale.view(shape))
+        dx = torch.addcmul(dx, dy, scale.view(shape)).to(out_dtype)
         # this rank's parameter gradients; DistributedDataParallel averages them
         return dx, sum_dy_xhat, sum_dy, None, None, None, None, None
 
 
-class SyncBatchNorm(_BatchNorm):
+class SyncBatchNorm(NormInPromotedDtype, _BatchNorm):
     """Batch norm whose training-mode statistics span every rank of
     `group` (None: the default process group).  Affine and tracking
     running statistics, as the port's models build their batch norms."""

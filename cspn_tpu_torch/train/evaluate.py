@@ -24,17 +24,17 @@ from cspn_tpu_torch.train.factory import build_dataset
 from cspn_tpu_torch.train.logging import format_error
 from cspn_tpu_torch.train.loss import LOSSES
 from cspn_tpu_torch.train.metrics import METRIC_KEYS, evaluate_error
+from cspn_tpu_torch.utils.precision import cast_floating, torch_dtype
+from cspn_tpu_torch.utils.quant import build_act_calibration, build_weight_qcache
 
 
 def build_model(cfg: RunConfig, train: bool = False, device=None, seed: int | None = 0) -> CSPNUNet:
     """The configured CSPNUNet on `device` (default cuda), in train or eval
     mode; `seed` (None: PyTorch's default init) seeds the he_normal init
-    with a torch.Generator on that device."""
-    if cfg.model.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.model.dtype!r} is not ported yet (ROADMAP.md Queue 1: "
-            "bf16/int8 serving); this slice serves float32"
-        )
+    with a torch.Generator on that device.  cfg.model.dtype 'bfloat16'
+    computes the conv net in bf16 on float32 parameters; 'int8' is the bf16
+    model with int8 convs (`quant`), and only for serving: a training model
+    stays bf16 (cspn_tpu/train/loop.py:43-63)."""
     dev = resolve_device(device)
     block, layers = LAYERS[int(cfg.model.arch.replace("resnet", ""))]
     model = CSPNUNet(
@@ -45,6 +45,9 @@ def build_model(cfg: RunConfig, train: bool = False, device=None, seed: int | No
         use_cspn=cfg.model.use_cspn,
         cspn_backend=cfg.model.cspn_backend,
         cspn_io_dtype=cfg.model.cspn_io_dtype,
+        dtype=torch_dtype(cfg.model.dtype),
+        quant=cfg.model.dtype == "int8" and not train,
+        quant_exclude=tuple(cfg.model.quant_exclude),
     ).to(dev)
     if seed is not None:
         init_weights(model, torch.Generator(dev).manual_seed(seed))
@@ -88,20 +91,39 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
     `<cfg.best_model_dir>/<checkpoint>.pt` when it exists, else random
     weights (seed 0) with a warning.  `<checkpoint>.pt` may be a bare state
     dict or a training checkpoint of train/checkpoint.py.  The JAX
-    package's Orbax checkpoints need JAX to read and are not read here."""
+    package's Orbax checkpoints need JAX to read and are not read here.
+
+    Serving precision (cspn_tpu/train/evaluate.py:28-106): at 'bfloat16'
+    and 'int8' every floating tensor is cast to bf16 at load
+    (utils/precision.py:cast_floating; checkpoints keep float32 masters).
+    At 'int8' the QuantConvs' weights are quantized once
+    (utils/quant.py:build_weight_qcache), and with cfg.model.act_static the
+    static activation scales are calibrated on up to 8 frames of the val
+    split (utils/quant.py:build_act_calibration)."""
     model = build_model(cfg, train=False, device=device)
     if jax_variables is not None:
         load_jax_variables(model, jax_variables)
         print("==> loaded converted JAX parameters")
-        return model
-    path = os.path.join(cfg.best_model_dir, f"{checkpoint}.pt")
-    if os.path.exists(path):
-        sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
-        # a training checkpoint (train/checkpoint.py) holds the state dict under "model"
-        model.load_state_dict(sd["model"] if "model" in sd else sd)
-        print(f"==> loaded {path}")
     else:
-        print(f"==> WARNING: no {path}; random params")
+        path = os.path.join(cfg.best_model_dir, f"{checkpoint}.pt")
+        if os.path.exists(path):
+            sd = torch.load(path, map_location=next(model.parameters()).device, weights_only=True)
+            # a training checkpoint (train/checkpoint.py) holds the state dict under "model"
+            model.load_state_dict(sd["model"] if "model" in sd else sd)
+            print(f"==> loaded {path}")
+        else:
+            print(f"==> WARNING: no {path}; random params")
+    if cfg.model.dtype in ("bfloat16", "int8"):
+        model.load_state_dict(cast_floating(model.state_dict()), assign=True)
+    if cfg.model.dtype == "int8":
+        build_weight_qcache(model)
+        print("==> cached int8 weight quantization (per output channel, load time)")
+        if cfg.model.act_static:
+            ds = build_dataset(cfg, "val", seed=0)
+            dev = next(model.parameters()).device
+            calib = np.stack([ds[i]["rgbd"] for i in range(min(8, len(ds)))])
+            build_act_calibration(model, [torch.from_numpy(calib).to(dev)])
+            print("==> calibrated static int8 activation scales (load time)")
     return model
 
 

@@ -56,7 +56,7 @@ class StereoConfig:
     features: int = 32
     cspn_steps: int = 24
     use_cspn: bool = True
-    dtype: str = "float32"  # only float32 is ported (bfloat16 raises)
+    dtype: str = "float32"  # or "bfloat16": the convs in bf16 on float32 parameters
     lr: float = 1e-3
     num_epochs: int = 10
     batch_size: int = 4

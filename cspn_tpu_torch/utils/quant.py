@@ -1,0 +1,243 @@
+"""int8 serving quantization of the conv stack (counterpart of
+cspn_tpu/utils/quant.py).
+
+Post-training quantization, the JAX package's scheme:
+  - weights: symmetric int8 per output channel, scale = max|w| / 127 over
+    (cin, kh, kw) -- an OIHW weight's dims 1-3;
+  - activations: symmetric int8 per sample, dynamic (abs-max of each
+    sample, computed at every call) or static (a per-site scale calibrated
+    once at load, `build_act_calibration`: no reduce per call, saturating
+    outside the calibrated range);
+  - the conv multiplies s8 x s8 and sums in int32 (exact), then
+    dequantizes as y * (x_scale * w_scale) into the activations' dtype
+    (bf16 in the int8 model: cspn_tpu/train/loop.py:44-45).
+
+Rounding is half to even (`torch.round`, as `jnp.round`), by dividing by
+the scale, in the scale's own dtype, then clipping to +-127 (never -128),
+so the quantized tensors equal the JAX package's bit for bit
+(tests/test_torch_quant.py).
+
+The int8 conv is no Pallas kernel in the JAX package
+(`lax.conv_general_dilated` with int32 accumulation, quant.py:89-96), so
+here it is a library call: im2col by strided slices of the padded int8
+input (one int8 copy of the taps; `F.unfold` takes no int8 tensor) and
+`torch._int_mm`, int8 x int8 -> int32 on the CPU and, through cuBLASLt, on
+the card.  `_int_mm` on CUDA takes M > 16 rows and K, N multiples of 8;
+`int8_matmul` pads with zero rows and columns where a shape falls short
+(M at a tiny map, K and N never at the models' widths) and refuses nothing
+else: a shape `_int_mm` still refuses raises, no float conv runs instead.
+
+`QuantConv` is an `nn.Conv2d` with the same float `weight`, so state dicts
+stay interchangeable with the float models; `quantize_convs` swaps a
+model's convs for it.  `build_weight_qcache` quantizes every QuantConv's
+weights once at load (the subpixel decoder's phase-split kernels each with
+their own per-channel scales, as JAX's cache holds them); without the
+cache a QuantConv quantizes its weight at every call, as JAX's does.
+Serving only: `round` has no gradient, so the models refuse `quant` in
+training.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cspn_tpu_torch.models.decoder import SubpixelUnpoolConv, _subpixel_convs
+from cspn_tpu_torch.ops.d2s import depth_to_space2
+
+# _int_mm on CUDA: more than 16 rows, K and N multiples of 8
+_MIN_ROWS = 17
+_ALIGN = 8
+
+
+def quantize_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric dynamic int8, per sample (dims 1-3) for a 4D tensor, else
+    over the whole tensor: (q int8, scale in x's dtype) with x ~= q * scale."""
+    scale = x.abs().amax(dim=(1, 2, 3), keepdim=True) if x.ndim == 4 else x.abs().amax()
+    scale = scale.clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_tensor_static(x: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with a calibrated scale: round and clip, no reduce."""
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per output channel of an OIHW weight: (q int8,
+    scale [O] in w's dtype) with w ~= q * scale[:, None, None, None]."""
+    amax = w.abs().amax(dim=tuple(range(1, w.ndim)))
+    scale = torch.where(amax > 0, amax, 1.0) / 127.0
+    q = torch.clamp(torch.round(w.float() / scale.view(-1, *[1] * (w.ndim - 1))), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _pad_to(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def weight_matrix(wq: torch.Tensor) -> torch.Tensor:
+    """An int8 OIHW weight as the [O', K'] matrix `int8_matmul` takes:
+    rows in (kh, kw, cin) order, the taps' order of `_taps`, zero-padded
+    to multiples of 8 (contiguous; its transpose is the column-major B)."""
+    o = wq.shape[0]
+    m = wq.permute(0, 2, 3, 1).reshape(o, -1)
+    k = m.shape[1]
+    return F.pad(m, (0, _pad_to(k, _ALIGN) - k, 0, _pad_to(o, _ALIGN) - o))
+
+
+def int8_matmul(a: torch.Tensor, w_mat: torch.Tensor, n_out: int) -> torch.Tensor:
+    """a [M, K] int8 times w_mat [O', K'] int8 (weight_matrix) transposed:
+    [M, n_out] int32, exact.  Rows are padded to more than 16 and K to
+    w_mat's K' with zeros, which add nothing."""
+    m, k = a.shape
+    rows = max(m, _MIN_ROWS)
+    if rows != m or k != w_mat.shape[1]:
+        a = F.pad(a, (0, w_mat.shape[1] - k, 0, rows - m))
+    return torch._int_mm(a, w_mat.t())[:m, :n_out]
+
+
+def _taps(xq: torch.Tensor, k: tuple[int, int], stride: int,
+          pad: tuple[tuple[int, int], tuple[int, int]]) -> tuple[torch.Tensor, int, int]:
+    """im2col of an int8 NCHW input: [N * Ho * Wo, kh * kw * C] in (kh,
+    kw, C) order, and (Ho, Wo)."""
+    n, c, h, w = xq.shape
+    (ph0, ph1), (pw0, pw1) = pad
+    x = F.pad(xq.permute(0, 2, 3, 1), (0, 0, pw0, pw1, ph0, ph1))  # NHWC
+    ho = (h + ph0 + ph1 - k[0]) // stride + 1
+    wo = (w + pw0 + pw1 - k[1]) // stride + 1
+    taps = [x[:, i : i + stride * (ho - 1) + 1 : stride, j : j + stride * (wo - 1) + 1 : stride]
+            for i in range(k[0]) for j in range(k[1])]
+    return torch.stack(taps, 3).reshape(n * ho * wo, k[0] * k[1] * c), ho, wo
+
+
+def int8_conv_prequant(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                       stride: int, pad, out_dtype: torch.dtype,
+                       w_mat: torch.Tensor | None = None) -> torch.Tensor:
+    """The conv of a quantized input (xq int8 NCHW, xs its scale) with
+    quantized weights (wq int8 OIHW, ws [O]; `w_mat` their cached
+    weight_matrix): s8 x s8 -> s32, dequantized as y * (xs * ws) into
+    `out_dtype`.  `pad` is ((lo, hi) of H, (lo, hi) of W).  Returns NCHW
+    (a channels-last view)."""
+    n, o = xq.shape[0], wq.shape[0]
+    a, ho, wo = _taps(xq, wq.shape[2:], stride, pad)
+    y = int8_matmul(a, weight_matrix(wq) if w_mat is None else w_mat, o).view(n, ho, wo, o)
+    scale = xs.reshape(-1, 1, 1, 1) * ws
+    return (y.float() * scale).to(out_dtype).permute(0, 3, 1, 2)
+
+
+class QuantConv(nn.Conv2d):
+    """A bias-free conv with int8 execution: the `nn.Conv2d` parameter
+    (OIHW `weight`) it replaces, quantized per output channel.
+
+    `subpixel` makes it the decoder's `unpool2x -> crop -> conv` pair in its
+    subpixel form (models/decoder.py:subpixel_unpool_conv): forward(x,
+    oheight, owidth) runs the same convs on the int8 input -- the four
+    exact phase kernels from 128 output channels, the zero-padded reindexed
+    kernel below -- each quantized per its own output channels, one
+    activation quantization shared by them, and `depth_to_space2` of the
+    dequantized phases.
+
+    `qcache` holds the load-time weight cache (`build_weight_qcache`):
+    [(wq, ws, weight_matrix(wq))] a conv; without it the weight is
+    quantized at every call.  `act_max` holds the calibrated abs-max of the
+    input (`build_act_calibration`), making the activation scale static;
+    while `calibrating`, each call records it and quantizes dynamically."""
+
+    def __init__(self, conv: nn.Conv2d, subpixel: bool = False):
+        super().__init__(conv.in_channels, conv.out_channels, conv.kernel_size,
+                         stride=conv.stride, padding=conv.padding, bias=False,
+                         device="meta")
+        if conv.bias is not None or conv.groups != 1 or conv.dilation != (1, 1):
+            raise ValueError(f"{conv}: only bias-free, ungrouped, undilated convs are quantized")
+        self.weight = conv.weight  # the same parameter: state dict keys and values stay
+        self.subpixel = subpixel
+        self.qcache: list | None = None
+        self.act_max: torch.Tensor | None = None
+        self.calibrating = False
+
+    def _convs(self, w: torch.Tensor) -> list:
+        """(kernel, (lo, hi) of H, (lo, hi) of W) of each conv this module runs."""
+        if self.subpixel:
+            return _subpixel_convs(w)
+        p = self.padding
+        return [(w, (p[0], p[0]), (p[1], p[1]))]
+
+    def quantized_weights(self) -> list:
+        """[(wq, ws, weight_matrix(wq))] of `_convs`, from the cache when built."""
+        if self.qcache is not None:
+            return self.qcache
+        return [(*q, None) for q in (quantize_weights(k) for k, _, _ in self._convs(self.weight))]
+
+    def _quantize_input(self, x: torch.Tensor):
+        if self.calibrating:
+            amax = x.abs().amax().float()
+            self.act_max = amax if self.act_max is None else torch.maximum(self.act_max, amax)
+        elif self.act_max is not None:
+            return quantize_tensor_static(x, self.act_max.clamp_min(1e-12) / 127.0)
+        return quantize_tensor(x)
+
+    def forward(self, x: torch.Tensor, oheight: int | None = None, owidth: int | None = None):
+        xq, xs = self._quantize_input(x)
+        pads = [(ph, pw) for _, ph, pw in self._convs(self.weight)]
+        ys = [int8_conv_prequant(xq, xs, wq, ws, self.stride[0], pad, x.dtype, w_mat)
+              for (wq, ws, w_mat), pad in zip(self.quantized_weights(), pads)]
+        if not self.subpixel:
+            return ys[0]
+        return depth_to_space2(ys[0] if len(ys) == 1 else torch.cat(ys, 1), oheight, owidth)
+
+
+def quantize_convs(module: nn.Module) -> nn.Module:
+    """`module` with every conv in it swapped for a QuantConv holding the
+    same weight (models/decoder.py's SubpixelUnpoolConv for a subpixel
+    one); returns the module, or its QuantConv if it is a conv itself."""
+    if isinstance(module, QuantConv):
+        return module
+    if isinstance(module, nn.Conv2d):
+        return QuantConv(module, isinstance(module, SubpixelUnpoolConv))
+    for name, child in module.named_children():
+        module.add_module(name, quantize_convs(child))
+    return module
+
+
+def quant_convs(model: nn.Module) -> dict[str, QuantConv]:
+    """The model's QuantConvs by module name."""
+    return {k: m for k, m in model.named_modules() if isinstance(m, QuantConv)}
+
+
+@torch.no_grad()
+def build_weight_qcache(model: nn.Module) -> dict[str, list]:
+    """Quantize every QuantConv's weights once (at serving load) into its
+    `qcache`; returns {module name: qcache}, a conv's kernels in `_convs`
+    order (the subpixel decoder's phase kernels px-major, as JAX's cache)."""
+    convs = quant_convs(model)
+    for m in convs.values():
+        m.qcache = None  # quantize the weight as it is now
+        m.qcache = [(wq, ws, weight_matrix(wq)) for wq, ws, _ in m.quantized_weights()]
+    return {name: m.qcache for name, m in convs.items()}
+
+
+@torch.inference_mode()
+def build_act_calibration(model: nn.Module, batches) -> dict[str, torch.Tensor]:
+    """Calibrate static per-site activation scales: run `batches` through
+    the model recording each QuantConv input's abs-max (the calibration
+    pass itself quantizes dynamically); returns {module name: abs-max}, the
+    JAX package's 'acal' collection.  Later calls quantize with the static
+    scales."""
+    convs = quant_convs(model)
+    for m in convs.values():
+        m.act_max, m.calibrating = None, True
+    try:
+        n = 0
+        for xb in batches:
+            model(xb)
+            n += 1
+        if n == 0:
+            raise ValueError("calibration needs at least one batch")
+    finally:
+        for m in convs.values():
+            m.calibrating = False
+    return {k: m.act_max for k, m in convs.items()}

@@ -8,6 +8,8 @@ Inputs come from numpy seeds and cross as numpy arrays.  Tolerances:
   - the plain 3D propagation and its autograd VJP against the TPU kernels
     `affinity_propagate3d_fused` / `affinity_propagate3d_fused_bwd` run in
     interpret mode with float32 gates: rtol 1e-5, atol 1e-5 (24 steps);
+    the plain version of the bf16-gate route against them at bf16 gates:
+    test_plain_bf16_gate_propagation_matches_the_tpu_kernels;
   - gradients against `jax.grad` of the reference: rtol 1e-4, atol 1e-6,
     away from exactly-zero guidance (ROADMAP.md Queue 3, trap 7:
     `jnp.abs`'(0) = 1, torch and the JAX custom VJP take sign(0) = 0);
@@ -106,6 +108,72 @@ def test_plain_3d_propagation_matches_the_tpu_kernels(shape, steps):
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape, steps", [((2, 3, 5, 7), 24), ((3, 1, 1, 1), 2)])
+def test_plain_bf16_gate_propagation_matches_the_tpu_kernels(shape, steps):
+    """The plain version of the kernels' bf16-gate route (gate_dtype
+    bfloat16: the float32 sweep on the gates rounded to bf16) against the
+    TPU kernels at their default bf16 gates, in interpret mode.  Forward:
+    the same function (rtol 1e-5, atol 1e-6; it differs from the float32
+    route by ~1e-4).  Backward: the exact adjoint at the rounded gates, so
+    JAX's backward given the rounded gates at float32 (rtol 1e-5, atol
+    1e-5, 24 steps); against JAX's backward at bf16, whose centre weight
+    1 - sum_d w_d it takes from the unrounded gates (cspn3d_pallas.py:484)
+    where its forward and the port take it from the rounded ones, 1e-2 of
+    the largest cotangent (measured 5.5e-3 where every gate of the
+    1-voxel volume falls outside it)."""
+    rng = np.random.default_rng(sum(shape) + steps)
+    gates = _gates(rng, (shape[0], *shape[1:]), 26).transpose(0, 4, 1, 2, 3).copy()
+    gates[0, :, :1, :2, :3] = 0.0
+    rounded = np.asarray(jnp.asarray(gates, jnp.bfloat16).astype(jnp.float32))
+    x0 = rng.standard_normal(shape).astype(np.float32)
+    ct = rng.standard_normal(shape).astype(np.float32)
+    want = np.asarray(cspn3d_pallas.affinity_propagate3d_fused(
+        jnp.asarray(x0), jnp.asarray(gates), steps=steps, interpret=True))
+    g = torch.from_numpy(gates).requires_grad_(True)
+    x = torch.from_numpy(x0).requires_grad_(True)
+    got = cspn3d_cuda.propagate3d(g, x, steps=steps, gate_dtype=torch.bfloat16)
+    got_w, got_x = torch.autograd.grad(got, (g, x), torch.from_numpy(ct))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-6)
+    exact_w, exact_x = cspn3d_pallas.affinity_propagate3d_fused_bwd(
+        jnp.asarray(x0), jnp.asarray(rounded), jnp.asarray(ct), steps=steps, interpret=True,
+        gate_dtype=jnp.float32)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(exact_w), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(exact_x), rtol=1e-5, atol=1e-5)
+    bf16_w, bf16_x = cspn3d_pallas.affinity_propagate3d_fused_bwd(
+        jnp.asarray(x0), jnp.asarray(gates), jnp.asarray(ct), steps=steps, interpret=True)
+    for a, b in ((got_w, bf16_w), (got_x, bf16_x)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-2 * np.abs(b).max())
+    # the float32 route is another function; the CPU's cspn_nd stays it
+    f32 = cspn3d_cuda.propagate3d(torch.from_numpy(gates), torch.from_numpy(x0), steps=steps)
+    assert not torch.equal(f32, got.detach()) or steps < 3
+    assert torch.equal(cspn3d_cuda.round_gates(g, torch.float32), g)
+    with pytest.raises(ValueError, match="gate_dtype"):
+        cspn3d_cuda.propagate3d(g, x, steps=steps, gate_dtype=torch.float16)
+
+
+def test_cspn_nd_gate_dtype_picks_the_route():
+    """cspn_nd on the CPU: the exact float32 reference by default (JAX's
+    reference backend); gate_dtype bfloat16 the plain version of the
+    kernels' bf16 route, in either layout; the 2D op refuses bf16 gates."""
+    rng = np.random.default_rng(11)
+    guide = torch.from_numpy(rng.standard_normal((2, 3, 5, 7, 26)).astype(np.float32))
+    feat = torch.from_numpy(rng.standard_normal((2, 3, 5, 7, 1)).astype(np.float32))
+    exact = cspn_ref.cspn_nd_reference(guide, feat, steps=4)
+    assert torch.equal(cspn_nd(guide, feat, steps=4), exact)
+    bf16 = cspn_nd(guide, feat, steps=4, gate_dtype=torch.bfloat16)
+    assert torch.equal(bf16, cspn3d_cuda.cspn3d_reference(guide, feat, steps=4,
+                                                          gate_dtype=torch.bfloat16))
+    assert torch.equal(bf16, cspn3d_cuda.cspn3d_cuda(guide, feat, steps=4,
+                                                     gate_dtype=torch.bfloat16))
+    cf = cspn_nd(guide.movedim(-1, 1), feat.movedim(-1, 1), steps=4, gate_dtype=torch.bfloat16,
+                 channel_first=True)
+    assert torch.equal(cf.movedim(1, -1), bf16)
+    assert 0 < (bf16 - exact).abs().max() < 1e-2 * exact.abs().max()
+    with pytest.raises(ValueError, match="float32 gates"):
+        cspn_nd(guide[:, 0, ..., :8], feat[:, 0], steps=4, gate_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("ndim, c", [(2, 2), (3, 1), (3, 2)])

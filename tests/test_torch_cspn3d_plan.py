@@ -85,6 +85,26 @@ def test_plan_volume_at_the_paths_shapes():
     assert deep.loops and wide.loops and not full_hd.loops
 
 
+def test_plan_volume_at_both_gate_dtypes():
+    """bf16 gates pack two a shared-memory word beside the float32 centre
+    weight (slot_words, odd for the banks): every path's volume keeps all 26
+    planes on chip at bf16, where float32 keeps 18 (stereo b4, demo3d) or
+    22 (the sharded segment)."""
+    assert [cspn3d_cuda.slot_words(n, 4) for n in (0, 18, 26)] == [1, 19, 27]
+    assert [cspn3d_cuda.slot_words(n, 2) for n in (0, 2, 18, 24, 26)] == [1, 3, 11, 13, 15]
+    for dhw, f32_planes in (((48, 64, 128), 18), ((40, 64, 128), 22), ((4, 9, 13), 26)):
+        f32 = cspn3d_cuda.plan_volume(*dhw, H100_SMS, H100_SMEM)
+        bf16 = cspn3d_cuda.plan_volume(*dhw, H100_SMS, H100_SMEM, gate_bytes=2)
+        assert (f32.n_smem, bf16.n_smem, bf16.n_l2) == (f32_planes, 26, 0)
+        assert (bf16.blocks, bf16.cols, bf16.parts) == (f32.blocks, f32.cols, f32.parts)
+        assert bf16.smem_bytes == 4 * 15 * cspn3d_cuda.SLAB * bf16.cols <= H100_SMEM
+    # a card with less shared memory: bf16 still fits more planes than float32
+    f32, bf16 = (cspn3d_cuda.plan_volume(48, 64, 128, H100_SMS, 120_000, gate_bytes=b)
+                 for b in (4, 2))
+    assert f32.n_smem < bf16.n_smem < 26 and bf16.smem_bytes <= 120_000
+    assert cspn3d_cuda.slot_words(bf16.n_smem + 2, 2) * 4 * cspn3d_cuda.SLAB * bf16.cols > 120_000
+
+
 def test_plan_volume_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="empty"):
         cspn3d_cuda.plan_volume(0, 64, 128, H100_SMS, H100_SMEM)
@@ -131,10 +151,11 @@ def _plain_backward_on_states(gates, x0, states, ct, steps):
 def plain_kernels(monkeypatch):
     """`_launch` / `_launch_bwd` replaced by plain versions with the
     kernels' interfaces; records what each call was given."""
-    calls = {"fwd": [], "bwd": []}
+    calls = {"fwd": [], "bwd": [], "gate_dtypes": []}
 
     def fake_launch(gates, x0, steps, keep_states=False):
-        xs = _plain_states(gates, x0, steps)
+        calls["gate_dtypes"].append(gates.dtype)
+        xs = _plain_states(gates.float(), x0, steps)  # the kernels widen bf16 gates
         states = torch.stack(xs[1:-1]) if keep_states and steps > 1 else (
             x0.new_empty((0, *x0.shape)) if keep_states else None)
         calls["fwd"].append((keep_states, states))
@@ -142,7 +163,8 @@ def plain_kernels(monkeypatch):
 
     def fake_launch_bwd(gates, x0, states, ct, steps):
         calls["bwd"].append(states)
-        return _plain_backward_on_states(gates, x0, list(states), ct, steps)
+        calls["gate_dtypes"].append(gates.dtype)
+        return _plain_backward_on_states(gates.float(), x0, list(states), ct, steps)
 
     monkeypatch.setattr(cspn3d_cuda, "_launch", fake_launch)
     monkeypatch.setattr(cspn3d_cuda, "_launch_bwd", fake_launch_bwd)
@@ -174,6 +196,27 @@ def test_backward_on_kept_states_matches_the_tpu_kernel(plain_kernels, shape, st
         gate_dtype=jnp.float32)
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_gate_route_hands_both_kernels_the_rounded_gates(plain_kernels):
+    """gate_dtype bfloat16: the forward and the backward kernel get the same
+    bf16 gates (the backward's adjoint at the rounded gates), the gate
+    cotangent comes back float32 for the unrounded gates, and the whole
+    equals autograd of the plain version of the route."""
+    g, x0, ct, gt, xt = _inputs(5, (2, 3, 5, 7), True)
+    out = cspn3d_cuda._run(gt, xt, 6, torch.bfloat16)
+    got_w, got_x = torch.autograd.grad(out, (gt, xt), torch.from_numpy(ct))
+    assert plain_kernels["gate_dtypes"] == [torch.bfloat16] * 2
+    assert got_w.dtype == torch.float32
+    gp, xp = (torch.from_numpy(a).requires_grad_(True) for a in (g, x0))
+    want = cspn3d_cuda.propagate3d_reference(gp, xp, steps=6, gate_dtype=torch.bfloat16)
+    want_w, want_x = torch.autograd.grad(want, (gp, xp), torch.from_numpy(ct))
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got_w, want_w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_x, want_x, rtol=1e-5, atol=1e-6)
+    with torch.no_grad():  # a forward no backward follows rounds the same way
+        cspn3d_cuda._run(gt, xt, 6, torch.bfloat16)
+    assert plain_kernels["gate_dtypes"][-1] == torch.bfloat16
 
 
 @pytest.mark.parametrize("case", ["no_grad", "inputs_without_grad", "gates_only", "x0_only"])

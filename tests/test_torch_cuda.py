@@ -261,6 +261,44 @@ def test_cspn3d_kernels_match_plain(gen, shape, steps):
         assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
 
 
+@pytest.mark.parametrize("steps", [0, 1, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (4, 5, 13, 17), (4, 48, 64, 128),
+                                   (1, 96, 64, 128)])
+def test_cspn3d_kernels_on_bf16_gates_match_plain(gen, shape, steps):
+    """gate_dtype bfloat16: the kernels on the gates rounded to bf16 (all 26
+    planes on chip at the stereo volume; the looping sweep at 96 deep)
+    against the plain sweep on the same rounding, forward and backward."""
+    gates = _gates3d(gen, *shape, zero_corner=True)
+    x0 = torch.randn(shape, device="cuda", generator=gen)
+    ct = torch.randn(shape, device="cuda", generator=gen)
+    gk, xk = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    got = cspn3d_cuda.propagate3d(gk, xk, steps=steps, gate_dtype=torch.bfloat16)
+    got_grads = torch.autograd.grad(got, (gk, xk), ct)
+    gp, xp = gates.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+    want = cspn3d_cuda.propagate3d_reference(gp, xp, steps=steps, gate_dtype=torch.bfloat16)
+    # at 0 steps the plain version reads no gate: their gradient is zero
+    want_grads = torch.autograd.grad(want, (gp, xp), ct, allow_unused=True,
+                                     materialize_grads=True)
+    torch.cuda.synchronize()
+    for a, b in ((got, want), *zip(got_grads, want_grads)):
+        assert a.shape == b.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL * max(b.abs().max().item(), 1e-30)
+
+
+def test_int8_matmul_on_the_card(gen):
+    """torch._int_mm through quant.int8_matmul on CUDA: exact int32 sums,
+    rows padded past 16 (a 5-row product) and K, N to multiples of 8."""
+    from cspn_tpu_torch.utils import quant
+
+    a = torch.randint(-127, 128, (100, 72), dtype=torch.int8, device="cuda", generator=gen)
+    wq = torch.randint(-127, 128, (20, 8, 3, 3), dtype=torch.int8, device="cuda", generator=gen)
+    w_mat = quant.weight_matrix(wq)
+    want = a.double() @ wq.permute(0, 2, 3, 1).reshape(20, -1).double().t()
+    for rows in (100, 5):
+        got = quant.int8_matmul(a[:rows], w_mat, 20)
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want[:rows])
+
+
 @pytest.mark.parametrize("case", ["stereo", "stereo zero-gates corner", "sharded segment"])
 def test_cspn3d_kernels_at_the_paths_cases(gen, case):
     """chip_smoke.py's cspn3d_cases(): the stereo b4 volume with and without
@@ -329,22 +367,17 @@ def test_cspn3d_forward_without_states_matches_kept(gen):
 @pytest.mark.parametrize("steps", [0, 1, 24])
 def test_cspn3d_cuda_launches_per_call(gen, steps):
     """One CUDA launch a forward, two a backward (the reverse sweep and the
-    gate-cotangent pass), counted by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    gate-cotangent pass), counted by the host's launch records
+    (_host_launches)."""
     gates = _gates3d(gen, 2, 12, 16, 32)
     x0 = torch.randn(2, 12, 16, 32, device="cuda", generator=gen)
     ct = torch.randn(2, 12, 16, 32, device="cuda", generator=gen)
     states = cspn3d_cuda._launch(gates, x0, steps, keep_states=True)[1]
     torch.cuda.synchronize()
-    counts = []
-    for fn in (lambda: cspn3d_cuda._launch(gates, x0, steps),
-               lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages() if "cspn3d_" in e.key))
-    assert tuple(counts) == cspn3d_cuda.cuda_launches_per_call(steps)
+    counts = tuple(_host_launches(fn) for fn in (
+        lambda: cspn3d_cuda._launch(gates, x0, steps),
+        lambda: cspn3d_cuda._launch_bwd(gates, x0, states, ct, steps)))
+    assert counts == cspn3d_cuda.cuda_launches_per_call(steps)
 
 
 def test_cspn3d_backward_on_the_same_states_is_bit_identical(gen):
@@ -363,24 +396,29 @@ def test_cspn3d_backward_on_the_same_states_is_bit_identical(gen):
 @pytest.mark.parametrize("channels", [1, 2])
 def test_cspn_nd_3d_runs_the_kernels(gen, channels):
     """cspn_nd on CUDA (3D, kernel 3) goes through both kernels, channels
-    last and first, and agrees with the reference backend on the card."""
+    last and first, and agrees with the reference backend on the card at
+    the same gate dtype: float32, and bf16 (the kernels' default; the
+    reference then rounds its gates as they do)."""
     guide = torch.randn(2, 5, 13, 17, 26 * channels, device="cuda", generator=gen)
     guide[0, :2, :3, :4] = 0.0
     feat = torch.randn(2, 5, 13, 17, channels, device="cuda", generator=gen)
     ct = torch.randn(feat.shape, device="cuda", generator=gen)
-    outs = {}
-    for backend in ("kernel", "reference"):
-        g, f = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
-        before = (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)
-        out = cspn_nd(g, f, steps=24, backend=backend)
-        outs[backend] = (out, *torch.autograd.grad(out, (g, f), ct))
-        torch.cuda.synchronize()
-        n = 1 if backend == "kernel" else 0
-        assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + n, before[1] + n)
-    for a, b in zip(outs["kernel"], outs["reference"]):
-        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
-    cf = cspn_nd(guide.movedim(-1, 1), feat.movedim(-1, 1), steps=24, channel_first=True)
-    assert (cf.movedim(1, -1) - outs["reference"][0]).abs().max().item() <= TOL * outs["reference"][0].abs().max().item()
+    for gate_dtype in (torch.float32, torch.bfloat16):
+        outs = {}
+        for backend in ("kernel", "reference"):
+            g, f = guide.clone().requires_grad_(True), feat.clone().requires_grad_(True)
+            before = (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches)
+            out = cspn_nd(g, f, steps=24, backend=backend, gate_dtype=gate_dtype)
+            outs[backend] = (out, *torch.autograd.grad(out, (g, f), ct))
+            torch.cuda.synchronize()
+            n = 1 if backend == "kernel" else 0
+            assert (cspn3d_cuda.launches, cspn3d_cuda.bwd_launches) == (before[0] + n, before[1] + n)
+        for a, b in zip(outs["kernel"], outs["reference"]):
+            assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+        cf = cspn_nd(guide.movedim(-1, 1), feat.movedim(-1, 1), steps=24, channel_first=True,
+                     gate_dtype=gate_dtype)
+        ref = outs["reference"][0]
+        assert (cf.movedim(1, -1) - ref).abs().max().item() <= TOL * ref.abs().max().item()
 
 
 def test_cspn3d_wrapper_refuses_what_the_kernel_does_not_take(gen):
@@ -401,13 +439,15 @@ def test_cspn3d_wrapper_refuses_what_the_kernel_does_not_take(gen):
 
 def test_stereo_model_on_the_card_uses_the_kernels(gen):
     """A small PSMNetCSPN forward and train step through the 3D kernels
-    launch each once and agree with the plain CSPN."""
+    launch each once and agree with the plain CSPN rounding its gates to
+    bf16 as the kernels read them."""
     from cspn_tpu_torch.models.stereo import PSMNetCSPN, smooth_l1_disparity_loss
 
     torch.backends.cudnn.allow_tf32 = False
     with torch.device("cuda"):
         model = PSMNetCSPN(max_disp=16, features=8, cspn_steps=4,
                            generator=torch.Generator("cuda").manual_seed(0))
+    model.cspn_gate_dtype = torch.bfloat16  # the kernels' default, on both routes
     left = torch.randn(2, 32, 48, 3, device="cuda", generator=gen)
     right = torch.randn(2, 32, 48, 3, device="cuda", generator=gen)
     disp = 1.0 + 14.0 * torch.rand(2, 32, 48, device="cuda", generator=gen)
@@ -618,9 +658,8 @@ def test_tile_kernels_cuda_launches_per_call(gen, steps):
     """The CUDA launches of one call, counted by torch.profiler: each
     forward ceil(steps / K), the backward ceil(steps / K) + 1 on kept
     states, with max(1, ceil((steps - 1) / K)) replay launches before them
-    without."""
-    from torch.profiler import ProfilerActivity, profile
-
+    without.  Counted by the host's launch records (_host_launches): the
+    card's kernel records can lose a profile's first kernel."""
     g, b, s = _inputs(gen, 2, 60, 70)
     ct = torch.randn(2, 60, 70, device="cuda", generator=gen)
     _, gates, states = cspn_cuda._launch(g, b, s, steps, "8sum")
@@ -630,12 +669,7 @@ def test_tile_kernels_cuda_launches_per_call(gen, steps):
              "cspn2d_bwd_kept": lambda: cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum",
                                                               (gates, states)),
              "cspn2d_bwd_replay": lambda: cspn_cuda._launch_bwd(g, b, s, ct, steps, "8sum")}
-    counts = {}
-    for name, fn in calls.items():
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        counts[name] = sum(e.count for e in prof.key_averages() if "_kernel" in e.key)
+    counts = {name: _host_launches(fn) for name, fn in calls.items()}
     assert counts == cspn_cuda.cuda_launches_per_call(steps)
 
 
@@ -939,7 +973,8 @@ def test_sharded_cspn_on_the_card_runs_the_segment_kernels(gen, spatial):
 def test_sharded_models_on_the_card_use_the_kernels(gen):
     """A sharded resnet18 CSPN-UNet and PSMNetCSPN (S = 2) give the
     unsharded models' outputs on the card, through the segment kernels and
-    the 3D kernels."""
+    the 3D kernels (the unsharded stereo model on float32 gates, the
+    sharded segments')."""
     from cspn_tpu_torch.models import unet
     from cspn_tpu_torch.models.stereo import PSMNetCSPN
     from cspn_tpu_torch.ops import cspn_halo_cuda
@@ -960,6 +995,7 @@ def test_sharded_models_on_the_card_use_the_kernels(gen):
         stereo = [PSMNetCSPN(max_disp=32, features=8, cspn_steps=4, spatial_mesh=m,
                              generator=torch.Generator("cuda").manual_seed(0)).eval()
                   for m in (None, mesh)]
+    stereo[0].cspn_gate_dtype = torch.float32
     left, right = (torch.randn(2, 32, 48, 3, device="cuda", generator=gen) for _ in range(2))
     before = cspn3d_cuda.launches
     with torch.inference_mode():

@@ -36,13 +36,23 @@ temporary directory and each trains on its half of every batch:
 `run_scaling_bench` runs 1 and then 2 spawned gloo ranks in each mode (the
 mechanics; JAX's model: tests/test_parallel.py:297).  The workers import
 no JAX.
+
+The ranks are held to a bound: their output goes to files (a pipe that
+nobody reads while the fixture computes its own references can fill and
+stall a rank), their environment holds no launcher's variables, each
+checks at start that it and the other rank of this run (a per-run token)
+form the group, a collective waits at most RANK_TIMEOUT_S for the slower
+rank, and the fixture stops both ranks and fails, with their exit codes
+and standard error, as soon as one fails or RANKS_DEADLINE_S has passed.
 """
 
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +95,13 @@ FIT_METRICS = tuple(k for k in JAX_METRICS if k != "LG10")
 # the DELTA metrics count pixels under a ratio: float32 noise moves a few
 # of the ~9,800 valid ones across (1e-4 each)
 FIT_DELTA_ATOL = 5e-4
+# a collective waits at most this long for the other rank; the fixture
+# waits at most RANKS_DEADLINE_S for both (alone the ranks take ~100 s)
+RANK_TIMEOUT_S = 240
+RANKS_DEADLINE_S = 480
+# what a launcher (torchrun) sets; none of it may reach the ranks
+_LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "MASTER_ADDR", "MASTER_PORT", "TORCHELASTIC_RUN_ID")
 
 _WORKER = textwrap.dedent("""
     import dataclasses
@@ -100,11 +117,17 @@ _WORKER = textwrap.dedent("""
     from cspn_tpu_torch.parallel.sync_bn import SyncBatchNorm, convert_sync_batchnorm
     from cspn_tpu_torch.train import factory, loop, state, stereo_loop
 
-    rank, tmp = int(sys.argv[1]), sys.argv[2]
+    rank, tmp, timeout_s = int(sys.argv[1]), sys.argv[2], float(sys.argv[4])
     torch.set_num_threads(1)
     initialize_multihost(f"file://{tmp}/store", world_size=2, rank=rank, backend="gloo",
-                         retries=1, timeout_s=120)
+                         retries=1, timeout_s=timeout_s)
     inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
+    # this run's two ranks, and no other process, form the group
+    me = torch.tensor([rank, inp["token"]], dtype=torch.int64)
+    seen = [torch.empty_like(me) for _ in range(2)]
+    dist.all_gather(seen, me)
+    assert dist.get_world_size() == 2 and dist.get_rank() == rank, dist.get_world_size()
+    assert [t.tolist() for t in seen] == [[0, inp["token"]], [1, inp["token"]]], seen
     out = {}
 
     for key, bn in (("bn2d", torch.nn.BatchNorm2d(3)), ("bn3d", torch.nn.BatchNorm3d(3))):
@@ -259,25 +282,55 @@ def ranks(tmp_path_factory):
            "stereo_cfg": _stereo_cfg(),
            **{k: torch.tensor(np.stack([sds[i][k] for i in range(4)]), dtype=F64)
               for k in ("left", "right", "disp")}}
+    inp["token"] = int.from_bytes(os.urandom(7), "little")  # this run's, not the seed's
     torch.save(inp, tmp / "inputs.pt")
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(rank), str(tmp), str(_ROOT)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              cwd=str(_ROOT))
-             for rank in (0, 1)]
+    procs = _start_ranks(tmp)
     try:
         one = _one_process_steps(weights, inp["x"], inp["gt"], inp)
         cfg = dataclasses.replace(inp["cfg"], save_dir=str(tmp / "fit_one"))
         one["fit"] = loop.Trainer(cfg, *factory.build_loaders(cfg), device="cpu").fit(1)
-        results = [p.communicate(timeout=600) for p in procs]
+        _wait_for_ranks(procs, tmp, time.monotonic() + RANKS_DEADLINE_S)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, (p, (_, err)) in enumerate(zip(procs, results)):
-        assert p.returncode == 0, (rank, err[-3000:])
     outs = [torch.load(tmp / f"out{rank}.pt", weights_only=False) for rank in (0, 1)]
     return outs, one, jax_out, inp, tmp
+
+
+def _start_ranks(tmp):
+    """The two ranks, their output in files under `tmp`, in an environment
+    without a launcher's variables."""
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_ENV}
+    procs = []
+    for rank in (0, 1):
+        with open(tmp / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _WORKER, str(rank), str(tmp), str(_ROOT),
+                 str(RANK_TIMEOUT_S)], stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=str(_ROOT)))
+    return procs
+
+
+def _wait_for_ranks(procs, tmp, deadline: float) -> None:
+    """Wait until both ranks exit; fail with their exit codes and the end
+    of their output as soon as one exits with an error or `deadline` (a
+    time.monotonic()) passes, the other stopped."""
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    if all(p.poll() == 0 for p in procs):
+        return
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    report = [f"rank {rank}: exit code {p.returncode}\n"
+              + (tmp / f"rank{rank}.log").read_text(errors="replace")[-3000:]
+              for rank, p in enumerate(procs)]
+    pytest.fail("the data-parallel ranks failed or ran past the deadline:\n" + "\n".join(report))
 
 
 def _close(a, b, rtol, atol, what):

@@ -1,7 +1,15 @@
 """The port's serving front-end, eval driver and CLI (cspn_tpu_torch/
 serving.py, train/evaluate.py, cli.py) on the CPU, mirroring
 tests/test_serving.py, and the eval driver held against the JAX package's
-`run_eval` on the same (converted) weights."""
+`run_eval` on the same (converted) weights.
+
+The dual-path server (bf16 below `int8_from`, int8 from it up) is held to
+the models it routes to, value for value: a bucket runs one model's
+forward on the padded batch, and every model here is per-sample (eval-mode
+BN, per-sample CSPN, per-sample or static activation scales), so a padded
+bucket equals the exact batch to float rounding (rtol 1e-5; bf16 and int8
+outputs to 1e-2 of their range, a bf16 ulp of the float32 CSPN's input).
+"""
 
 import dataclasses
 import os
@@ -20,8 +28,9 @@ from cspn_tpu_torch import config
 from cspn_tpu_torch.cli import main
 from cspn_tpu_torch.models import unet
 from cspn_tpu_torch.serving import DepthServer, chunk_plan, load_server, pick_bucket
-from cspn_tpu_torch.train import evaluate
+from cspn_tpu_torch.train import evaluate, factory
 from cspn_tpu_torch.train.metrics import METRIC_KEYS
+from cspn_tpu_torch.utils import quant
 
 torch.set_num_threads(1)
 
@@ -61,7 +70,7 @@ def test_padded_bucket_output_matches_exact_batch(tiny_model):
         ref = tiny_model(torch.from_numpy(x)).numpy()
     assert out.shape == ref.shape == (3, 64, 96)
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-    assert srv.served == {"float32": 3}
+    assert srv.served == {"bf16": 3, "int8": 0}  # one path: model_bf16 serves every bucket
 
 
 def test_chunked_request_across_buckets(tiny_model):
@@ -73,16 +82,19 @@ def test_chunked_request_across_buckets(tiny_model):
         ref = tiny_model(torch.from_numpy(x)).numpy()
     assert out.shape == (6, 64, 96)
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-    assert srv.served == {"float32": 6}
+    assert srv.served == {"bf16": 6, "int8": 0}
     srv.warmup(64, 96)
-    assert srv.served == {"float32": 0}
+    assert srv.served == {"bf16": 0, "int8": 0}
 
 
 def test_server_input_validation(tiny_model):
     with pytest.raises(ValueError):
         DepthServer(tiny_model, buckets=(4, 1))
-    with pytest.raises(NotImplementedError, match="int8 serving is not ported"):
-        DepthServer(tiny_model, model_int8=tiny_model)
+    # routing, as JAX's path_for: int8 from int8_from up, when there is an int8 model
+    srv = DepthServer(tiny_model, model_int8=tiny_model, buckets=(1, 8, 32), int8_from=8)
+    assert [srv.path_for(b) for b in (1, 7, 8, 32)] == ["bf16", "bf16", "int8", "int8"]
+    assert DepthServer(tiny_model, model_int8=tiny_model, int8_from=None).path_for(128) == "bf16"
+    assert DepthServer(tiny_model, int8_from=1).path_for(128) == "bf16"
     srv = DepthServer(tiny_model, buckets=(1,))
     with pytest.raises(ValueError):
         srv.predict(np.zeros((2, 64, 96), np.float32))
@@ -99,10 +111,14 @@ def _smoke_cfg(tmp_path, steps=2, **data):
 
 
 def test_build_model_refuses_what_is_not_ported(tmp_path):
+    """bf16 and int8 build (the int8 model's convs quantized, serving only);
+    the entry points still refuse a CPU-only host unless asked for the CPU."""
     cfg = _smoke_cfg(tmp_path)
-    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="bf16/int8 serving"):
-        evaluate.build_model(bf16, device="cpu")
+    for dtype, quantized in (("bfloat16", False), ("int8", True)):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+        model = evaluate.build_model(c, device="cpu")
+        assert model.dtype == torch.bfloat16 and model.quant == quantized
+        assert all(p.dtype == torch.float32 for p in model.parameters())  # until load casts them
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             evaluate.build_model(cfg)  # entry points default to the card
@@ -111,16 +127,97 @@ def test_build_model_refuses_what_is_not_ported(tmp_path):
 
 
 def test_load_server_from_saved_state_dict(tmp_path):
+    """Buckets below int8_from only: one bf16 model, the checkpoint's
+    weights cast to bf16 at load (load_eval_state at dtype bfloat16), and
+    no int8 model built."""
     cfg = _smoke_cfg(tmp_path)
     model = evaluate.build_model(cfg, device="cpu", seed=7)
     torch.save(model.state_dict(), tmp_path / "best_model.pt")
     srv = load_server(cfg, buckets=(1, 2), device="cpu")
+    assert srv.models["int8"] is None
+    assert all(p.dtype == torch.bfloat16 for p in srv.models["bf16"].parameters())
     x = _frames(3, seed=2)
     out = srv.predict(x)
+    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
     with torch.no_grad():
-        ref = model(torch.from_numpy(x)).numpy()
-    assert np.isfinite(out).all()
+        ref = evaluate.load_eval_state(bf16, device="cpu")(torch.from_numpy(x)).numpy()
+        ref32 = model(torch.from_numpy(x)).numpy()
+    assert np.isfinite(out).all() and srv.served == {"bf16": 3, "int8": 0}
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    assert 0 < np.abs(out - ref32).max() < 0.05 * np.abs(ref32).max()  # bf16, not float32
+
+
+@pytest.fixture(scope="module")
+def dual_server(tmp_path_factory):
+    """load_server over a saved ResNet-18 checkpoint at buckets (1, 4) with
+    int8 from 4, and the models it should route to."""
+    tmp = tmp_path_factory.mktemp("dual")
+    cfg = _smoke_cfg(tmp)
+    torch.save(evaluate.build_model(cfg, device="cpu", seed=3).state_dict(), tmp / "best_model.pt")
+    srv = load_server(cfg, buckets=(1, 4), device="cpu", int8_from=4)
+    return cfg, srv
+
+
+def test_int8_buckets_route_to_the_int8_model(dual_server):
+    """An int8 bucket is the int8 model's forward (its weight cache built,
+    the same bf16 weights as the bf16 model's); a padded bucket equals the
+    exact batch; a request chunks over both paths; warmup is not traffic."""
+    cfg, srv = dual_server
+    bf16, int8 = srv.models["bf16"], srv.models["int8"]
+    assert int8.quant and not bf16.quant and all(m.qcache for m in quant.quant_convs(int8).values())
+    assert all(a.data_ptr() == b.data_ptr()  # one copy of the bf16 weights
+               for a, b in zip(bf16.state_dict().values(), int8.state_dict().values()))
+    x = _frames(6, seed=4)
+    with torch.no_grad():
+        want8 = int8(torch.from_numpy(x[:4])).numpy()
+        want3 = int8(torch.from_numpy(x[4:5].repeat(3, 0))).numpy()  # the pad rows are zeros
+        wantb = bf16(torch.from_numpy(x[5:])).numpy()
+    np.testing.assert_allclose(srv.predict(x[:4]), want8, rtol=1e-5, atol=1e-5)
+    assert srv.served == {"bf16": 0, "int8": 4}
+    # 3 frames pad to bucket 4 (int8): each sample equals serving it alone
+    got3 = srv.predict(x[:3])
+    np.testing.assert_allclose(got3, want8[:3], rtol=1e-5, atol=1e-2 * np.abs(want8).max())
+    assert srv.served == {"bf16": 0, "int8": 7}
+    # 6 = a top bucket of 4 (int8) + 2 padded to 4 (int8); 5 = 4 + 1 (bf16)
+    got = srv.predict(x[:5])
+    np.testing.assert_allclose(got[:4], want8, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        alone = bf16(torch.from_numpy(x[4:5])).numpy()
+    np.testing.assert_allclose(got[4:], alone, rtol=1e-5, atol=1e-5)
+    assert srv.served == {"bf16": 1, "int8": 11}
+    assert np.isfinite(wantb).all() and np.isfinite(want3).all()
+    srv.warmup(64, 96)
+    assert srv.served == {"bf16": 0, "int8": 0}
+    assert 0 < np.abs(want8 - bf16(torch.from_numpy(x[:4])).detach().numpy()).max()  # int8 differs
+
+
+def test_load_server_act_static(dual_server):
+    """act_static calibrates the int8 model's static activation scales on
+    the val split's frames at load; the bf16 model is the dynamic server's."""
+    cfg, dyn = dual_server
+    srv = load_server(cfg, buckets=(1, 4), device="cpu", int8_from=4, act_static=True)
+    convs = quant.quant_convs(srv.models["int8"])
+    assert convs and all(m.act_max is not None and not m.calibrating for m in convs.values())
+    assert all(m.act_max is None for m in quant.quant_convs(dyn.models["int8"]).values())
+    ds = factory.build_dataset(cfg, "val", seed=1)  # frames like the calibration's
+    x = np.stack([ds[i]["rgbd"] for i in range(4)])
+    out, out_dyn = srv.predict(x), dyn.predict(x)
+    assert np.isfinite(out).all() and out.shape == (4, 64, 96)
+    rel = np.linalg.norm(out - out_dyn) / np.linalg.norm(out_dyn)
+    assert 0 < rel < 0.08  # static against dynamic scales: JAX's int8 bound
+    # calibrated on one frame, serving it alone: its dynamic per-sample
+    # abs-max is the recorded one; the scales still differ by a rounding,
+    # the dynamic one taken in the activations' bf16 and the static one in
+    # float32, as JAX's quantize_tensor and module_act_scale take them, and a
+    # flipped rounding grows through the random network (2.3% measured)
+    model = srv.models["int8"]
+    quant.build_act_calibration(model, [torch.from_numpy(x[:1])])
+    with torch.no_grad():
+        static = model(torch.from_numpy(x[:1])).numpy()
+        for m in convs.values():
+            m.act_max = None
+        dynamic = model(torch.from_numpy(x[:1])).numpy()
+    assert np.linalg.norm(static - dynamic) / np.linalg.norm(dynamic) < 0.08
 
 
 def test_run_eval_matches_jax_run_eval(tmp_path):

@@ -356,8 +356,18 @@ def test_trainer_fit_validate_and_run_eval(tmp_path):
 
 
 def test_model_options_raise_where_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        stereo_loop.build_stereo_model(stereo_loop.StereoConfig(dtype="bfloat16"), device="cpu")
+    # bf16 is ported (tests/test_torch_precision.py holds it to JAX's): the
+    # convs compute in bf16 on float32 parameters; int8 has no stereo form
+    model = stereo_loop.build_stereo_model(
+        stereo_loop.StereoConfig(max_disp=8, features=4, cspn_steps=2, dtype="bfloat16"),
+        device="cpu")
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        out = model(torch.zeros(1, 16, 24, 3), torch.zeros(1, 16, 24, 3))
+    assert out.dtype == torch.float32 and out.shape == (1, 16, 24)
+    with pytest.raises(ValueError, match="no int8 form"):
+        stereo_loop.build_stereo_model(stereo_loop.StereoConfig(dtype="int8"), device="cpu")
     # a data axis of 2 is two ranks' (DDP, tests/test_torch_data_parallel.py);
     # one process holds one data index
     from cspn_tpu_torch.parallel import make_mesh

@@ -286,8 +286,9 @@ def test_trainer_fit_and_resume(tmp_path, capsys):
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     """One process: the bf16 gradient reduce rounds each gradient to bf16
     (JAX's shard_map step on one device); a data axis of 2 needs a process
-    group of 2 ranks (tests/test_torch_data_parallel.py runs them); bf16
-    models are not ported."""
+    group of 2 ranks (tests/test_torch_data_parallel.py runs them); a bf16
+    model trains on float32 masters, and 'int8' trains that bf16 model (int8
+    is serving-only)."""
     loaders = (None, None)
     trainer = loop.Trainer(_smoke_cfg(tmp_path, grad_reduce_dtype="bfloat16"), *loaders,
                            device="cpu")
@@ -300,10 +301,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     assert any(g.abs().sum() > 0 for g in grads)
     with pytest.raises(ValueError, match="process group of 2 x 1 ranks"):
         loop.Trainer(dataclasses.replace(_smoke_cfg(tmp_path), mesh_data=2), *loaders, device="cpu")
-    cfg = _smoke_cfg(tmp_path)
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        loop.Trainer(cfg, *loaders, device="cpu")
+    for dtype in ("bfloat16", "int8"):
+        cfg = _smoke_cfg(tmp_path)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+        model = loop.Trainer(cfg, *loaders, device="cpu").state.model
+        assert model.dtype == torch.bfloat16 and not model.quant
+        assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_train_cli_on_cpu(tmp_path, capsys):
@@ -324,10 +327,15 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     # one process: a spatial axis replicates the step (the JAX Trainer hands
     # its mesh to no model), a data axis needs as many ranks
     assert cli.main(args + ["--num-epoch", "1", "--mesh-spatial", "2"]) == 0
-    for flag, error, match in ((["--mesh-data", "2"], ValueError, "process group"),
-                               (["--dtype", "bfloat16"], NotImplementedError, "not ported yet")):
-        with pytest.raises(error, match=match):
-            cli.main(args + flag)
+    with pytest.raises(ValueError, match="process group"):
+        cli.main(args + ["--mesh-data", "2"])
+    # bf16 trains (float32 checkpoints), and its checkpoint serves bf16
+    bf16_dir = tmp_path / "bf16"
+    assert cli.main([*args[:args.index("--save-dir")], "--save-dir", str(bf16_dir),
+                     *args[args.index("--save-dir") + 2:], "--num-epoch", "1",
+                     "--dtype", "bfloat16"]) == 0
+    saved = torch.load(bf16_dir / "best_model.pt", weights_only=False)["model"]
+    assert all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
 
 
 def test_step_timer_and_kernel_kinds():
