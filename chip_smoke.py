@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --routes-of CHECKOUT   # only the CSPN kernels' and the probe's timing
+    python3 chip_smoke.py --routes-of CHECKOUT   # only the CSPN, probe and depth-to-space kernels' timing
+    python3 chip_smoke.py --routes-of CHECKOUT --d2s-only   # only the depth-to-space stages
     python3 chip_smoke.py --steps-of CHECKOUT    # only the train steps and served frames/s
 
 With --routes-of it only times the 2D CSPN kernels, the sharded
-segment's, the probe's and the paddle kernel of the cspn_tpu_torch in
-CHECKOUT (time_fwd_routes, time_halo_seg_routes, time_probe_and_paddle;
-"." for this one), and with --steps-of the paths'
+segment's, the probe's, the paddle kernel and the depth-to-space stages of
+the cspn_tpu_torch in CHECKOUT (time_fwd_routes, time_halo_seg_routes,
+time_probe_and_paddle, time_d2s_routes; "." for this one), and with
+--steps-of the paths'
 train steps and served frames/s (steps_of), so that one harness times two
 trees in turns.  Without arguments it drives cspn_tpu_torch's main
 paths on the card and fails (non-zero exit) if any phase fails:
@@ -100,7 +102,12 @@ voxel-step cost (choose_halo's 3D constant); the same on bf16 gates
 (check_cspn3d_bf16_gates), timed beside float32; and the
 depth-to-space kernel
 and its adjoint (`d2s`, `s2d`) bit for bit at the b8 decoder's five
-shapes, an odd one with C=1, and in float64 and bfloat16; it holds the 2D
+shapes, an odd one with C=1, unaligned rows of 19 and 38 values, and in
+float64 and bfloat16, in both forms (one [N, 4C, h, w] tensor, and the four
+phase convs' outputs the decoder hands over from 128 features), timed
+beside torch.cat + the kernel and torch.cat + F.pixel_shuffle, with
+layer2's phase convs + depth-to-space profiled in both forms
+(profile_phase_stage); it holds the 2D
 CSPN's two forwards (the tiled one, and cspn2d_fwd, which keeps its
 states for the backward) and the backward at both norms, with and without
 sparse, at NYU b8, an odd shape, KITTI b4 and a ragged shape, and at their
@@ -1045,79 +1052,152 @@ def check_cspn3d_bf16_gates(name: str, fwd: dict, bwd: dict) -> None:
             f"on {name}")
 
 
+def d2s_stage_inputs(gen, shape, crop, dtype, phase_form: bool):
+    """A stage's input (its four phases [N, C, h, w] where `phase_form`, else
+    one [N, 4C, h, w] tensor), its joined [N, 4C, h, w] tensor, a cotangent
+    [N, C, oh, ow] and the uncropped [N, C, 2h, 2w] pixel_unshuffle takes."""
+    n, c4, h, w = shape
+    x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
+    ct = torch.randn(n, c4 // 4, *crop, device="cuda", generator=gen).to(dtype)
+    full = torch.randn(n, c4 // 4, 2 * h, 2 * w, device="cuda", generator=gen).to(dtype)
+    form = [p.contiguous() for p in x.chunk(4, 1)] if phase_form else x
+    return form, x, ct, full
+
+
+def phase_form(shape) -> bool:
+    """Whether the decoder hands this stage's depth-to-space the four phase
+    convs' outputs: from 128 features (models/decoder.py:_subpixel_convs),
+    layers 1-3 of the b8 nyu_eval decoder."""
+    return shape[1] // 4 >= 128
+
+
+def d2s_routes(d2s, form, x, ct, oh, ow, takes_phases: bool) -> dict:
+    """The calls a depth-to-space stage is timed by, for any checkout's
+    ops/d2s.py: "d2s joined" / "s2d joined" the kernels on one [N, 4C, h,
+    w] tensor; "d2s path" from the stage's form to the output (where the
+    decoder gives four phases: the kernel on them where the tree takes them,
+    else torch.cat and the kernel on the concatenation); "s2d path" from
+    the cotangent to the stage's gradients (four contiguous phase
+    gradients: one s2d where the tree writes them, else s2d and the slice
+    copies a conv's backward takes)."""
+    h, w = x.shape[2:]
+    calls = {"d2s joined": lambda: d2s._launch(x, oh, ow),
+             "s2d joined": lambda: d2s._launch_bwd(ct, h, w)}
+    if isinstance(form, torch.Tensor):
+        calls["d2s path"], calls["s2d path"] = calls["d2s joined"], calls["s2d joined"]
+    elif takes_phases:
+        calls["d2s path"] = lambda: d2s._launch(form, oh, ow)
+        calls["s2d path"] = lambda: d2s._launch_bwd(ct, h, w, phases=True)
+    else:
+        calls["d2s path"] = lambda: d2s._launch(torch.cat(form, 1), oh, ow)
+        calls["s2d path"] = lambda: [g.contiguous() for g in d2s._launch_bwd(ct, h, w).chunk(4, 1)]
+    return calls
+
+
 def check_d2s_kernels(name: str) -> list[dict]:
-    """Phase 3: the depth-to-space kernel and its adjoint against the plain
-    version and its autograd, bit for bit, under a random cotangent; then
-    each b8 decoder stage timed against the plain version, its byte bound
-    and F.pixel_shuffle / F.pixel_unshuffle (the same bytes moved in
-    PyTorch's own channel order, without a crop), all three queued back to
-    back (`time_queued_ms`: a call takes tens of microseconds on the card,
-    less than its launch on the host).  Each row sums a b8 forward's nine
-    calls (`d2s`) or a backward's nine (`s2d`)."""
+    """Phase 3: the depth-to-space kernel and its adjoint, in both forms
+    (one [N, 4C, h, w] tensor, and the four phases [N, C, h, w] the decoder
+    hands over from 128 features), against the plain version and its
+    autograd, bit for bit, under a random cotangent, at the b8 decoder's
+    five stages in float32 and bf16 and at odd shapes (C = 1, unaligned
+    rows of 19 and 38 values, N = 1 and 3, float64).  Then each stage timed
+    queued (`time_queued_ms`: a call takes microseconds on the card, less
+    than its launch on the host) in its path's form: the kernels (`d2s`
+    from the stage's input to the output, `s2d` from the cotangent to its
+    gradients: four contiguous phase gradients at layers 1-3), beside the
+    kernels on the joined tensor alone, torch.cat + the kernel (and s2d +
+    the four slice copies), the plain version, torch.cat + F.pixel_shuffle
+    (F.pixel_unshuffle + the slice copies: the same bytes moved in
+    PyTorch's own channel order, without the crop) and the byte bound.
+    Each row sums a b8 forward's nine calls (`d2s`) or a backward's nine
+    (`s2d`)."""
     import torch.nn.functional as F
 
     from cspn_tpu_torch.ops import d2s
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     layer3 = D2S_STAGES[2]
-    cases = [(f"{stage} float32", shape, crop, torch.float32) for stage, shape, crop, _ in D2S_STAGES]
-    cases += [(f"{stage} bfloat16", shape, crop, torch.bfloat16)
-              for stage, shape, crop, _ in D2S_STAGES]  # the bf16 decoder's (phase 13)
-    cases += [("odd C=1 float32", (3, 4, 5, 7), (9, 13), torch.float32),
-              ("layer3 float64", layer3[1], layer3[2], torch.float64)]
+    cases = [(f"{stage} {str(dt).removeprefix('torch.')}", shape, crop, dt, form)
+             for stage, shape, crop, _ in D2S_STAGES for dt in (torch.float32, torch.bfloat16)
+             for form in {False, phase_form(shape)}]
+    cases += [("odd C=1 float32", (3, 4, 5, 7), (9, 13), torch.float32, form) for form in (0, 1)]
+    cases += [("layer3 float64", layer3[1], layer3[2], torch.float64, form) for form in (0, 1)]
+    cases += [(f"w={w} N={n} C=1 {str(dt).removeprefix('torch.')}", (n, 4, h, w), (2 * h - 1, 2 * w),
+               dt, True) for n, h, w in ((1, 10, 19), (3, 15, 38)) for dt in (torch.bfloat16,
+                                                                               torch.float32)]
     max_err = {"d2s": 0.0, "s2d": 0.0}
-    for label, (n, c4, h, w), (oh, ow), dtype in cases:
-        x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
-        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen).to(dtype)
+    for label, shape, (oh, ow), dtype, phases in cases:
+        form, _, ct, _ = d2s_stage_inputs(gen, shape, (oh, ow), dtype, phases)
+        xs = form if phases else [form]
         outs = {}
         for kind, fn in (("kernel", d2s.depth_to_space2), ("plain", d2s.depth_to_space2_ref)):
-            xg = x.clone().requires_grad_(True)
-            y = fn(xg, oh, ow)
-            outs[kind] = (y, *torch.autograd.grad(y, xg, ct))
+            xg = [t.clone().requires_grad_(True) for t in xs]
+            y = fn(xg if phases else xg[0], oh, ow)
+            outs[kind] = (y, torch.cat(torch.autograd.grad(y, xg, ct), 1))
         torch.cuda.synchronize()
         for what, a, b in zip(("d2s", "s2d"), outs["kernel"], outs["plain"]):
             err = (a.double() - b.double()).abs().max().item()
-            log(f"  {what} {label} [{n},{c4},{h},{w}] -> crop ({oh},{ow}): max|err| = {err:.3e} "
-                f"(bit-exact required)")
+            log(f"  {what} {label} {'four phases' if phases else 'one tensor'} {list(shape)} -> "
+                f"crop ({oh},{ow}): max|err| = {err:.3e} (bit-exact required)")
             if not (a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)):
                 raise AssertionError(f"{what} {label}: kernel differs from the plain version "
                                      f"(max|err| {err:.3e})")
             max_err[what] = max(max_err[what], err)
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    sums = {k: dict.fromkeys(keys, 0.0) for k in max_err}
-    sums_bf16 = {k: dict.fromkeys(keys, 0.0) for k in max_err}
-    for (stage, (n, c4, h, w), (oh, ow), calls), dtype in itertools.product(
+    # per b8 pass, for each dtype: the path's kernel, the kernel on the
+    # joined tensor, torch.cat + kernel, plain, library, bound
+    keys = ("ms", "joined_ms", "cat_kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    sums = {dt: {k: dict.fromkeys(keys, 0.0) for k in max_err}
+            for dt in (torch.float32, torch.bfloat16)}
+    for (stage, shape, (oh, ow), calls), dtype in itertools.product(
             D2S_STAGES, (torch.float32, torch.bfloat16)):
-        x = torch.randn(n, c4, h, w, device="cuda", generator=gen).to(dtype)
-        ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen).to(dtype)
-        full = torch.randn(n, c4 // 4, 2 * h, 2 * w, device="cuda", generator=gen).to(dtype)
-        # bytes of the values the crop keeps
-        kept = n * (c4 // 4) * oh * ow * x.element_size()
+        n, c4, h, w = shape
+        form, x, ct, full = d2s_stage_inputs(gen, shape, (oh, ow), dtype, phase_form(shape))
+        split = not isinstance(form, torch.Tensor)
+        mine = d2s_routes(d2s, form, x, ct, oh, ow, True)
+        old = d2s_routes(d2s, form, x, ct, oh, ow, False)
+
+        def join(t):
+            return torch.cat(t, 1) if split else t
+
+        def phases_of(g):
+            return [p.contiguous() for p in g.chunk(4, 1)] if split else g
+
+        kept = n * (c4 // 4) * oh * ow * x.element_size()  # bytes of the values the crop keeps
         timed = {
-            "d2s": (time_queued_ms(lambda: d2s._launch(x, oh, ow)),
-                    time_queued_ms(lambda: d2s.depth_to_space2_ref(x, oh, ow)),
-                    time_queued_ms(lambda: F.pixel_shuffle(x, 2)), 2 * kept),
-            "s2d": (time_queued_ms(lambda: d2s._launch_bwd(ct, h, w)),
-                    time_queued_ms(lambda: d2s.space_to_depth2_ref(ct, h, w)),
-                    time_queued_ms(lambda: F.pixel_unshuffle(full, 2)),
+            "d2s": (mine["d2s path"], mine["d2s joined"], old["d2s path"],
+                    lambda: d2s.depth_to_space2_ref(form, oh, ow),
+                    lambda: F.pixel_shuffle(join(form), 2), 2 * kept),
+            "s2d": (mine["s2d path"], mine["s2d joined"], old["s2d path"],
+                    lambda: phases_of(d2s.space_to_depth2_ref(ct, h, w)),
+                    lambda: phases_of(F.pixel_unshuffle(full, 2)),
                     kept + x.numel() * x.element_size()),
         }
-        for what, (ms, plain_ms, lib_ms, bytes_moved) in timed.items():
-            bound_ms = bound(name, bytes_moved, 0)[0]
-            log(f"  {what} {stage} [{n},{c4},{h},{w}] <-> [{n},{c4 // 4},{oh},{ow}] "
-                f"{'bf16' if dtype == torch.bfloat16 else 'f32'}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, F.pixel_{'un' if what == 's2d' else ''}shuffle {lib_ms:.4f} "
-                f"ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB) on {name}; {calls} per "
-                f"{'forward' if what == 'd2s' else 'backward'}")
-            for key, v in zip(keys, (ms, plain_ms, lib_ms, bound_ms)):
-                (sums if dtype == torch.float32 else sums_bf16)[what][key] += calls * v
+        for what, (*fns, bytes_moved) in timed.items():
+            got = dict(zip(keys, [time_queued_ms(f) for f in fns] + [bound(name, bytes_moved, 0)[0]]))
+            log(f"  {what} {stage} {'four phases' if split else 'one tensor'} [{n},{c4},{h},{w}] "
+                f"<-> [{n},{c4 // 4},{oh},{ow}] {'bf16' if dtype == torch.bfloat16 else 'f32'}: "
+                f"kernel {got['ms']:.4f} ms (on the joined tensor {got['joined_ms']:.4f}, "
+                f"{'torch.cat + kernel' if what == 'd2s' else 'kernel + slice copies'} "
+                f"{got['cat_kernel_ms']:.4f}), plain {got['plain_ms']:.4f} ms, "
+                f"{'torch.cat + ' if split and what == 'd2s' else ''}"
+                f"F.pixel_{'un' if what == 's2d' else ''}shuffle"
+                f"{' + slice copies' if split and what == 's2d' else ''} {got['library_ms']:.4f} "
+                f"ms, bound {got['bound_ms']:.4f} ms ({bytes_moved / 1e6:.1f} MB) on {name}; "
+                f"{calls} per {'forward' if what == 'd2s' else 'backward'}")
+            for key, v in got.items():
+                sums[dtype][what][key] += calls * v
     rows = []
     for what, tpu_line in (("d2s", 118), ("s2d", 137)):
-        for label, sm in (("f32", sums[what]), ("bf16", sums_bf16[what])):
-            log(f"  {what} per b8 {'forward' if what == 'd2s' else 'backward'} (9 calls), {label}: "
-                f"kernel {sm['ms']:.4f} ms, plain {sm['plain_ms']:.4f} ms, library "
-                f"{sm['library_ms']:.4f} ms, bound {sm['bound_ms']:.4f} ms on {name}")
+        for dtype, sm in sums.items():
+            sm = sm[what]
+            log(f"  {what} per b8 {'forward' if what == 'd2s' else 'backward'} (9 calls), "
+                f"{str(dtype).removeprefix('torch.')}: kernel {sm['ms']:.4f} ms "
+                f"({100 * sm['bound_ms'] / sm['ms']:.0f}% of its bound; on the joined tensors "
+                f"{sm['joined_ms']:.4f}, with torch.cat / slice copies {sm['cat_kernel_ms']:.4f}), "
+                f"plain {sm['plain_ms']:.4f} ms, library {sm['library_ms']:.4f} ms, bound "
+                f"{sm['bound_ms']:.4f} ms on {name}")
+        f32, bf16 = sums[torch.float32][what], sums[torch.bfloat16][what]
         rows.append({
             "name": what,
             "route": "cuda",
@@ -1125,16 +1205,76 @@ def check_d2s_kernels(name: str) -> list[dict]:
             "replaces": f"cspn_tpu/ops/d2s_pallas.py:{tpu_line}",
             "launches": None,
             "max_abs_err": max_err[what],
-            **{k: sums[what][k] for k in ("ms", "plain_ms", "bound_ms")},
+            **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": "bytes",  # the kernels compute nothing
-            # F.pixel_shuffle / pixel_unshuffle: the same bytes in PyTorch's
-            # channel order (c*4 + py*2 + px), without the crop
-            "library_ms": sums[what]["library_ms"],
+            # torch.cat + F.pixel_shuffle (F.pixel_unshuffle + the slice
+            # copies): the same bytes in PyTorch's channel order, no crop
+            "library_ms": f32["library_ms"],
             # the bf16 decoder's (phase 13: bf16 serving and training)
             "dtype": "float32 (nyu_train, the float32 paths); bfloat16 (phase 13)",
-            **{f"{k}_bfloat16": sums_bf16[what][k] for k in keys},
+            **{f"{k}_bfloat16": bf16[k] for k in keys},
+            **{k: f32[k] for k in ("joined_ms", "cat_kernel_ms")},
         })
+    rows[0]["stage_profile"] = profile_phase_stage(name)
     return rows
+
+
+def profile_phase_stage(name: str, reps: int = 3) -> dict:
+    """Phase 3: layer2 of the b8 decoder at bf16 (the four phase convs of a
+    5x5 subpixel conv, 512 features from 256, into depth-to-space, forward
+    and backward under a random cotangent) in both forms: the four phases
+    handed to depth_to_space2, and torch.cat + depth_to_space2 of the joined
+    tensor (the form before the kernels took the phases).  For each, every
+    kernel the card ran by name (launches and device ms a step, by
+    torch.profiler: what the joined form's backward adds where the convs'
+    backward reads strided slices of s2d's output), and the whole step
+    queued (time_queued_ms), the two forms in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cspn_tpu_torch.models import decoder
+    from cspn_tpu_torch.ops import d2s
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    _, (n, c4, h, w), (oh, ow), _ = D2S_STAGES[1]
+    x = torch.randn(n, 256, h, w, device="cuda", generator=gen).to(torch.bfloat16)
+    weight = (0.02 * torch.randn(c4 // 4, 256, 5, 5, device="cuda", generator=gen)).to(
+        torch.bfloat16).requires_grad_(True)
+    ct = torch.randn(n, c4 // 4, oh, ow, device="cuda", generator=gen).to(torch.bfloat16)
+    x.requires_grad_(True)
+
+    def step(joined: bool):
+        ys = [decoder._conv(x, k, ph, pw) for k, ph, pw in decoder._subpixel_convs(weight)]
+        y = d2s.depth_to_space2(torch.cat(ys, 1) if joined else ys, oh, ow)
+        torch.autograd.backward(y, ct)
+
+    out = {"shape": [n, c4, h, w], "crop": [oh, ow], "cin": 256}
+    for label, joined in (("four phases", False), ("torch.cat + joined", True)):
+        for _ in range(3):
+            step(joined)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step(joined)
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            kernels[e.key[:120]] = {"launches": e.count / reps, "ms": us / 1e3 / reps}
+        out[label] = {"kernels": kernels, "device_ms": sum(k["ms"] for k in kernels.values())}
+        log(f"  layer2 bf16 phase convs + depth-to-space, forward and backward, {label}: "
+            f"{out[label]['device_ms']:.4f} device ms a step (torch.profiler) on {name}")
+        for key, k in sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]):
+            log(f"    {k['launches']:.0f} x {k['ms']:.4f} ms  {key}")
+    ms = {label: [] for label in ("four phases", "torch.cat + joined")}
+    for label in ("four phases", "torch.cat + joined", "torch.cat + joined", "four phases"):
+        ms[label].append(time_queued_ms(functools.partial(step, label != "four phases"), calls=4))
+    out["step_ms"] = ms
+    log("  layer2 step queued (4 a window: ~80 launches a step), in turns: " + "; ".join(
+        f"{label} " + " / ".join(f"{v:.4f}" for v in vals) + " ms" for label, vals in ms.items()))
+    return out
 
 
 def check_tiled_kernel(name: str) -> dict:
@@ -1484,19 +1624,46 @@ def ptxas_usage(build, names) -> dict:
     return usage
 
 
+def time_d2s_routes(name: str) -> dict:
+    """The depth-to-space stages of a b8 pass (D2S_STAGES) at float32 and
+    bf16, queued, through d2s_routes for the checkout whose cspn_tpu_torch
+    is imported: the kernels on the joined tensors, and the forward and
+    backward in the decoder's form (where a tree's `_launch_bwd` takes no
+    `phases`, torch.cat before its kernel and slice copies after).  Sums a
+    b8 pass's nine calls of each (--routes-of)."""
+    from cspn_tpu_torch.ops import d2s
+
+    takes_phases = "phases" in inspect.signature(d2s._launch_bwd).parameters
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"takes_phases": takes_phases}
+    for dtype in (torch.float32, torch.bfloat16):
+        sums = {}
+        for stage, shape, crop, calls in D2S_STAGES:
+            form, x, ct, _ = d2s_stage_inputs(gen, shape, crop, dtype, phase_form(shape))
+            for key, fn in d2s_routes(d2s, form, x, ct, *crop, takes_phases).items():
+                ms = time_queued_ms(fn)
+                sums[key] = sums.get(key, 0.0) + calls * ms
+                log(f"  {key} {stage} {str(dtype).removeprefix('torch.')}: {ms:.4f} ms on {name}")
+        out[str(dtype).removeprefix("torch.")] = sums
+        log(f"  per b8 pass, {dtype}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()))
+    return out
+
+
 # the libraries of the kernels on the column march (rows 1-6)
 MARCH_LIBS = ("cspn2d_fwd", "cspn2d_bwd", "cspn2d_tiled", "cspn2d_halo_seg",
               "cspn2d_halo_seg_bwd", "paddle2d")
 
 
-def routes_of(checkout: str) -> int:
+def routes_of(checkout: str, d2s_only: bool = False) -> int:
     """`chip_smoke.py --routes-of CHECKOUT`: time_fwd_routes (without
-    counting launches), time_halo_seg_routes and time_probe_and_paddle on
-    the cspn_tpu_torch of CHECKOUT (another tree's kernels built from its
-    own sources, or this one's with "."), and ptxas_usage of its probe and
-    its march kernels (rows 1-6, MARCH_LIBS); prints the card line and one
-    JSON object, and runs nothing else.  One harness times a parent and a
-    change in turns."""
+    counting launches), time_halo_seg_routes, time_probe_and_paddle and
+    time_d2s_routes on the cspn_tpu_torch of CHECKOUT (another tree's
+    kernels built from its own sources, or this one's with "."), and
+    ptxas_usage of its probe, its march kernels (rows 1-6, MARCH_LIBS) and
+    its depth-to-space kernels; with `d2s_only` (--d2s-only) the
+    depth-to-space stages and their ptxas alone.  Prints the card line and
+    one JSON object, and runs nothing else.  One harness times a parent and
+    a change in turns."""
     root = os.path.abspath(checkout)
     sys.path.insert(0, root)
     import cspn_tpu_torch
@@ -1506,14 +1673,16 @@ def routes_of(checkout: str) -> int:
     from cspn_tpu_torch.ops import _build
 
     name, card = torch.cuda.get_device_name(0), card_line()
-    rows = time_fwd_routes(name, count_launches=False)
-    seg_rows = time_halo_seg_routes(name)
-    probe_row = time_probe_and_paddle(name)
-    usage = ptxas_usage(_build, ("step_probe", *MARCH_LIBS))
+    result = {"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS}
+    if not d2s_only:
+        result["fwd_routes"] = time_fwd_routes(name, count_launches=False)
+        result["halo_seg_routes"] = time_halo_seg_routes(name)
+        result["probe_and_paddle"] = time_probe_and_paddle(name)
+    result["d2s_routes"] = time_d2s_routes(name)
+    result["ptxas"] = ptxas_usage(_build, ("d2s",) if d2s_only else ("step_probe", *MARCH_LIBS,
+                                                                     "d2s"))
     print(card, flush=True)
-    print(json.dumps({"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS,
-                      "fwd_routes": rows, "halo_seg_routes": seg_rows,
-                      "probe_and_paddle": probe_row, "ptxas": usage}), flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 
@@ -1573,9 +1742,10 @@ def ddp_steps_ms(name: str, peaks: dict) -> dict:
 def steps_of(checkout: str) -> int:
     """`chip_smoke.py --steps-of CHECKOUT`: the paths' end-to-end figures on
     the cspn_tpu_torch of CHECKOUT (a parent's or this one, "."), so that
-    one harness times two trees in turns: the nyu_train b8, kitti_benchmark
-    b4 and kitti_sharded b4 (S = 2) train steps (train_step_ms) and their
-    peak device memory, the two KITTI models' b4 eval forwards, and
+    one harness times two trees in turns: the nyu_train b8 (float32 and
+    bf16), kitti_benchmark b4 and kitti_sharded b4 (S = 2) train steps
+    (train_step_ms) and their peak device memory, the two KITTI models' b4
+    eval forwards and the bf16 nyu_eval b8 forward (load_server), and
     nyu_eval's and kitti_benchmark's served frames/s over SERVE_WINDOW
     requests (served_rate); where CHECKOUT has parallel/data.py, also the
     nyu_train b8 step through DDP on a 1-rank NCCL group on both reduce
@@ -1594,7 +1764,7 @@ def steps_of(checkout: str) -> int:
     from cspn_tpu_torch.data import SyntheticDepthDataset
     from cspn_tpu_torch.models.unet import cspn_unet_resnet18
     from cspn_tpu_torch.parallel import make_mesh
-    from cspn_tpu_torch.serving import DepthServer
+    from cspn_tpu_torch.serving import DepthServer, load_server
     from cspn_tpu_torch.train.evaluate import build_model
     from cspn_tpu_torch.train.loss import masked_l1_loss
     from cspn_tpu_torch.train.state import make_optimizer
@@ -1605,8 +1775,11 @@ def steps_of(checkout: str) -> int:
     result = {"card": card, "package": cspn_tpu_torch.__file__, "steps_ms": {},
               "step_peak_gib": {}, "eval_forward_ms": {}, "served_frames_per_s": {}}
     kitti, nyu = _kitti_cfg(), nyu_eval_synthetic()
+    nyu16 = PRESETS["nyu_train"]
+    nyu16 = dataclasses.replace(nyu16, model=dataclasses.replace(nyu16.model, dtype="bfloat16"))
     # (label, the model's config, the frames' config, batch)
     for label, cfg, data, batch in (("nyu_train b8", PRESETS["nyu_train"], nyu, 8),
+                                    ("nyu_train b8 bf16", nyu16, nyu, 8),
                                     ("kitti_benchmark b4", kitti, kitti, 4),
                                     ("kitti_sharded b4", kitti, kitti, 4)):
         ds = SyntheticDepthDataset(length=batch, hw=tuple(data.data.crop_hw),
@@ -1634,6 +1807,20 @@ def steps_of(checkout: str) -> int:
         del model, x, depth
     if importlib.util.find_spec("cspn_tpu_torch.parallel.data") is not None:
         result["steps_ms"].update(ddp_steps_ms(name, result["step_peak_gib"]))
+    # the bf16 nyu_eval b8 forward of the served model (load_server's bf16 cast)
+    ds = SyntheticDepthDataset(length=8, hw=tuple(nyu.data.crop_hw), n_sample=nyu.data.n_sample,
+                               seed=1, split="val")
+    x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(8)])).cuda()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as ckpt_dir:
+        torch.save(calibrated_model(nyu, calib_batch=8).state_dict(),
+                   os.path.join(ckpt_dir, "best_model.pt"))
+        srv = load_server(dataclasses.replace(nyu, best_model_dir=ckpt_dir), buckets=(8,),
+                          device="cuda", int8_from=None)
+    with torch.inference_mode():
+        ms = time_ms(lambda: srv.models["bf16"](x), reps=11, warmup=2)
+    result["eval_forward_ms"]["nyu_eval b8 bf16"] = ms
+    log(f"  nyu_eval b8 bf16 eval forward: {ms:.3f} ms on {name}")
+    del srv, x
     for label, cfg, buckets, sizes in (("nyu_eval", nyu, BUCKETS, REQUESTS),
                                        ("kitti_benchmark", kitti, KITTI_BUCKETS, KITTI_REQUESTS)):
         h, w = cfg.data.crop_hw
@@ -3026,21 +3213,27 @@ def check_d2s_on_path(label: str, model, x, gen) -> set:
     """Phase 13: each depth-to-space call of `model`'s forward on `x` run by
     the `d2s` kernel and its adjoint by the `s2d` kernel (under a random
     cotangent), both held bit for bit against the plain versions on the
-    forward's own activations; returns the (input shape, crop, dtype)
-    cases."""
+    forward's own activations, in the form the decoder hands them over (one
+    tensor, or four phases); returns the (joined input shape, crop, dtype,
+    form) cases."""
     from cspn_tpu_torch.ops import d2s
 
     cases = set()
 
     def checked(t, oh, ow):
-        y = d2s._launch(t.contiguous(), oh, ow)
-        ct = torch.randn(y.shape, device="cuda", generator=gen).to(t.dtype)
-        back = d2s._launch_bwd(ct, t.shape[2], t.shape[3])
+        phases = not isinstance(t, torch.Tensor)
+        first = t[0] if phases else t
+        h, w = first.shape[2:]
+        y = d2s._launch([p.contiguous() for p in t] if phases else t.contiguous(), oh, ow)
+        ct = torch.randn(y.shape, device="cuda", generator=gen).to(first.dtype)
+        back = d2s._launch_bwd(ct, h, w, phases=phases)
+        want = d2s.space_to_depth2_ref(ct, h, w)
         if not (torch.equal(y, d2s.depth_to_space2_ref(t, oh, ow))
-                and torch.equal(back, d2s.space_to_depth2_ref(ct, t.shape[2], t.shape[3]))):
-            raise AssertionError(f"{label}: d2s / s2d at {tuple(t.shape)} -> ({oh},{ow}) "
-                                 f"{t.dtype} differ from the plain versions")
-        cases.add((tuple(t.shape), (oh, ow), str(t.dtype).removeprefix("torch.")))
+                and torch.equal(torch.cat(back, 1) if phases else back, want)):
+            raise AssertionError(f"{label}: d2s / s2d at {tuple(want.shape)} -> ({oh},{ow}) "
+                                 f"{first.dtype} differ from the plain versions")
+        cases.add((tuple(want.shape), (oh, ow), str(first.dtype).removeprefix("torch."),
+                   "four phases" if phases else "one tensor"))
         return y
 
     with decoder_d2s(checked), torch.inference_mode():
@@ -3150,7 +3343,8 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
                                           torch.from_numpy(frames[:b]).cuda(), gen)
                 log(f"    bucket {b} ({srv.path_for(b)}): d2s / s2d bit for bit at the "
                     f"forward's {len(cases)} shapes: " + ", ".join(
-                        f"{list(sh)}->({oh},{ow}) {dt}" for sh, (oh, ow), dt in sorted(cases)))
+                        f"{list(sh)}->({oh},{ow}) {dt} ({form})"
+                        for sh, (oh, ow), dt, form in sorted(cases)))
             with torch.inference_mode():
                 fwd = {}
                 for b in buckets:
@@ -3477,6 +3671,8 @@ def main(argv=None) -> int:
     p.add_argument("--routes-of", metavar="CHECKOUT",
                    help="only time the 2D CSPN, segment, probe and paddle kernels of "
                         "CHECKOUT's cspn_tpu_torch (routes_of) and print them")
+    p.add_argument("--d2s-only", action="store_true",
+                   help="with --routes-of: only the depth-to-space stages")
     p.add_argument("--steps-of", metavar="CHECKOUT",
                    help="only time the train steps and served frames/s of CHECKOUT's "
                         "cspn_tpu_torch (steps_of) and print them")
@@ -3486,7 +3682,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if args.routes_of is not None:
-        return routes_of(args.routes_of)
+        return routes_of(args.routes_of, args.d2s_only)
     if args.steps_of is not None:
         return steps_of(args.steps_of)
     from cspn_tpu_torch import set_conv_policy

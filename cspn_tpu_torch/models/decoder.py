@@ -120,9 +120,10 @@ def subpixel_unpool_conv(x: torch.Tensor, w: torch.Tensor, oheight: int,
     nothing, so each of the 4 output phases only reads a small sub-kernel of
     `w` at source pixels {i-1..i+1} (k=5) or {i, i+1} (k=3); cropping an
     odd final row/col before vs after the conv is identical because that
-    row is an inserted zero row."""
+    row is an inserted zero row.  The four phase convs' outputs go to
+    depth_to_space2 as they are, not concatenated."""
     ys = [_conv(x, kernel, pad_h, pad_w) for kernel, pad_h, pad_w in _subpixel_convs(w)]
-    return depth_to_space2(ys[0] if len(ys) == 1 else torch.cat(ys, 1), oheight, owidth)
+    return depth_to_space2(ys[0] if len(ys) == 1 else ys, oheight, owidth)
 
 
 class SubpixelUnpoolConv(nn.Conv2d):

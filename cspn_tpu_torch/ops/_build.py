@@ -56,7 +56,8 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "d2s": (
         "d2s.cu",
-        {fn: [_c_void_p] * 2 + [_c_int] * 7 + [_c_void_p] for fn in ("d2s", "s2d")},
+        {fn: [_c_void_p] * 5 + [_c_int] * 6 + [ctypes.c_longlong, _c_int, _c_void_p]
+         for fn in ("d2s", "s2d")},
     ),
     "cspn2d_tiled": (
         "cspn2d_tiled.cu",

@@ -2,21 +2,28 @@
 of cspn_tpu/ops/d2s_pallas.py).
 
 The subpixel decoder (models/decoder.py:SubpixelUnpoolConv) computes each
-`zero-insert unpool -> k x k conv` pair as one half-resolution conv into four
+`zero-insert unpool -> k x k conv` pair as half-resolution convs into four
 phase groups, then interleaves the phases.  NCHW:
 
     [N, 4C, H, W] -> [N, C, oheight, owidth],
     out[n, c, 2y+py, 2x+px] = in[n, (px*2+py)*C + c, y, x],
 
 cropped to (oheight, owidth) -- the JAX package's px-major phase order, which
-the weight reindex (decoder.py:_subpixel_weights) produces.
+the weight reindex (decoder.py:_subpixel_weights) produces.  The input is
+that one tensor, or the four phases as a sequence of [N, C, H, W] tensors,
+px-major (phase px*2+py): the outputs of the four phase convs the decoder
+runs from 128 features (decoder.py:_subpixel_convs), which nothing then
+concatenates (the JAX package's XLA fuses its concatenation into the
+relayout; in PyTorch it would be a pass of its own).
 
 Backends, as in ops/cspn.py:
     'kernel'    -- the hand-written CUDA kernels in csrc/d2s.cu (`d2s`
                    forward, `s2d` backward: the exact adjoint, zeros where
-                   the crop cut); CUDA tensors only.
-    'reference' -- the plain PyTorch version `depth_to_space2_ref` (view,
-                   permute, copy, slice), any device, autograd-native.
+                   the crop cut, one gradient per phase tensor given);
+                   CUDA tensors only.
+    'reference' -- the plain PyTorch version `depth_to_space2_ref`
+                   (concatenate the phases, view, permute, copy, slice),
+                   any device, autograd-native.
     'auto'      -- the kernel for CUDA tensors, the reference otherwise.
 
 On a CUDA tensor 'auto' runs the kernels or raises, forward and backward,
@@ -25,14 +32,16 @@ for every element size of 2, 4 or 8 bytes: there is no fallback.
 Deliberate difference from JAX: the JAX package defaults to its reshape /
 transpose form (`backend='jnp'`) because its MXU-permutation Pallas kernel
 lost to XLA's relayout on TPU v5e (d2s_pallas.py:26-47).  That reason is
-the TPU's; on the card a gather kernel moves each byte once, so 'auto'
-takes the kernel.
+the TPU's; on the card a kernel moves each byte once, so 'auto' takes the
+kernel.
 
 `launches` counts the forward kernel's runs, `bwd_launches` the backward's
-(one launch each per call).
+(one launch each per call, in either form).
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,10 +52,19 @@ _ELEMENT_SIZES = (2, 4, 8)
 launches = 0
 bwd_launches = 0
 
+Phases = torch.Tensor | Sequence[torch.Tensor]
 
-def depth_to_space2_ref(x: torch.Tensor, oheight: int, owidth: int) -> torch.Tensor:
-    """Plain form: [N, 4C, H, W] -> [N, 2H, 2W] interleave -> crop
-    (counterpart of d2s_pallas.py:depth_to_space2_jnp)."""
+
+def _joined(x: Phases) -> torch.Tensor:
+    """The [N, 4C, H, W] tensor of `x`: itself, or its four phases
+    concatenated."""
+    return x if isinstance(x, torch.Tensor) else torch.cat(list(x), 1)
+
+
+def depth_to_space2_ref(x: Phases, oheight: int, owidth: int) -> torch.Tensor:
+    """Plain form: [N, 4C, H, W] (or its four phases) -> [N, 2H, 2W]
+    interleave -> crop (counterpart of d2s_pallas.py:depth_to_space2_jnp)."""
+    x = _joined(x)
     n, c4, h, w = x.shape
     c = c4 // 4
     v = x.reshape(n, 2, 2, c, h, w)  # [n, px, py, c, y, x]
@@ -56,7 +74,8 @@ def depth_to_space2_ref(x: torch.Tensor, oheight: int, owidth: int) -> torch.Ten
 
 def space_to_depth2_ref(ct: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Plain adjoint of `depth_to_space2_ref`: [N, C, oh, ow] -> [N, 4C,
-    height, width], zeros where the crop cut."""
+    height, width], zeros where the crop cut (phase k: channels k*C to
+    (k+1)*C)."""
     n, c, oh, ow = ct.shape
     full = ct.new_zeros((n, c, 2 * height, 2 * width))
     full[:, :, :oh, :ow] = ct
@@ -64,82 +83,125 @@ def space_to_depth2_ref(ct: torch.Tensor, height: int, width: int) -> torch.Tens
     return v.permute(0, 5, 3, 1, 2, 4).reshape(n, 4 * c, height, width)
 
 
-def _check_cuda(t: torch.Tensor, numel: int) -> None:
+def _check_cuda(dtype: torch.dtype, numel: int) -> None:
     """Raise on what the kernels do not take: `numel` is the larger side's."""
-    if t.element_size() not in _ELEMENT_SIZES:
-        raise TypeError(f"the kernels move elements of {_ELEMENT_SIZES} bytes, got {t.dtype}")
+    if dtype.itemsize not in _ELEMENT_SIZES:
+        raise TypeError(f"the kernels move elements of {_ELEMENT_SIZES} bytes, got {dtype}")
     if numel >= 2**31:
         raise ValueError(f"{numel} elements exceed the kernels' 32-bit indexing")
 
 
-def _launch(x: torch.Tensor, oheight: int, owidth: int) -> torch.Tensor:
-    """The `d2s` kernel on a contiguous CUDA tensor; returns [N, C, oh, ow]."""
+def _phase_pointers(x: Phases) -> tuple[list[int], int]:
+    """The four phases' base pointers and their sample stride in elements,
+    of one contiguous [N, 4C, H, W] tensor or of four contiguous phases."""
+    if isinstance(x, torch.Tensor):
+        n, c4, h, w = x.shape
+        step = (c4 // 4) * h * w * x.element_size()
+        return [x.data_ptr() + k * step for k in range(4)], c4 * h * w
+    _, c, h, w = x[0].shape
+    return [t.data_ptr() for t in x], c * h * w
+
+
+def _launch(x: Phases, oheight: int, owidth: int) -> torch.Tensor:
+    """The `d2s` kernel on one contiguous CUDA tensor [N, 4C, H, W] or its
+    four contiguous phases [N, C, H, W]; returns [N, C, oh, ow]."""
     global launches
     from cspn_tpu_torch.ops import _build
 
-    _check_cuda(x, x.numel())
+    first = x if isinstance(x, torch.Tensor) else x[0]
+    n, c, h, w = first.shape
+    if isinstance(x, torch.Tensor):
+        c //= 4
+    _check_cuda(first.dtype, n * 4 * c * h * w)
     lib = _build.load("d2s")
-    n, c4, h, w = x.shape
-    out = x.new_empty((n, c4 // 4, oheight, owidth))
-    with torch.cuda.device(x.device):
-        err = lib.d2s(x.data_ptr(), out.data_ptr(), n, c4 // 4, h, w, oheight, owidth,
-                      x.element_size(), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
+    out = first.new_empty((n, c, oheight, owidth))
+    ptrs, stride = _phase_pointers(x)
+    with torch.cuda.device(first.device):
+        err = lib.d2s(*ptrs, out.data_ptr(), n, c, h, w, oheight, owidth, stride,
+                      first.element_size(), torch.cuda.current_stream(first.device).cuda_stream)
+    if err != 0:  # 1, cudaErrorInvalidValue: a row too wide for a block's shared memory
         raise RuntimeError(f"d2s launch failed: cudaError_t {err}")
     launches += 1
     return out
 
 
-def _launch_bwd(ct: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def _launch_bwd(ct: torch.Tensor, height: int, width: int, phases: bool = False):
     """The `s2d` kernel on a contiguous CUDA cotangent [N, C, oh, ow];
-    returns [N, 4C, height, width]."""
+    returns [N, 4C, height, width], or with `phases` the four phase
+    gradients [N, C, height, width], each contiguous."""
     global bwd_launches
     from cspn_tpu_torch.ops import _build
 
     n, c, oh, ow = ct.shape
-    _check_cuda(ct, n * 4 * c * height * width)
+    shape = (n, c, height, width)
+    _check_cuda(ct.dtype, n * 4 * c * height * width)
     lib = _build.load("d2s")
-    out = ct.new_empty((n, 4 * c, height, width))
+    out = ([ct.new_empty(shape) for _ in range(4)] if phases
+           else ct.new_empty((n, 4 * c, height, width)))
+    ptrs, stride = _phase_pointers(out)
     with torch.cuda.device(ct.device):
-        err = lib.s2d(ct.data_ptr(), out.data_ptr(), n, c, height, width, oh, ow,
+        err = lib.s2d(ct.data_ptr(), *ptrs, n, c, height, width, oh, ow, stride,
                       ct.element_size(), torch.cuda.current_stream(ct.device).cuda_stream)
-    if err != 0:
+    if err != 0:  # as d2s
         raise RuntimeError(f"s2d launch failed: cudaError_t {err}")
     bwd_launches += 1
     return out
 
 
 class _DepthToSpace2(torch.autograd.Function):
-    """Forward `d2s`, backward `s2d` (the custom VJP of d2s_pallas.py:_d2s)."""
+    """Forward `d2s`, backward `s2d` (the custom VJP of d2s_pallas.py:_d2s),
+    of one [N, 4C, H, W] tensor or of four phases: one gradient per tensor
+    given."""
 
     @staticmethod
-    def forward(ctx, x, oheight, owidth):
-        ctx.hw = x.shape[2:]
-        return _launch(x.contiguous(), oheight, owidth)
+    def forward(ctx, oheight, owidth, *xs):
+        ctx.hw, ctx.phases = xs[0].shape[2:], len(xs) == 4
+        x = [t.contiguous() for t in xs] if ctx.phases else xs[0].contiguous()
+        return _launch(x, oheight, owidth)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct):
-        return _launch_bwd(ct.contiguous(), *ctx.hw), None, None
+        grads = _launch_bwd(ct.contiguous(), *ctx.hw, phases=ctx.phases)
+        return None, None, *(grads if ctx.phases else [grads])
 
 
-def depth_to_space2(x: torch.Tensor, oheight: int, owidth: int, *,
+def _check_phases(x: Sequence[torch.Tensor]) -> tuple[int, int]:
+    """(H, W) of four phases of one shape, dtype and device."""
+    if len(x) != 4 or not all(isinstance(t, torch.Tensor) for t in x):
+        raise ValueError(f"expected one [N, 4C, H, W] tensor or its four phases, got {len(x)} items")
+    if x[0].ndim != 4:
+        raise ValueError(f"phases must be [N, C, H, W], got {tuple(x[0].shape)}")
+    if any(t.shape != x[0].shape or t.dtype != x[0].dtype or t.device != x[0].device
+           for t in x[1:]):
+        raise ValueError("the four phases must share shape, dtype and device, got "
+                         + ", ".join(f"{tuple(t.shape)} {t.dtype} {t.device}" for t in x))
+    return tuple(x[0].shape[2:])
+
+
+def depth_to_space2(x: Phases, oheight: int, owidth: int, *,
                     backend: str = "auto") -> torch.Tensor:
-    """[N, 4*C, H, W] (channel (px*2+py)*C + c) -> [N, C, oheight, owidth];
-    differentiable in x."""
-    if x.ndim != 4:
-        raise ValueError(f"input must be [N, 4C, H, W], got {tuple(x.shape)}")
-    _, c4, h, w = x.shape
-    if c4 % 4:
-        raise ValueError(f"channel dim {c4} not a multiple of 4")
+    """[N, 4*C, H, W] (channel (px*2+py)*C + c), or its four phases
+    [N, C, H, W] px-major, -> [N, C, oheight, owidth]; differentiable in x
+    (in each phase)."""
+    if isinstance(x, torch.Tensor):
+        if x.ndim != 4:
+            raise ValueError(f"input must be [N, 4C, H, W], got {tuple(x.shape)}")
+        _, c4, h, w = x.shape
+        if c4 % 4:
+            raise ValueError(f"channel dim {c4} not a multiple of 4")
+        xs, device = (x,), x.device
+    else:
+        h, w = _check_phases(x)
+        xs, device = tuple(x), x[0].device
     if not (0 < oheight <= 2 * h and 0 < owidth <= 2 * w):
         raise ValueError(f"crop ({oheight},{owidth}) outside 2x of {(h, w)}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
-    on_cuda = x.device.type == "cuda"
+    on_cuda = device.type == "cuda"
     if backend == "kernel" and not on_cuda:
-        raise ValueError(f"backend='kernel' needs CUDA tensors, got {x.device}; "
+        raise ValueError(f"backend='kernel' needs CUDA tensors, got {device}; "
                          "use 'reference' (or 'auto') on the CPU")
     if backend == "reference" or not on_cuda:
         return depth_to_space2_ref(x, oheight, owidth)
-    return _DepthToSpace2.apply(x, oheight, owidth)
+    return _DepthToSpace2.apply(oheight, owidth, *xs)

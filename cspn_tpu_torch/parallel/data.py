@@ -27,9 +27,10 @@ default route `scale_loss` turns each shard's masked mean into R n_r / N
 times it (n_r the shard's valid pixels, N the global batch's, R the
 ranks), so that DDP's average of the ranks' gradients is the gradient of
 the global masked mean, and `after_step` weights each rank's metric by
-its count (a root-mean metric such as RMSE by its square).  The shard_map
-step pmeans the shards' losses and metrics and takes RMSE from the
-pmeaned MSE (JAX :156-163): so does the bf16 route.
+its count (a root-mean metric such as RMSE by its square); berHu's
+threshold spans the global batch too (`loss_group`, train/loss.py).  The
+shard_map step pmeans the shards' losses and metrics and takes RMSE from
+the pmeaned MSE (JAX :156-163): so does the bf16 route.
 
 Without a process group (`mesh.data_group` None) the model is trained in
 this process alone; the bf16 route then rounds each gradient to bfloat16
@@ -106,6 +107,13 @@ class DataParallel:
             process_group=self.group, broadcast_buffers=False)
         self.hook = ReduceHook(self.group, self.dtype)
         self.module.register_comm_hook(self.hook, _reduce_hook)
+
+    @property
+    def loss_group(self):
+        """The group whose ranks' batches a loss spans: the data group on
+        the default route (GSPMD's global batch), None on the bf16 route
+        (shard_map's per-shard loss) and without a group."""
+        return self.group if self.dtype is None else None
 
     @property
     def ranks(self) -> int:

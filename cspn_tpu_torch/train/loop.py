@@ -27,6 +27,7 @@ model; a spatially sharded model is one a caller builds with
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -41,7 +42,7 @@ from cspn_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 from cspn_tpu_torch.train import checkpoint as ckpt_lib
 from cspn_tpu_torch.train.evaluate import build_model, make_eval_step
 from cspn_tpu_torch.train.logging import TsvLogger, format_error
-from cspn_tpu_torch.train.loss import LOSSES, VALID_THRESHOLD
+from cspn_tpu_torch.train.loss import LOSSES, VALID_THRESHOLD, berhu_loss
 from cspn_tpu_torch.train.lr_schedule import ReduceLROnPlateau
 from cspn_tpu_torch.train.metrics import METRIC_KEYS, ROOT_KEYS, evaluate_error, metric_counts
 from cspn_tpu_torch.train.state import TrainState, make_optimizer, partial_restore, set_learning_rate
@@ -53,8 +54,12 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, lo
     on the device.  The gradients stay in the parameters' `.grad` until the
     next step.  With `data_parallel` (of `model`), the step runs its
     module and its reduce; loss and metrics come back averaged over the
-    ranks."""
+    ranks.  On the sync-BN route berHu's threshold spans the global batch
+    (train/loss.py), as in the JAX package's GSPMD step."""
     loss_fn = LOSSES[loss_name]
+    group = None if data_parallel is None else data_parallel.loss_group
+    if loss_name == "berhu" and group is not None:
+        loss_fn = functools.partial(berhu_loss, group=group)
     forward = model if data_parallel is None else data_parallel.module
 
     def train_step(rgbd, depth):
@@ -161,11 +166,6 @@ class Trainer:
         self.ckpt = ckpt_lib.CheckpointManager(cfg.save_dir)
         self.logger = TsvLogger(cfg.save_dir) if self.main else None
         route = reduce_route(cfg.optim.grad_reduce_dtype, self.mesh)
-        if cfg.optim.loss == "berhu" and route is None and self.mesh.data > 1:
-            raise NotImplementedError(
-                "berHu on the sync-BN route over several ranks is not ported: its threshold "
-                "spans the global batch in the JAX GSPMD step, and its gradient through the "
-                "threshold crosses ranks; use l1, or --grad-reduce-dtype bfloat16 (per shard)")
         self.data_parallel = DataParallel(model, self.mesh, route)
         self.train_step = make_train_step(model, optimizer, cfg.optim.loss, self.data_parallel)
         self.eval_step = make_eval_step(model, cfg.optim.loss)

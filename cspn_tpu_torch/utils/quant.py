@@ -187,7 +187,7 @@ class QuantConv(nn.Conv2d):
               for (wq, ws, w_mat), pad in zip(self.quantized_weights(), pads)]
         if not self.subpixel:
             return ys[0]
-        return depth_to_space2(ys[0] if len(ys) == 1 else torch.cat(ys, 1), oheight, owidth)
+        return depth_to_space2(ys[0] if len(ys) == 1 else ys, oheight, owidth)
 
 
 def quantize_convs(module: nn.Module) -> nn.Module:

@@ -495,6 +495,43 @@ def test_d2s_kernels_match_plain_bit_for_bit(gen, shape, crop, dtype):
     assert torch.equal(gk, d2s.space_to_depth2_ref(ct, *shape[2:]))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("shape, crop", [
+    ((1, 1, 10, 19), (19, 38)),  # w = 19, C = 1: rows and planes not 16-byte aligned
+    ((3, 1, 19, 19), (37, 37)),  # N = 3, odd crop in both axes
+    ((3, 5, 15, 38), (29, 76)),  # w = 38
+    ((1, 7, 29, 38), (57, 75)),
+    ((2, 3, 6, 7), (9, 10)),  # a crop of several rows and columns
+    ((8, 64, 15, 19), (29, 38)),  # layer2's rows, narrower
+])
+def test_d2s_phase_list_matches_plain_bit_for_bit(gen, shape, crop, dtype):
+    """The four phases [N, C, h, w] as the decoder hands them: the output
+    and the four phase gradients against the plain version (which joins
+    them), one launch each way, each gradient its own contiguous tensor."""
+    phases = [torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+    ct = torch.randn(shape[0], shape[1], *crop, device="cuda", generator=gen).to(dtype)
+    before = (d2s.launches, d2s.bwd_launches)
+    pk = [p.clone().requires_grad_(True) for p in phases]
+    got = d2s.depth_to_space2(pk, *crop)
+    grads = torch.autograd.grad(got, pk, ct)
+    torch.cuda.synchronize()
+    assert (d2s.launches, d2s.bwd_launches) == (before[0] + 1, before[1] + 1)
+    pr = [p.clone().requires_grad_(True) for p in phases]
+    want = d2s.depth_to_space2_ref(pr, *crop)
+    wants = torch.autograd.grad(want, pr, ct)
+    assert got.dtype == dtype and got.is_contiguous() and torch.equal(got, want)
+    for g, w in zip(grads, wants):
+        assert g.shape == shape and g.is_contiguous() and torch.equal(g, w)
+    # the joined tensor through the same kernels
+    assert torch.equal(d2s.depth_to_space2(torch.cat(phases, 1), *crop), got)
+    # phases that are views of one tensor, at offsets that are not 16-byte aligned
+    joined = torch.cat(phases, 1)
+    views = list(joined.chunk(4, 1))
+    assert torch.equal(d2s._launch([v.contiguous() for v in views], *crop), got)
+    assert torch.equal(torch.cat(d2s._launch_bwd(ct, *shape[2:], phases=True), 1),
+                       d2s._launch_bwd(ct, *shape[2:]))
+
+
 def test_d2s_on_cuda_never_reaches_the_plain_version(gen, monkeypatch):
     """A CUDA tensor goes to the kernels, forward and backward; the subpixel
     resnet18 model launches nine of each per train step."""
@@ -511,6 +548,17 @@ def test_d2s_on_cuda_never_reaches_the_plain_version(gen, monkeypatch):
     out.backward(torch.randn(out.shape, device="cuda", generator=gen))
     torch.cuda.synchronize()
     assert (d2s.launches, d2s.bwd_launches) == (before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(torch, "cat", plain)  # nothing joins the phases either
+    phases = [torch.randn(2, 9, 6, 7, device="cuda", generator=gen, requires_grad=True)
+              for _ in range(4)]
+    out = d2s.depth_to_space2(phases, 11, 13)
+    out.backward(torch.randn(out.shape, device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    assert (d2s.launches, d2s.bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert all(p.grad is not None and p.grad.shape == (2, 9, 6, 7) for p in phases)
+    monkeypatch.undo()
+    monkeypatch.setattr(d2s, "depth_to_space2_ref", plain)
+    monkeypatch.setattr(d2s, "space_to_depth2_ref", plain)
 
     model = unet.cspn_unet_resnet18(cspn_steps=2, generator=torch.Generator().manual_seed(0))
     model = model.cuda().train()
@@ -529,6 +577,8 @@ def test_d2s_failed_build_raises(gen, monkeypatch, tmp_path):
     before = d2s.launches
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         d2s.depth_to_space2(x, 6, 8)
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        d2s.depth_to_space2(list(x.chunk(4, 1)), 6, 8)
     assert d2s.launches == before
 
 
@@ -537,6 +587,12 @@ def test_d2s_wrapper_refuses_what_the_kernel_does_not_take(gen):
         d2s.depth_to_space2(torch.zeros(1, 8, 3, 4, dtype=torch.uint8, device="cuda"), 6, 8)
     with pytest.raises(ValueError, match="multiple of 4"):
         d2s.depth_to_space2(torch.zeros(1, 6, 3, 4, device="cuda"), 6, 8)
+    with pytest.raises(TypeError, match="bytes"):
+        d2s.depth_to_space2([torch.zeros(1, 2, 3, 4, dtype=torch.uint8, device="cuda")] * 4, 6, 8)
+    # a tile of one row past a block's 227 KB of shared memory: the launch is refused
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        d2s.depth_to_space2([torch.zeros(1, 1, 1, 8000, dtype=torch.float64, device="cuda")] * 4,
+                            2, 16000)
 
 
 # --- the tiled 2D forward (csrc/cspn2d_tiled.cu) --------------------------

@@ -18,6 +18,10 @@ temporary directory and each trains on its half of every batch:
     iRMSE and iMAE, trap 6); the ground truth
     has invalid pixels at random, so the two shards hold different numbers
     of valid pixels and the global masked mean is exercised;
+  - the same step under berHu on the default route, its ground truth
+    raised at one pixel of rank 1's rows so that the global max |d| lies
+    there: against the one-process step (1e-9) and JAX's GSPMD berHu step
+    (RTOL, ATOL); and a `Trainer` with loss='berhu' at mesh_data=2 steps;
   - the same step on the bf16 route against JAX's
     make_shard_map_train_step(grad_reduce_dtype='bfloat16') on that mesh:
     each parameter within twice the largest change that bf16 rounding makes
@@ -46,6 +50,7 @@ rank, and the fixture stops both ranks and fails, with their exit codes
 and standard error, as soon as one fails or RANKS_DEADLINE_S has passed.
 """
 
+import copy
 import dataclasses
 import os
 import pathlib
@@ -160,6 +165,19 @@ _WORKER = textwrap.dedent("""
         loss, error = loop.make_train_step(model, opt, "l1", dp)(rows["x"], rows["gt"])
         out[f"step_{route}"] = dict(loss=loss, error=error, state=model.state_dict(),
                                     bytes=dict(dp.hook.bytes))
+    # berHu on the sync-BN route: the global max |d| lies in rank 1's rows
+    model = unet._make(18, True, cspn_steps=inp["steps"]).double()
+    model.load_state_dict(inp["weights"])
+    opt = state.make_optimizer(model.parameters(), inp["lr"], momentum=0.9, weight_decay=1e-4,
+                               nesterov=True)
+    brows = shard_batch({"gt": inp["gt_berhu"]}, mesh)
+    loss, error = loop.make_train_step(model, opt, "berhu", DataParallel(model, mesh))(
+        rows["x"], brows["gt"])
+    out["step_berhu"] = dict(loss=loss, error=error, state=model.state_dict())
+    cfg = dataclasses.replace(inp["cfg"], save_dir=f"{tmp}/berhu", mesh_data=2,
+                              optim=dataclasses.replace(inp["cfg"].optim, loss="berhu"))
+    trainer = loop.Trainer(cfg, *factory.build_loaders(cfg), device="cpu")
+    out["trainer_berhu"] = float(trainer.train_step(rows["x"].float(), brows["gt"].float())[0])
 
     for key, (d, s) in (("fit_data", (2, 1)), ("fit_spatial", (1, 2))):
         cfg = dataclasses.replace(inp["cfg"], save_dir=f"{tmp}/{key}", mesh_data=d, mesh_spatial=s)
@@ -207,20 +225,32 @@ def _stereo_cfg():
                                     num_epochs=1)
 
 
+# berHu's ground truth: _batch's with one valid pixel of rank 1's rows
+# (frame 3) raised to BERHU_PEAK, so that the global max |d| lies there and
+# rank 0's threshold, 0.2 x that max, comes from the other rank; every other
+# |d| is below ~7, so both ranks hold pixels above the threshold and both
+# ranks' losses send gradient through it
+BERHU_PIXEL, BERHU_PEAK = (3, 10, 20), 12.0
+
+
 def _batch():
     """4 frames; ground truth >= 2 (kept apart from the predictions, as
-    tests/test_torch_train_step.py), a fifth of it invalid at random."""
+    tests/test_torch_train_step.py), a fifth of it invalid at random; and
+    berHu's ground truth (BERHU_PIXEL)."""
     ds = JaxSyntheticDepthDataset(length=4, hw=HW, n_sample=64, seed=5)
     x = np.stack([ds[i]["rgbd"] for i in range(4)]).astype(np.float64)
     rng = np.random.default_rng(7)
     gt = 2.0 + np.abs(rng.standard_normal((4, *HW)))
     gt[rng.random((4, *HW)) < 0.2] = 0.0
-    return x, gt
+    gt_berhu = gt.copy()
+    gt_berhu[BERHU_PIXEL] = BERHU_PEAK
+    return x, gt, gt_berhu
 
 
-def _jax_steps(x, gt):
-    """The JAX init (float64 weights), its GSPMD step and its shard_map
-    step reducing in bf16 and in float32, on a 2-device data mesh."""
+def _jax_steps(x, gt, gt_berhu):
+    """The JAX init (float64 weights), its GSPMD step (masked L1, and berHu
+    on `gt_berhu`) and its shard_map step reducing in bf16 and in float32,
+    on a 2-device data mesh."""
     model = junet._make(18, True, cspn_steps=STEPS, cspn_backend="reference", train=True)
     v = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0),
                                                     jnp.asarray(x[:1], jnp.float32)))
@@ -228,14 +258,16 @@ def _jax_steps(x, gt):
     out = {}
     with jax.enable_x64(True):
         v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), v)
-        for name, step in (("gspmd", jloop.make_train_step(model, "l1")),
-                           ("bf16", jloop.make_shard_map_train_step(model, mesh, "l1",
-                                                                    grad_reduce_dtype="bfloat16")),
-                           ("shard_f32", jloop.make_shard_map_train_step(model, mesh, "l1"))):
+        for name, step, target in (
+                ("gspmd", jloop.make_train_step(model, "l1"), gt),
+                ("gspmd_berhu", jloop.make_train_step(model, "berhu"), gt_berhu),
+                ("bf16", jloop.make_shard_map_train_step(model, mesh, "l1",
+                                                         grad_reduce_dtype="bfloat16"), gt),
+                ("shard_f32", jloop.make_shard_map_train_step(model, mesh, "l1"), gt)):
             st = jmesh.replicate(jstate.TrainState.create(
                 apply_fn=model.apply, params=v64["params"], batch_stats=v64["batch_stats"],
                 tx=jstate.make_optimizer(LR, momentum=0.9, weight_decay=1e-4, nesterov=True)), mesh)
-            b = jmesh.shard_batch({"x": jnp.asarray(x), "gt": jnp.asarray(gt)}, mesh)
+            b = jmesh.shard_batch({"x": jnp.asarray(x), "gt": jnp.asarray(target)}, mesh)
             new, loss, error = step(st, b["x"], b["gt"])
             out[name] = dict(loss=float(loss), error={k: float(e) for k, e in error.items()},
                              state={**convert.convert_jax_tree("params", jax.tree.map(np.asarray, new.params)),
@@ -252,6 +284,17 @@ def _one_process_steps(weights, x, gt, inp):
                                nesterov=True)
     loss, error = loop.make_train_step(model, opt, "l1")(x, gt)
     one = {"step": dict(loss=loss, error=error, state=model.state_dict())}
+    model = unet._make(18, True, cspn_steps=STEPS).double()
+    model.load_state_dict(weights)
+    with torch.no_grad():  # where the max |d| of berHu's batch lies (a copy: BN's statistics)
+        d = (copy.deepcopy(model)(x) - inp["gt_berhu"]).abs() * (inp["gt_berhu"] > 1e-4)
+    one["berhu_argmax"] = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    opt = state.make_optimizer(model.parameters(), LR, momentum=0.9, weight_decay=1e-4,
+                               nesterov=True)
+    loss, error = loop.make_train_step(model, opt, "berhu")(x, inp["gt_berhu"])
+    one["step_berhu"] = dict(loss=loss, error=error, state=model.state_dict(),
+                             above=[float((d[r] > 0.2 * d.max()).sum()) for r in (slice(0, 2),
+                                                                                 slice(2, 4))])
     scfg = inp["stereo_cfg"]
     smodel = stereo_loop.build_stereo_model(scfg, train=True, device="cpu", seed=0).double()
     sopt = state.make_optimizer(smodel.parameters(), scfg.lr, momentum=0.9, weight_decay=1e-4,
@@ -270,14 +313,15 @@ def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp")
     rng = np.random.default_rng(0)
     t = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=F64)  # noqa: E731
-    x, gt = _batch()
-    v64, jax_out = _jax_steps(x, gt)
+    x, gt, gt_berhu = _batch()
+    v64, jax_out = _jax_steps(x, gt, gt_berhu)
     weights = convert.load_jax_variables(unet._make(18, True, cspn_steps=STEPS).double(),
                                          v64).state_dict()
     sds = SyntheticStereoDataset(length=4, hw=HW, max_disp=8, seed=3)
     inp = {"bn2d": t(4, 3, 5, 6) * 2 + 1, "bn2d_ct": t(4, 3, 5, 6),
            "bn3d": t(4, 3, 2, 5, 6) - 1, "bn3d_ct": t(4, 3, 2, 5, 6),
            "w": t(3), "b": t(3), "x": torch.from_numpy(x), "gt": torch.from_numpy(gt),
+           "gt_berhu": torch.from_numpy(gt_berhu),
            "weights": weights, "steps": STEPS, "lr": LR, "cfg": _fit_cfg(),
            "stereo_cfg": _stereo_cfg(),
            **{k: torch.tensor(np.stack([sds[i][k] for i in range(4)]), dtype=F64)
@@ -386,6 +430,28 @@ def test_ddp_sync_bn_step_matches_the_jax_gspmd_step(ranks):
     outs, _, jax_out, _, _ = ranks
     for out in outs:
         _check_step(out["step_None"], jax_out["gspmd"], RTOL, ATOL, JAX_METRICS)
+
+
+def test_ddp_berhu_step_spans_the_global_batch(ranks):
+    """berHu on the sync-BN route: the threshold from the global max |d|,
+    which lies in rank 1's rows, and its gradient from both ranks' losses
+    routed to that pixel, against the port's one-process step over the
+    joined batch and the JAX package's GSPMD berHu step on a 2-device data
+    mesh."""
+    outs, one, jax_out, _, _ = ranks
+    assert tuple(int(i) for i in one["berhu_argmax"]) == BERHU_PIXEL  # rank 1's frame 3
+    # both shards hold pixels above the threshold: both losses depend on it
+    assert all(n > 0 for n in one["step_berhu"]["above"]), one["step_berhu"]["above"]
+    for out in outs:
+        _check_step(out["step_berhu"], one["step_berhu"], 1e-9, 1e-12)
+        _check_step(out["step_berhu"], jax_out["gspmd_berhu"], RTOL, ATOL, JAX_METRICS)
+
+
+def test_trainer_takes_berhu_on_a_data_mesh(ranks):
+    """Trainer(loss='berhu') at mesh_data=2 builds and steps (it raised
+    before the threshold spanned the ranks)."""
+    losses = [out["trainer_berhu"] for out in ranks[0]]
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
 def test_ddp_bf16_route_matches_the_jax_shard_map_step(ranks):
