@@ -83,7 +83,17 @@ paths on the card and fails (non-zero exit) if any phase fails:
      and both paths' forwards per bucket, rel-norms against float32; and
      the bf16 nyu_train b8 and stereo b4 steps against their plain twins
      and the float64 oracle, timed beside float32 (precision_serve,
-     precision_train).
+     precision_train);
+ 14. deployment: a reference-format checkpoint of the calibrated nyu_eval
+     model (`module.` prefixes, the keys the reference builds but never
+     calls) imported and exported with a symbolic batch at float32 (the
+     `export --check` subcommand), bf16 and int8 with static scales
+     (export.py); each graph holds the `cspn2d_tiled` op once and `d2s` 9
+     times; each artifact served in this process and reloaded in a fresh
+     one at b = 1, 3 and 8 against the eager model, with exact launches;
+     export and save times, sizes, eager and exported b1/b8 forwards; then
+     `eval --import-torch-checkpoint --dump-images` and `infer --out-dir`
+     on a few frames, the PNGs read back with zlib (deployment_slice).
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -3666,6 +3676,204 @@ def ddp_slice(name: str) -> dict:
     return launches
 
 
+# phase 14: the exported dtypes (int8 with static activation scales), the
+# request sizes each artifact serves, and the frames of the CLI's eval and infer
+DEPLOY_DTYPES = ("float32", "bfloat16", "int8")
+DEPLOY_REQUESTS = (1, 3, 8)
+DEPLOY_FRAMES = 4
+# the fresh process that reloads the artifacts (argv: directory, dtypes):
+# it imports export.py and the op modules, never cspn_tpu_torch.models.  It
+# serves with cuDNN off, PyTorch's own convolutions, as the eager outputs it
+# is held to were computed: cuDNN picks its algorithms by timing in each
+# process (and its plan cache keeps this process's picks when the timing is
+# off), and two algorithms round a bf16 convolution apart, which grows
+# through the random-weight network (ROADMAP trap 14; 8.6-10.7% of the
+# output's max on an NVIDIA H100 80GB HBM3 at 700 W)
+_SERVE_ARTIFACTS = """
+import sys, torch
+from cspn_tpu_torch import export
+from cspn_tpu_torch.ops import cspn_cuda, d2s
+folder, dtypes = sys.argv[1], sys.argv[2:]
+frames = [x.cuda() for x in torch.load(folder + "/frames.pt")]
+served = {}
+for dtype in dtypes:
+    art = export.load_artifact(folder + "/" + dtype + ".pt2")
+    torch.backends.cudnn.enabled = False
+    art.call(frames[0])
+    torch.cuda.synchronize()
+    cspn_cuda.tiled_launches = d2s.launches = d2s.bwd_launches = 0
+    cspn_cuda.launches = cspn_cuda.bwd_launches = 0
+    outs = [art.call(x).cpu() for x in frames]
+    served[dtype] = {"outputs": outs, "launches": {
+        "cspn2d_tiled": cspn_cuda.tiled_launches, "d2s": d2s.launches, "s2d": d2s.bwd_launches,
+        "cspn2d_fwd": cspn_cuda.launches, "cspn2d_bwd": cspn_cuda.bwd_launches}}
+served["models_imported"] = "cspn_tpu_torch.models" in sys.modules
+torch.save(served, folder + "/served.pt")
+"""
+
+
+def _reference_checkpoint(model, path: str) -> None:
+    """`model`'s weights as the reference's training saves them
+    (torch.save of a DataParallel state dict, reference train.py:277-280):
+    `module.` prefixes, BN counters, and modules the reference builds but
+    its forward never calls."""
+    sd = {"module." + k: v for k, v in model.state_dict().items()}
+    sd.update({"module.post_process_layer.sum_conv.weight": torch.ones(1, 8, 3, 3),
+               "module.up_proj_layer1.conv1.weight": torch.zeros(2, 2, 5, 5),
+               "module.bn1.num_batches_tracked": torch.tensor(7)})
+    torch.save(sd, path)
+
+
+def _held(label: str, got, want, tol: float) -> float:
+    """max|got - want| / max|want|, raising above `tol` (0: bit for bit)."""
+    err, scale = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+    if not (torch.equal(got, want) if tol == 0 else err <= tol * scale):
+        raise AssertionError(f"{label}: max|err| {err:.3e} > {tol:g} x max|want| {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def deployment_slice(name: str) -> dict:
+    """Phase 14 (module docstring).  Returns the kernels' launches on the
+    exported programs' served requests in this process."""
+    from cspn_tpu_torch import cli, export
+    from cspn_tpu_torch.train.evaluate import load_eval_state
+    from cspn_tpu_torch.utils.images import read_png
+    from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
+
+    cfg = nyu_eval_synthetic()
+    h, w = cfg.data.crop_hw
+    model32 = calibrated_model(cfg)
+    gen = torch.Generator().manual_seed(14)
+    frames = [torch.randn((n, h, w, 4), generator=gen) for n in DEPLOY_REQUESTS]
+    per_forward = {"cspn2d_tiled": 1, "d2s": d2s_per_forward(model32)}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    eager, native, report = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as folder:
+        pth = os.path.join(folder, "best_model.pth")
+        _reference_checkpoint(model32, pth)
+        torch.save(frames, os.path.join(folder, "frames.pt"))
+        for dtype in DEPLOY_DTYPES:
+            path = os.path.join(folder, f"{dtype}.pt2")
+            t0 = time.perf_counter()
+            if dtype == "float32":  # the subcommand, as a user runs it
+                argv = ["export", "--preset", "nyu_eval", "--import-torch-checkpoint", pth,
+                        "--out", path, "--check", "--device", "cuda"]
+                log("  python -m cspn_tpu_torch " + " ".join(argv))
+                err = cli.cmd_export(cli.build_parser().parse_args(argv))
+                model = load_eval_state(cfg, device="cuda", torch_checkpoint=pth)
+                source = model32.state_dict()  # every tensor but the BN counters, which stay 0
+                if not all(torch.equal(v, source[k]) for k, v in model.state_dict().items()
+                           if not k.endswith("num_batches_tracked")):
+                    raise AssertionError("the imported reference checkpoint differs from its model")
+            else:
+                mcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                    cfg.model, dtype=dtype, act_static=dtype == "int8"))
+                model = load_eval_state(mcfg, device="cuda", torch_checkpoint=pth)
+                t1 = time.perf_counter()
+                program = export.export_serving(model, h, w)
+                t2 = time.perf_counter()
+                export.save_artifact(program, path, {"arch": cfg.model.arch, "dtype": dtype,
+                                                     "cspn_steps": cfg.model.cspn_steps,
+                                                     "height": h, "width": w, "batch": None})
+                log(f"  {dtype}{' (static scales)' if dtype == 'int8' else ''}: imported in "
+                    f"{t1 - t0:.1f} s, exported in {t2 - t1:.1f} s, saved in "
+                    f"{time.perf_counter() - t2:.1f} s")
+            art = export.load_artifact(path)
+            ops = export.op_counts(art.program)
+            if ops != per_forward:
+                raise AssertionError(f"{dtype} graph holds ops {ops}, expected {per_forward}")
+            size = os.path.getsize(path)
+            with torch.no_grad():
+                eager[dtype] = [model(x.cuda()).cpu() for x in frames]
+                torch.backends.cudnn.enabled = False  # as the fresh process serves
+                native[dtype] = [model(x.cuda()).cpu() for x in frames]
+                torch.backends.cudnn.enabled = True
+            scale = max(e.abs().max().item() for e in eager[dtype])
+            if dtype == "float32" and not err <= KERNEL_TOL * scale:
+                raise AssertionError(f"export --check max|err| {err:.3e} > {KERNEL_TOL:g} x {scale:.3e}")
+            torch.cuda.synchronize()
+            reset_launches()
+            outs = [art.call(x.cuda()).cpu() for x in frames]
+            for k, n in read_launches().items():
+                launches[k] += n
+            tol = KERNEL_TOL if dtype == "float32" else PRECISION_TWIN_TOL
+            worst = max(_held(f"{dtype} exported b{len(x)}", o, e, tol)
+                        for x, o, e in zip(frames, outs, eager[dtype]))
+            times = {"eager": [], "exported": []}
+            with torch.no_grad():
+                for b in (1, 8):
+                    x = frames[-1][:b].cuda()
+                    for form in ("eager", "exported", "exported", "eager"):
+                        fn = model if form == "eager" else art.call
+                        times[form].append((b, time_ms(lambda: fn(x), reps=5, warmup=1)))
+            report[dtype] = {"bytes": size, "ops": ops, "max_rel_err": worst, "ms": times}
+            log(f"  {dtype}: {size / 1e6:.1f} MB, graph ops {ops}, exported vs eager at b "
+                f"{DEPLOY_REQUESTS}: max|err| / max|eager| {worst:.3e}; b1 / b8 forward ms, "
+                "eager " + ", ".join(f"b{b} {t:.3f}" for b, t in times["eager"]) + "; exported "
+                + ", ".join(f"b{b} {t:.3f}" for b, t in times["exported"]) + f" on {name}")
+            del model, art
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0),
+                        **{k: v * len(DEPLOY_REQUESTS) * len(DEPLOY_DTYPES)
+                           for k, v in per_forward.items()})
+        if launches != expected:
+            raise AssertionError(f"exported programs launched {launches}, expected {expected}")
+        log(f"  served b {DEPLOY_REQUESTS} on each artifact in this process: launches "
+            f"{launches} (expected {expected})")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _SERVE_ARTIFACTS, folder, *DEPLOY_DTYPES],
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=ROOT))
+        if proc.returncode != 0:
+            raise AssertionError(f"the fresh process failed:\n{proc.stdout}\n{proc.stderr}")
+        served = torch.load(os.path.join(folder, "served.pt"))
+        if served.pop("models_imported"):
+            raise AssertionError("loading and serving an artifact imported cspn_tpu_torch.models")
+        for dtype, got in served.items():
+            want = {k: v * len(DEPLOY_REQUESTS) for k, v in per_forward.items()}
+            want.update(s2d=0, cspn2d_fwd=0, cspn2d_bwd=0)
+            if got["launches"] != want:
+                raise AssertionError(f"{dtype} in a fresh process launched {got['launches']}, "
+                                     f"expected {want}")
+            tol = KERNEL_TOL if dtype == "float32" else PRECISION_TWIN_TOL
+            report[dtype]["fresh_max_rel_err"] = max(
+                _held(f"{dtype} reloaded b{len(o)}", o, e, tol)
+                for o, e in zip(got["outputs"], native[dtype]))
+        log(f"  a fresh process (no cspn_tpu_torch.models; cuDNN off, for the eager outputs "
+            f"too) reloaded and served all three in "
+            f"{time.perf_counter() - t0:.1f} s: max|err| / max|eager| "
+            + ", ".join(f"{d} {r['fresh_max_rel_err']:.3e}" for d, r in report.items())
+            + ", launches exact")
+
+        common = ["--preset", "nyu_eval", "--dataset", "synthetic", "--crop-hw", f"{h},{w}",
+                  "--device", "cuda", "--best-model-dir", folder, "--import-torch-checkpoint", pth]
+        t0 = time.perf_counter()
+        cli.main(["eval", *common, "--runs", "1", "--max-batches", "1", "--batch-size-eval",
+                  str(DEPLOY_FRAMES), "--dump-images"])
+        dumped = sorted(os.listdir(os.path.join(folder, "eval_result")))
+        want = sorted(f"{i:05d}_{t}.png" for i in range(DEPLOY_FRAMES)
+                      for t in ("input", "gt", "pred"))
+        if dumped != want:
+            raise AssertionError(f"eval --dump-images wrote {dumped}, expected {want}")
+        for f in dumped:
+            img = read_png(os.path.join(folder, "eval_result", f))
+            if img.shape != ((h, w, 3) if f.endswith("input.png") else (h, w)):
+                raise AssertionError(f"{f}: shape {img.shape}")
+        npy = os.path.join(folder, "preds.npy")
+        cli.main(["infer", *common, "--buckets", "1,4", "--int8-from", "0", "--max-frames",
+                  str(DEPLOY_FRAMES - 1), "--out", npy, "--out-dir",
+                  os.path.join(folder, "infer_result")])
+        preds = np.load(npy)
+        for i, pred in enumerate(preds):
+            img = read_png(os.path.join(folder, "infer_result", f"{i:05d}_pred.png"))
+            if not np.array_equal(img, np.clip(pred * 25.5, 0, 255).astype(np.uint8)):
+                raise AssertionError(f"infer --out-dir: {i:05d}_pred.png is not the prediction")
+        log(f"  eval --import-torch-checkpoint --dump-images ({DEPLOY_FRAMES} frames) and infer "
+            f"--out-dir ({len(preds)} frames) in {time.perf_counter() - t0:.1f} s: every PNG "
+            "read back with zlib, the predictions' equal to the served ones")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
@@ -3692,7 +3900,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/13] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/14] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -3700,9 +3908,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/13] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/14] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/13] kernels against their plain versions")
+    log("[3/14] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -3715,38 +3923,38 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/13] nyu_eval served through DepthServer")
+    log("[4/14] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/13] nyu_train trained through Trainer.fit")
+    log("[5/14] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/13] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/14] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/13] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/14] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/13] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/14] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/13] kitti_benchmark trained through Trainer.fit")
+    log("[9/14] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/13] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/14] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/13] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/14] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/13] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/14] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
 
-    log("[13/13] precision: bf16 and int8 serving through load_server, bf16 training")
+    log("[13/14] precision: bf16 and int8 serving through load_server, bf16 training")
     from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
 
     serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
@@ -3755,6 +3963,10 @@ def main(argv=None) -> int:
                              KITTI_PRECISION_REQUESTS, KITTI_BUCKETS[-1])]
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
     by_path["precision_train"] = precision_train(name)
+
+    log("[14/14] deployment: reference-checkpoint import, export to torch.export artifacts, "
+        "image dumps")
+    by_path["deploy"] = deployment_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

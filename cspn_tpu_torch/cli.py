@@ -2,8 +2,11 @@
 
     python -m cspn_tpu_torch train --preset nyu_train --dataset synthetic --crop-hw 228,304
     python -m cspn_tpu_torch eval  --preset nyu_eval --dataset synthetic --runs 5
+    python -m cspn_tpu_torch eval  ... [--dump-images] [--import-torch-checkpoint best_model.pth]
     python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8,32 \
-        [--int8-from 8] [--act-static]
+        [--int8-from 8] [--act-static] [--out-dir DIR] [--import-torch-checkpoint best_model.pth]
+    python -m cspn_tpu_torch export --preset nyu_eval --out model.pt2 [--batch N] [--no-embed] \
+        [--check] [--dtype bfloat16|int8 [--act-static]] [--import-torch-checkpoint best_model.pth]
     python -m cspn_tpu_torch train-stereo --max-disp 192 --features 32 --prop-step 24 \
         --batch-size 4 --height 256 --width 512 [--train-list scene_flow.csv]
     python -m cspn_tpu_torch eval-stereo ... [--checkpoint best_model] [--dump-images]
@@ -21,10 +24,12 @@ card a rank, `--mesh-data` x `--mesh-spatial` ranks (train/loop.py).
 (eval, infer) the bf16 model with int8 convs, `--act-static` with static
 activation scales calibrated at load.  `infer` serves through
 `load_server`: bf16 below `--int8-from`, int8 from it up.  The 2D and
-3D CSPNs run float32 states at every dtype.  The NYU/KITTI file
-datasets, export and the other subcommands wait for later slices
-(ROADMAP.md Queue 1).  --tf32 computes float32 convolutions in TF32
-(default off).
+3D CSPNs run float32 states at every dtype.  `export` writes the eval
+graph as one `torch.export` artifact (export.py); `--import-torch-checkpoint`
+evaluates, serves or exports a whole model trained by the reference
+(models/torch_import.py).  The NYU/KITTI file datasets and the `bench`
+subcommand wait for later slices (ROADMAP.md Queue 1).  --tf32 computes
+float32 convolutions in TF32 (default off).
 """
 
 from __future__ import annotations
@@ -64,6 +69,12 @@ def _add_tf32(p: argparse.ArgumentParser):
     p.add_argument("--tf32", action="store_true",
                    help="float32 convolutions and matmuls in TF32 on the card (default: IEEE "
                         "float32; cspn_tpu_torch.set_conv_policy)")
+
+
+def _add_import(p: argparse.ArgumentParser):
+    p.add_argument("--import-torch-checkpoint", default=None,
+                   help="a whole model trained by the reference (best_model.pth), in place "
+                        "of <best-model-dir>/best_model.pt")
 
 
 def _add_train_overrides(p: argparse.ArgumentParser):
@@ -174,22 +185,29 @@ def cmd_eval(args):
     from cspn_tpu_torch.train.evaluate import run_eval
 
     return run_eval(_build_config(args), runs=args.runs, max_batches=args.max_batches,
-                    device=args.device, tf32=args.tf32)
+                    device=args.device, tf32=args.tf32, dump_images=args.dump_images,
+                    torch_checkpoint=args.import_torch_checkpoint)
 
 
 def cmd_infer(args):
     """Stream the val split through DepthServer.predict in groups of the top
-    bucket; optionally save the predictions as one .npy array."""
+    bucket, write each prediction as %05d_pred.png into --out-dir (default
+    <best_model_dir>/infer_result), and optionally all of them as one .npy
+    array (--out)."""
+    import os
+
     import numpy as np
     import torch
 
     from cspn_tpu_torch.serving import load_server
     from cspn_tpu_torch.train.factory import build_dataset
+    from cspn_tpu_torch.utils.images import save_pred_image
 
     cfg = _build_config(args)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     srv = load_server(cfg, buckets=buckets, device=args.device, tf32=args.tf32,
-                      int8_from=args.int8_from if args.int8_from > 0 else None)
+                      int8_from=args.int8_from if args.int8_from > 0 else None,
+                      torch_checkpoint=args.import_torch_checkpoint)
     ds = build_dataset(cfg, "val", seed=args.seed)
     h, w = ds[0]["rgbd"].shape[:2]
     srv.warmup(h, w)
@@ -203,11 +221,74 @@ def cmd_infer(args):
         torch.cuda.synchronize(srv.device)
     dt = time.perf_counter() - t0
     preds = np.concatenate(preds)
+    out_dir = args.out_dir or os.path.join(cfg.best_model_dir, "infer_result")
+    for i, pred in enumerate(preds):
+        save_pred_image(cfg.data.dataset, out_dir, i, pred)
     if args.out:
         np.save(args.out, preds)
-    print(f"==> served {srv.served} frames of {h}x{w} on {srv.device} in "
-          f"{dt:.3f} s" + (f", wrote {args.out}" if args.out else ""))
+    print(f"==> served {srv.served} frames of {h}x{w} on {srv.device} in {dt:.3f} s, wrote "
+          f"{len(preds)} predictions to {out_dir}" + (f" and {args.out}" if args.out else ""))
     return preds
+
+
+# the val split's geometry of the file datasets, which the port does not read yet
+_DATASET_HW = {"nyudepth": (228, 304), "kitti": (228, 912)}
+
+
+def cmd_export(args):
+    """Export the eval graph at the serving geometry (--height/--width,
+    default the val split's) as one torch.export artifact (export.py), with
+    the weights or, with --no-embed, without them; --check reloads it and
+    prints max|err| against the eager model (cspn_tpu/cli.py:236-297).
+    Exported on the card, the graph launches the hand-written CSPN and
+    depth-to-space kernels."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cspn_tpu_torch import resolve_device, set_conv_policy
+    from cspn_tpu_torch.export import (export_serving, load_artifact, op_counts, save_artifact,
+                                       serving_weights)
+    from cspn_tpu_torch.train.evaluate import load_eval_state
+
+    cfg = _build_config(args)
+    device = resolve_device(args.device)
+    set_conv_policy(device, tf32=args.tf32)
+    model = load_eval_state(cfg, device=device, torch_checkpoint=args.import_torch_checkpoint)
+    if args.height and args.width:
+        h, w = args.height, args.width
+    elif cfg.data.crop_hw:
+        h, w = cfg.data.crop_hw
+    elif cfg.data.dataset in _DATASET_HW:
+        h, w = _DATASET_HW[cfg.data.dataset]
+    else:
+        from cspn_tpu_torch.train.factory import build_dataset
+
+        h, w = build_dataset(cfg, "val", seed=0)[0]["rgbd"].shape[:2]
+    t0 = time.perf_counter()
+    program = export_serving(model, h, w, batch=args.batch, embed=not args.no_embed)
+    t1 = time.perf_counter()
+    weights = serving_weights(model) if args.no_embed else None
+    meta = {"arch": cfg.model.arch, "dtype": cfg.model.dtype, "cspn_steps": cfg.model.cspn_steps,
+            "height": h, "width": w, "batch": args.batch, "tf32": args.tf32}
+    save_artifact(program, args.out, meta, weights)
+    print(f"==> wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, {device.type}, "
+          f"batch {'b (symbolic)' if args.batch is None else args.batch}, custom ops "
+          f"{op_counts(program)}): exported in {t1 - t0:.1f} s, saved in "
+          f"{time.perf_counter() - t1:.1f} s")
+    if args.check:
+        art = load_artifact(args.out)
+        n = args.batch or 2
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, h, w, 4))
+                             .astype(np.float32)).to(device)
+        with torch.no_grad():
+            want = model(x)
+        got = art.call(x) if weights is None else art.call(weights, x)
+        err = float((want - got).abs().max())
+        print(f"==> roundtrip check max|err| = {err:.3e}")
+        return err
+    return None
 
 
 def _build_stereo(args):
@@ -348,6 +429,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_eval.add_argument("--runs", type=int, default=5,
                         help="sparse-resample eval runs to average (README protocol)")
     p_eval.add_argument("--max-batches", type=int, default=None)
+    p_eval.add_argument("--dump-images", action="store_true",
+                        help="write the first run's %%05d_{input,gt,pred}.png into "
+                             "<best_model_dir>/eval_result")
+    _add_import(p_eval)
     p_eval.set_defaults(fn=cmd_eval)
 
     p_inf = sub.add_parser("infer", help="batch inference via the bucketed serving front-end")
@@ -360,7 +445,28 @@ def build_parser() -> argparse.ArgumentParser:
     p_inf.add_argument("--max-frames", type=int, default=None)
     p_inf.add_argument("--seed", type=int, default=0)
     p_inf.add_argument("--out", default=None, help="save predictions to this .npy")
+    p_inf.add_argument("--out-dir", default=None,
+                       help="where %%05d_pred.png go (default <best_model_dir>/infer_result)")
+    _add_import(p_inf)
     p_inf.set_defaults(fn=cmd_infer)
+
+    p_exp = sub.add_parser("export", help="write the eval graph (and the weights) as one "
+                                          "torch.export artifact")
+    _add_common_overrides(p_exp)
+    p_exp.add_argument("--out", default="model.pt2", help="artifact path")
+    p_exp.add_argument("--batch", type=int, default=None,
+                       help="pin the batch dimension (default: symbolic -- one artifact serves "
+                            "any request size)")
+    p_exp.add_argument("--height", type=int, default=None)
+    p_exp.add_argument("--width", type=int, default=None,
+                       help="serving geometry; default the val split's")
+    p_exp.add_argument("--no-embed", action="store_true",
+                       help="leave the weights, the int8 cache and the static scales out of the "
+                            "file; the artifact takes them as its first input")
+    p_exp.add_argument("--check", action="store_true",
+                       help="reload the artifact and print max|err| against the eager model")
+    _add_import(p_exp)
+    p_exp.set_defaults(fn=cmd_export)
 
     p_st = sub.add_parser("train-stereo", help="train the PSMNet + 3D-CSPN stereo model")
     _add_stereo_args(p_st)

@@ -1,5 +1,5 @@
 """Host-side transforms: the port's numpy-only copy of the parts of
-cspn_tpu/data/transforms.py that the synthetic path uses."""
+cspn_tpu/data/transforms.py that the synthetic path and the image dumps use."""
 
 from __future__ import annotations
 
@@ -18,3 +18,8 @@ class Normalize:
 
     def __call__(self, arr: np.ndarray) -> np.ndarray:
         return (arr - self.mean) / self.std
+
+
+def unnormalize(arr: np.ndarray, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> np.ndarray:
+    """Inverse of Normalize (reference utils.un_normalize, utils.py:175-180)."""
+    return arr * np.asarray(std, np.float32) + np.asarray(mean, np.float32)

@@ -1,6 +1,8 @@
-"""Import torchvision-format pretrained ResNet weights into the encoder
-(counterpart of cspn_tpu/models/torch_import.py:load_torch_encoder_params;
-reference torch_resnet_cspn_nyu.py:403-413 + update_model.py:13-31).
+"""Import torch checkpoints (counterpart of cspn_tpu/models/torch_import.py):
+torchvision-format pretrained ResNet weights into the encoder
+(`load_torch_encoder_params`; reference torch_resnet_cspn_nyu.py:403-413 +
+update_model.py:13-31), and whole models trained by the reference
+(`load_torch_cspn_checkpoint`, below).
 
 The port's encoder keeps torchvision's names, so the mapping is short:
 
@@ -14,6 +16,16 @@ The port's encoder keeps torchvision's names, so the mapping is short:
 
 Merge the result with `train.state.partial_restore`, which copies only
 names and shapes that match; the decoder and head keep their init.
+
+A full reference checkpoint (best_model.pth / epoch_NN.pth, reference
+train.py:229-231,277-280) needs no renaming either: CSPNUNet keeps every
+module name of the reference's `ResNet` (torch_resnet_cspn_nyu.py:278-319),
+and both decoder forms hold the same 5x5 and 3x3 weights under the same
+keys (models/decoder.py).  `convert_cspn_state_dict` strips the
+DataParallel prefix and drops what the reference builds but its forward
+never calls, as the JAX package's `_SKIP_PREFIXES` (torch_import.py:104):
+`up_proj_layer*`, `post_process_layer*` (the CSPN's frozen all-ones sum
+conv), `conv3.`, `fc.`, and the BN counters.
 """
 
 from __future__ import annotations
@@ -42,3 +54,26 @@ def load_torch_encoder_params(path: str) -> dict[str, torch.Tensor]:
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return convert_resnet_state_dict(sd)
+
+
+_SKIP_PREFIXES = ("up_proj_layer", "post_process_layer", "conv3.", "fc.")
+
+
+def convert_cspn_state_dict(sd: dict) -> dict[str, torch.Tensor]:
+    """A reference model's full state dict in CSPNUNet's names (f32)."""
+    out = {}
+    for key, value in sd.items():
+        key = key.removeprefix("module.")
+        if key.endswith("num_batches_tracked") or key.startswith(_SKIP_PREFIXES):
+            continue
+        out[key] = value.float()
+    return out
+
+
+def load_torch_cspn_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """Load a reference-trained checkpoint on the CPU and convert the
+    whole model; merge it with `train.state.partial_restore`."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return convert_cspn_state_dict(sd)

@@ -21,9 +21,18 @@ adjoint at every size.  `use_tiled` picks the forward: the tiled kernel
 for a forward that no backward follows, the one keeping its states for
 one that `cspn2d_bwd` follows.
 
+The tiled forward is also the torch custom op `cspn_tpu_torch::cspn2d_tiled`
+(`cspn2d_tiled`): its CUDA implementation checks the inputs and launches
+the kernel, its CPU one is the plain version, and its fake one gives the
+output's shape, so `torch.export` records the op as one node and an
+exported program launches the kernel (export.py).  The route that no
+backward follows calls it; the training route stays the `_Cspn2dFwd`
+autograd.Function over cspn2d_fwd and cspn2d_bwd.
+
 `launches` counts the states forward's runs (cspn2d_fwd), `tiled_launches`
 the tiled forward's, `bwd_launches` the backward kernel's: one per call
-each.  `cuda_launches_per_call` gives the CUDA launches one call makes.
+each, counted where the kernel is launched, so an exported program's runs
+count too.  `cuda_launches_per_call` gives the CUDA launches one call makes.
 """
 
 from __future__ import annotations
@@ -222,6 +231,34 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None
     return dguid, dblur
 
 
+@torch.library.custom_op("cspn_tpu_torch::cspn2d_tiled", mutates_args=(), device_types="cuda")
+def cspn2d_tiled(guid_cf: torch.Tensor, blur: torch.Tensor, sparse: torch.Tensor | None,
+                 steps: int, norm_type: str) -> torch.Tensor:
+    """The tiled forward (csrc/cspn2d_tiled.cu) as a torch op: guidance
+    [N, 8, H, W], blur and sparse [N, H, W], all float32 -> [N, H, W]
+    float32.  The checks run here, on real tensors, so that tracing
+    (FakeTensors, a symbolic batch) reaches none of them; the inputs are
+    made contiguous here too, since a traced graph's strides are its fake
+    tensors' and need not be the real ones (ops/d2s.py:d2s_op)."""
+    guid_cf, blur = guid_cf.contiguous(), blur.contiguous()
+    sparse = None if sparse is None else sparse.contiguous()
+    _check_inputs(guid_cf, blur, sparse, norm_type)
+    return _launch_tiled(guid_cf, blur, sparse, steps, norm_type)
+
+
+@cspn2d_tiled.register_kernel("cpu")
+def _cspn2d_tiled_plain(guid_cf, blur, sparse, steps, norm_type):
+    # a copy: at 0 steps the plain version gives `blur` itself, and an op's
+    # output may not alias an input
+    return cspn_ref.cspn2d_reference(guid_cf.movedim(1, -1), blur, sparse, steps=steps,
+                                     norm_type=norm_type).clone()
+
+
+@cspn2d_tiled.register_fake
+def _(guid_cf, blur, sparse, steps, norm_type):
+    return torch.empty_like(blur, dtype=torch.float32)
+
+
 class _Cspn2dFwd(torch.autograd.Function):
     """The forward that `cspn2d_bwd` follows: cspn2d_fwd, keeping its folded
     gates and states for the backward kernel.  As the JAX custom VJP
@@ -276,8 +313,9 @@ def cspn2d_cuda(
         return _reference(guidance, blur_depth, sparse_depth, steps, norm_type,
                           channel_first, io_dtype)
     g_cf = (guidance if channel_first else guidance.movedim(-1, 1)).contiguous()
-    _check_inputs(g_cf, blur_depth, sparse_depth, norm_type)
     for_backward = torch.is_grad_enabled() and (g_cf.requires_grad or blur_depth.requires_grad)
     if use_tiled(for_backward):
-        return _launch_tiled(*_round_io(g_cf, blur_depth, sparse_depth, io_dtype), steps, norm_type)
+        return torch.ops.cspn_tpu_torch.cspn2d_tiled(
+            *_round_io(g_cf, blur_depth, sparse_depth, io_dtype), steps, norm_type)
+    _check_inputs(g_cf, blur_depth, sparse_depth, norm_type)
     return _Cspn2dFwd.apply(g_cf, blur_depth, sparse_depth, steps, norm_type, io_dtype)

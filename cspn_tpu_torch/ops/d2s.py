@@ -35,8 +35,15 @@ lost to XLA's relayout on TPU v5e (d2s_pallas.py:26-47).  That reason is
 the TPU's; on the card a kernel moves each byte once, so 'auto' takes the
 kernel.
 
+Both kernels are torch custom ops, `cspn_tpu_torch::d2s` and
+`cspn_tpu_torch::s2d`: the CUDA implementation launches the kernel, the
+CPU one is the plain version, the fake one gives the shapes, and `d2s`'s
+registered autograd calls `s2d`.  The training and serving paths run the
+same op, and `torch.export` records it as one node (export.py).
+
 `launches` counts the forward kernel's runs, `bwd_launches` the backward's
-(one launch each per call, in either form).
+(one launch each per call, in either form), counted where the kernel is
+launched, so an exported program's runs count too.
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
-from torch.autograd.function import once_differentiable
 
 BACKENDS = ("auto", "kernel", "reference")
 _ELEMENT_SIZES = (2, 4, 8)
@@ -148,22 +154,71 @@ def _launch_bwd(ct: torch.Tensor, height: int, width: int, phases: bool = False)
     return out
 
 
-class _DepthToSpace2(torch.autograd.Function):
-    """Forward `d2s`, backward `s2d` (the custom VJP of d2s_pallas.py:_d2s),
-    of one [N, 4C, H, W] tensor or of four phases: one gradient per tensor
-    given."""
+def _one_or_phases(xs: list[torch.Tensor]) -> Phases:
+    return xs if len(xs) == 4 else xs[0]
 
-    @staticmethod
-    def forward(ctx, oheight, owidth, *xs):
-        ctx.hw, ctx.phases = xs[0].shape[2:], len(xs) == 4
-        x = [t.contiguous() for t in xs] if ctx.phases else xs[0].contiguous()
-        return _launch(x, oheight, owidth)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        grads = _launch_bwd(ct.contiguous(), *ctx.hw, phases=ctx.phases)
-        return None, None, *(grads if ctx.phases else [grads])
+# The CUDA implementations make their inputs contiguous themselves: in a
+# traced graph a tensor's strides are those its fake tensor had at trace
+# time, which need not be the real ones (cuDNN gives a channels-last
+# convolution output where the fake convolution gave a contiguous one, so
+# a `.contiguous()` before the op was traced as a no-op).
+@torch.library.custom_op("cspn_tpu_torch::d2s", mutates_args=(), device_types="cuda")
+def d2s_op(xs: list[torch.Tensor], oheight: int, owidth: int) -> torch.Tensor:
+    """The `d2s` kernel as a torch op: `xs` is [one [N, 4C, H, W] tensor] or
+    its four phases [N, C, H, W], px-major; returns [N, C, oheight, owidth]."""
+    return _launch(_one_or_phases([t.contiguous() for t in xs]), oheight, owidth)
+
+
+# the CPU implementations copy what the plain versions give: an op's
+# output may not alias its inputs or its other outputs, which a view may
+@d2s_op.register_kernel("cpu")
+def _d2s_plain(xs, oheight, owidth):
+    return depth_to_space2_ref(_one_or_phases(xs), oheight, owidth).clone(
+        memory_format=torch.contiguous_format)
+
+
+@d2s_op.register_fake
+def _(xs, oheight, owidth):
+    n, c, _, _ = xs[0].shape
+    return xs[0].new_empty((n, c if len(xs) == 4 else c // 4, oheight, owidth))
+
+
+@torch.library.custom_op("cspn_tpu_torch::s2d", mutates_args=(), device_types="cuda")
+def s2d_op(ct: torch.Tensor, height: int, width: int, phases: bool) -> list[torch.Tensor]:
+    """The `s2d` kernel as a torch op: the cotangent [N, C, oh, ow] -> [the
+    gradient [N, 4C, height, width]], or with `phases` the four contiguous
+    phase gradients [N, C, height, width]."""
+    out = _launch_bwd(ct.contiguous(), height, width, phases=phases)
+    return out if phases else [out]
+
+
+@s2d_op.register_kernel("cpu")
+def _s2d_plain(ct, height, width, phases):
+    full = space_to_depth2_ref(ct, height, width)
+    return [p.clone(memory_format=torch.contiguous_format)
+            for p in (full.chunk(4, 1) if phases else [full])]
+
+
+@s2d_op.register_fake
+def _(ct, height, width, phases):
+    n, c, _, _ = ct.shape
+    if phases:
+        return [ct.new_empty((n, c, height, width)) for _ in range(4)]
+    return [ct.new_empty((n, 4 * c, height, width))]
+
+
+def _d2s_setup(ctx, inputs, output):
+    xs, _, _ = inputs
+    ctx.hw, ctx.phases = tuple(xs[0].shape[2:]), len(xs) == 4
+
+
+def _d2s_backward(ctx, ct):
+    """The custom VJP of d2s_pallas.py:_d2s: one gradient per tensor given."""
+    return torch.ops.cspn_tpu_torch.s2d(ct, *ctx.hw, ctx.phases), None, None
+
+
+d2s_op.register_autograd(_d2s_backward, setup_context=_d2s_setup)
 
 
 def _check_phases(x: Sequence[torch.Tensor]) -> tuple[int, int]:
@@ -204,4 +259,4 @@ def depth_to_space2(x: Phases, oheight: int, owidth: int, *,
                          "use 'reference' (or 'auto') on the CPU")
     if backend == "reference" or not on_cuda:
         return depth_to_space2_ref(x, oheight, owidth)
-    return _DepthToSpace2.apply(oheight, owidth, *xs)
+    return torch.ops.cspn_tpu_torch.d2s(list(xs), oheight, owidth)

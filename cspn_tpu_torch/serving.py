@@ -120,14 +120,15 @@ class DepthServer:
 def load_server(cfg: RunConfig, checkpoint: str = "best_model",
                 buckets: tuple[int, ...] = (1, 8, 32, 128), device=None, tf32: bool = False,
                 int8_from: int | None = 8, act_static: bool | None = None,
-                jax_variables=None) -> DepthServer:
+                jax_variables=None, torch_checkpoint: str | None = None) -> DepthServer:
     """A DepthServer over `load_eval_state(cfg, ...)`: the bf16 model with
     the weights cast at load, and the int8 model (its weight cache, and
     with `act_static` -- default cfg.model.act_static -- its calibrated
     static activation scales) only when a bucket can route to it
     (cspn_tpu/serving.py:169-212).  The convolution policy is set for the
     card first (`set_conv_policy`: cuDNN's algorithm timing, TF32 only with
-    `tf32`).  `jax_variables` is load_eval_state's."""
+    `tf32`).  `jax_variables` and `torch_checkpoint` (a whole model trained
+    by the reference) are load_eval_state's."""
     from cspn_tpu_torch import resolve_device, set_conv_policy
     from cspn_tpu_torch.train.evaluate import load_eval_state
 
@@ -139,7 +140,7 @@ def load_server(cfg: RunConfig, checkpoint: str = "best_model",
     def variant(dtype: str, static: bool) -> torch.nn.Module:
         model = dataclasses.replace(cfg.model, dtype=dtype, act_static=static)
         return load_eval_state(dataclasses.replace(cfg, model=model), checkpoint, device=device,
-                               jax_variables=jax_variables)
+                               jax_variables=jax_variables, torch_checkpoint=torch_checkpoint)
 
     model_bf16 = variant("bfloat16", False)
     model_int8 = variant("int8", act_static) if want_int8 else None

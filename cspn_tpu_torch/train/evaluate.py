@@ -19,11 +19,14 @@ from cspn_tpu_torch.config import RunConfig
 from cspn_tpu_torch.data import batches
 from cspn_tpu_torch.models.convert import load_jax_variables
 from cspn_tpu_torch.models.resnet import init_weights
+from cspn_tpu_torch.models.torch_import import load_torch_cspn_checkpoint
 from cspn_tpu_torch.models.unet import LAYERS, CSPNUNet
 from cspn_tpu_torch.train.factory import build_dataset
 from cspn_tpu_torch.train.logging import format_error
 from cspn_tpu_torch.train.loss import LOSSES
 from cspn_tpu_torch.train.metrics import METRIC_KEYS, evaluate_error
+from cspn_tpu_torch.train.state import partial_restore
+from cspn_tpu_torch.utils.images import save_eval_images
 from cspn_tpu_torch.utils.precision import cast_floating, torch_dtype
 from cspn_tpu_torch.utils.quant import build_act_calibration, build_weight_qcache
 
@@ -84,10 +87,13 @@ def make_eval_step(model: torch.nn.Module, loss_name: str = "l1"):
 
 
 def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
-                    jax_variables=None) -> CSPNUNet:
+                    jax_variables=None, torch_checkpoint: str | None = None) -> CSPNUNet:
     """The eval-mode model with its weights: `jax_variables` (the JAX
     package's {'params', 'batch_stats'} as numpy, converted by
-    models/convert.py) when given, else the `torch.save`d state dict
+    models/convert.py) when given, else `torch_checkpoint`, a whole model
+    trained by the reference (best_model.pth; models/torch_import.py:
+    load_torch_cspn_checkpoint, merged by train/state.py:partial_restore,
+    as cspn_tpu/train/evaluate.py:56-66), else the `torch.save`d state dict
     `<cfg.best_model_dir>/<checkpoint>.pt` when it exists, else random
     weights (seed 0) with a warning.  `<checkpoint>.pt` may be a bare state
     dict or a training checkpoint of train/checkpoint.py.  The JAX
@@ -104,6 +110,9 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
     if jax_variables is not None:
         load_jax_variables(model, jax_variables)
         print("==> loaded converted JAX parameters")
+    elif torch_checkpoint:
+        partial_restore(model, load_torch_cspn_checkpoint(torch_checkpoint), verbose=True)
+        print(f"==> imported reference torch checkpoint {torch_checkpoint}")
     else:
         path = os.path.join(cfg.best_model_dir, f"{checkpoint}.pt")
         if os.path.exists(path):
@@ -129,25 +138,36 @@ def load_eval_state(cfg: RunConfig, checkpoint: str = "best_model", device=None,
 
 def run_eval(cfg: RunConfig, runs: int = 5, checkpoint: str = "best_model",
              max_batches: int | None = None, device=None, jax_variables=None,
-             tf32: bool = False) -> dict:
+             tf32: bool = False, dump_images: bool = False,
+             torch_checkpoint: str | None = None) -> dict:
     """`runs` passes over the val split (module docstring); `tf32` is the
-    convolution policy's (cspn_tpu_torch.set_conv_policy)."""
+    convolution policy's (cspn_tpu_torch.set_conv_policy).  `dump_images`
+    writes the first run's frames as %05d_{input,gt,pred}.png into
+    <cfg.best_model_dir>/eval_result (utils/images.py); `torch_checkpoint`
+    is load_eval_state's."""
     set_conv_policy(resolve_device(device), tf32=tf32)
-    model = load_eval_state(cfg, checkpoint, device=device, jax_variables=jax_variables)
+    model = load_eval_state(cfg, checkpoint, device=device, jax_variables=jax_variables,
+                            torch_checkpoint=torch_checkpoint)
     eval_step = make_eval_step(model, cfg.optim.loss)
     dev = next(model.parameters()).device
 
     run_avgs = []
     for run in range(runs):
-        ds = build_dataset(cfg, "val", seed=run)
+        dump = dump_images and run == 0
+        ds = build_dataset(cfg, "val", seed=run, return_raw_rgb=dump)
         sums = np.zeros(len(METRIC_KEYS))
         total = 0
         for batch in batches(ds, cfg.data.batch_size_eval, max_batches):
             rgbd = torch.from_numpy(batch["rgbd"]).to(dev)
             depth = torch.from_numpy(batch["depth"]).to(dev)
-            _, _, error = eval_step(rgbd, depth)
+            pred, _, error = eval_step(rgbd, depth)
             bs = rgbd.shape[0]
             sums += np.asarray(torch.stack([error[k] for k in METRIC_KEYS]).tolist()) * bs
+            if dump:
+                pred_np = pred.float().cpu().numpy()
+                for j in range(bs):
+                    save_eval_images(cfg.data.dataset, cfg.best_model_dir, total + j,
+                                     batch["raw_rgb"][j], batch["depth"][j], pred_np[j], raw=True)
             total += bs
         avg = {k: float(v) / max(total, 1) for k, v in zip(METRIC_KEYS, sums)}
         run_avgs.append(avg)

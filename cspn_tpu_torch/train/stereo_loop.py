@@ -227,14 +227,14 @@ class StereoTrainer:
                 sums[k] += float(m[k]) * bs
             total += bs
             if dump_images and self.main:
-                from PIL import Image
+                from cspn_tpu_torch.utils.images import write_png
 
                 os.makedirs(out_dir, exist_ok=True)
                 pred_np = pred.cpu().numpy()
                 for j in range(bs):
                     for tag, img in (("disp", pred_np[j]), ("gt", np.asarray(batch["disp"][j]))):
                         u16 = np.clip(img * 256.0, 0, 65535).astype(np.uint16)
-                        Image.fromarray(u16).save(f"{out_dir}/{index:05d}_{tag}.png")
+                        write_png(f"{out_dir}/{index:05d}_{tag}.png", u16)
                     index += 1
         self.model.train()
         mean = {k: sums[k] / max(total, 1) for k in sums}

@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from cspn_tpu_torch.models.decoder import SubpixelUnpoolConv, _subpixel_convs
 from cspn_tpu_torch.ops.d2s import depth_to_space2
@@ -92,11 +93,16 @@ def weight_matrix(wq: torch.Tensor) -> torch.Tensor:
 def int8_matmul(a: torch.Tensor, w_mat: torch.Tensor, n_out: int) -> torch.Tensor:
     """a [M, K] int8 times w_mat [O', K'] int8 (weight_matrix) transposed:
     [M, n_out] int32, exact.  Rows are padded to more than 16 and K to
-    w_mat's K' with zeros, which add nothing."""
+    w_mat's K' with zeros, which add nothing.  Where M is symbolic (a
+    batch dimension that `torch.export` keeps open) and not known to be
+    large enough, the rows are padded by max(17 - M, 0) without a branch on
+    M, which the trace could not keep."""
     m, k = a.shape
-    rows = max(m, _MIN_ROWS)
-    if rows != m or k != w_mat.shape[1]:
-        a = F.pad(a, (0, w_mat.shape[1] - k, 0, rows - m))
+    if statically_known_true(m >= _MIN_ROWS):
+        if k != w_mat.shape[1]:
+            a = F.pad(a, (0, w_mat.shape[1] - k))
+    else:
+        a = F.pad(a, (0, w_mat.shape[1] - k, 0, torch.sym_max(_MIN_ROWS - m, 0)))
     return torch._int_mm(a, w_mat.t())[:m, :n_out]
 
 
@@ -145,7 +151,12 @@ class QuantConv(nn.Conv2d):
     [(wq, ws, weight_matrix(wq))] a conv; without it the weight is
     quantized at every call.  `act_max` holds the calibrated abs-max of the
     input (`build_act_calibration`), making the activation scale static;
-    while `calibrating`, each call records it and quantizes dynamically."""
+    while `calibrating`, each call records it and quantizes dynamically.
+    Both are buffers outside the state dict (`qcache_<i>_<wq|ws|mat>`,
+    `act_max`): checkpoints stay the float models', while `named_buffers`,
+    `torch.func.functional_call` and `torch.export` see them as the
+    module's tensors (export.py embeds them with the weights or takes them
+    as inputs), not as constants baked into a graph."""
 
     def __init__(self, conv: nn.Conv2d, subpixel: bool = False):
         super().__init__(conv.in_channels, conv.out_channels, conv.kernel_size,
@@ -155,9 +166,28 @@ class QuantConv(nn.Conv2d):
             raise ValueError(f"{conv}: only bias-free, ungrouped, undilated convs are quantized")
         self.weight = conv.weight  # the same parameter: state dict keys and values stay
         self.subpixel = subpixel
-        self.qcache: list | None = None
-        self.act_max: torch.Tensor | None = None
+        self._qcache_len = 0
+        self.register_buffer("act_max", None, persistent=False)
         self.calibrating = False
+
+    _QCACHE_PARTS = ("wq", "ws", "mat")
+
+    @property
+    def qcache(self) -> list | None:
+        if not self._qcache_len:
+            return None
+        return [tuple(getattr(self, f"qcache_{i}_{part}") for part in self._QCACHE_PARTS)
+                for i in range(self._qcache_len)]
+
+    @qcache.setter
+    def qcache(self, cache: list | None) -> None:
+        for i in range(self._qcache_len):
+            for part in self._QCACHE_PARTS:
+                delattr(self, f"qcache_{i}_{part}")
+        self._qcache_len = len(cache or ())
+        for i, entry in enumerate(cache or ()):
+            for part, t in zip(self._QCACHE_PARTS, entry):
+                self.register_buffer(f"qcache_{i}_{part}", t, persistent=False)
 
     def _convs(self, w: torch.Tensor) -> list:
         """(kernel, (lo, hi) of H, (lo, hi) of W) of each conv this module runs."""

@@ -1058,3 +1058,41 @@ def test_sharded_models_on_the_card_use_the_kernels(gen):
         want, got = (m(left, right) for m in stereo)
     assert cspn3d_cuda.launches > before + 1
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+# --- the deployment path: the kernels as torch custom ops in an exported graph ---
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_export_on_the_card_launches_the_kernels(gen, dtype, tmp_path):
+    """An artifact exported on the card (export.py) holds the tiled 2D CSPN
+    op once and `d2s` nine times, serves a symbolic batch through the
+    kernels, and equals the eager model bit for bit, at int8 too, where
+    the excluded decoder block takes layer3's channels-last int8 output and
+    cuDNN hands `d2s` a channels-last convolution output that the fake
+    tensors at trace time had as contiguous."""
+    import dataclasses
+
+    from cspn_tpu_torch import config, export
+    from cspn_tpu_torch.train.evaluate import load_eval_state
+
+    cfg = config.PRESETS["synthetic_smoke"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, cspn_steps=4, dtype=dtype),
+                              best_model_dir=str(tmp_path))
+    model = load_eval_state(cfg, device="cuda")
+    program = export.export_serving(model, 64, 96)
+    assert export.op_counts(program) == {"cspn2d_tiled": 1, "d2s": 9}
+    export.save_artifact(program, str(tmp_path / "m.pt2"), {"arch": "resnet18", "dtype": dtype,
+                                                           "cspn_steps": 4, "height": 64,
+                                                           "width": 96, "batch": None})
+    art = export.load_artifact(str(tmp_path / "m.pt2"))
+    for n in (1, 3):
+        x = torch.randn(n, 64, 96, 4, device="cuda", generator=gen)
+        with torch.no_grad():
+            want = model(x)
+        before = (cspn_cuda.tiled_launches, d2s.launches, cspn_cuda.launches)
+        got = art.call(x)
+        torch.cuda.synchronize()
+        assert (cspn_cuda.tiled_launches, d2s.launches, cspn_cuda.launches) == (
+            before[0] + 1, before[1] + 9, before[2])
+        assert torch.equal(got, want)

@@ -353,6 +353,17 @@ def test_trainer_fit_validate_and_run_eval(tmp_path):
     np.testing.assert_allclose(again["EPE"], result["EPE"], rtol=1e-6)
     pngs = sorted(os.listdir(tmp_path / "eval_result"))
     assert pngs == ["00000_disp.png", "00000_gt.png", "00001_disp.png", "00001_gt.png"]
+    # the port's own PNG writer (the card's machine has no PIL): PIL decodes
+    # its 16-bit files to the uint16 disparity * 256 that PIL itself wrote
+    from PIL import Image
+
+    for i in range(2):
+        gt = Image.open(tmp_path / "eval_result" / f"{i:05d}_gt.png")
+        want = np.clip(val.dataset[i]["disp"] * 256.0, 0, 65535).astype(np.uint16)
+        assert gt.mode == "I;16"
+        np.testing.assert_array_equal(np.asarray(gt), want)
+        disp = Image.open(tmp_path / "eval_result" / f"{i:05d}_disp.png")
+        assert disp.mode == "I;16" and np.asarray(disp).shape == HW
 
 
 def test_model_options_raise_where_not_ported():
