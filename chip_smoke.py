@@ -93,7 +93,21 @@ paths on the card and fails (non-zero exit) if any phase fails:
      one at b = 1, 3 and 8 against the eager model, with exact launches;
      export and save times, sizes, eager and exported b1/b8 forwards; then
      `eval --import-torch-checkpoint --dump-images` and `infer --out-dir`
-     on a few frames, the PNGs read back with zlib (deployment_slice).
+     on a few frames, the PNGs read back with zlib (deployment_slice);
+ 15. the file datasets (files_slice): the host library's png_unfilter
+     against its plain version under all five PNG filters; 40 NYU pairs at
+     480x640 and 20 KITTI pairs at 375x1242 written as PNGs (16-bit depth:
+     millimetres, metres x 256 with 7% valid) with their manifests (and
+     `make-manifest`'s list checked against them); the samples' shapes,
+     sparse channel and Bernoulli counts, seeded val splits equal; decode
+     and aug_pack ms a frame, the loader's ms a batch drained alone at 1
+     and 4 threads and 4 spawned processes (whose batches equal the
+     threads'); nyu_train's Trainer.fit(1) (4 steps of b8, 8 val frames)
+     and kitti_benchmark's (4 steps of b4, 4 val frames at b1) from the
+     files with exact launches and each step's wait in the loader beside
+     its time, nyu_eval's run_eval (5 runs) on the trained weights, one
+     nyu_mono b8 step, the `eval` subcommand on the KITTI files; neither
+     PIL nor h5py imported.
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -3757,7 +3771,8 @@ def deployment_slice(name: str) -> dict:
             t0 = time.perf_counter()
             if dtype == "float32":  # the subcommand, as a user runs it
                 argv = ["export", "--preset", "nyu_eval", "--import-torch-checkpoint", pth,
-                        "--out", path, "--check", "--device", "cuda"]
+                        "--height", str(h), "--width", str(w), "--out", path, "--check",
+                        "--device", "cuda"]
                 log("  python -m cspn_tpu_torch " + " ".join(argv))
                 err = cli.cmd_export(cli.build_parser().parse_args(argv))
                 model = load_eval_state(cfg, device="cuda", torch_checkpoint=pth)
@@ -3874,6 +3889,428 @@ def deployment_slice(name: str) -> dict:
     return launches
 
 
+# phase 15 (files): NYU and KITTI frames as their datasets ship them -- 8-bit
+# RGB and 16-bit depth PNGs (millimetres for NYU, metres x 256 for KITTI, with
+# KITTI_VALID of the pixels valid) -- in (train, val) pairs, through
+# two-column manifests
+NYU_FILE_HW, NYU_FILES = (480, 640), (32, 8)
+KITTI_FILE_HW, KITTI_FILES, KITTI_VALID = (375, 1242), (16, 4), 0.07
+LOADER_WORKERS = 4
+LOADER_REPEATS = 4  # the loaders' rates over the train split 4 times over: 16 batches an epoch
+SPARSE_SIGMAS = 5  # a sample's sparse count within this many sigma of its Bernoulli mean
+EVAL_RUNS = 5
+
+
+def _filter_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """PNG-filter `rows` [h, stride] uint8 with filter type y % 5 on row y
+    (None, Sub, Up, Average, Paeth): h rows of a filter byte and the bytes."""
+    h, stride = rows.shape
+    r = rows.astype(np.int32)
+    out = np.zeros((h, stride + 1), np.uint8)
+    for y in range(h):
+        a = np.concatenate([np.zeros(bpp, np.int32), r[y, :-bpp]])
+        b = r[y - 1] if y else np.zeros(stride, np.int32)
+        c = np.concatenate([np.zeros(bpp, np.int32), b[:-bpp]])
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = (0, a, b, (a + b) >> 1, paeth)[y % 5]
+        out[y, 0] = y % 5
+        out[y, 1:] = (r[y] - pred) & 0xFF
+    return out
+
+
+def check_png_unfilter() -> None:
+    """The host library's png_unfilter against the plain numpy version on
+    rows under all five filters, at 1, 2, 3, 4 and 6 bytes a pixel: bit for bit."""
+    from cspn_tpu_torch.data import native
+    from cspn_tpu_torch.utils.images import _unfilter_plain
+
+    rng = np.random.default_rng(15)
+    for bpp in (1, 2, 3, 4, 6):
+        rows = rng.integers(0, 256, (25, 41 * bpp), dtype=np.uint8)
+        rows[6:14] = rows[5]  # runs that Up and Paeth predict exactly
+        raw = _filter_rows(rows, bpp).ravel()
+        lib, plain = native.png_unfilter(raw, 25, 41 * bpp, bpp), _unfilter_plain(raw, 25, 41 * bpp, bpp)
+        if not (np.array_equal(lib, plain) and np.array_equal(lib, rows)):
+            raise AssertionError(f"png_unfilter at {bpp} bytes a pixel: library, plain version and "
+                                 "the rows disagree")
+    log("  png_unfilter (host library) equals its plain numpy version and the rows bit for bit under "
+        "all five filters at 1, 2, 3, 4 and 6 bytes a pixel")
+
+
+def write_file_frames(root: str) -> dict:
+    """NYU and KITTI frames as PNG pairs (utils/images.py:write_png) made from
+    the synthetic surfaces, seeded, and the script's two-column manifests;
+    returns {(kind, split): manifest}, paths relative to `root`."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.utils.images import write_png
+
+    manifests = {}
+    for kind, hw, counts, seed in (("nyu", NYU_FILE_HW, NYU_FILES, 15),
+                                   ("kitti", KITTI_FILE_HW, KITTI_FILES, 16)):
+        ds = SyntheticDepthDataset(length=sum(counts), hw=hw, n_sample=1, seed=seed, split="val",
+                                   return_raw_rgb=True)
+        rng = np.random.default_rng(seed)
+        for split, (lo, hi) in zip(("train", "val"), ((0, counts[0]), (counts[0], sum(counts)))):
+            folder = os.path.join(root, kind, split)
+            os.makedirs(folder)
+            rows = []
+            for i in range(lo, hi):
+                frame = ds[i]
+                rgb = np.clip(frame["raw_rgb"] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                if kind == "nyu":  # millimetres, the NYU toolbox's convention
+                    depth = np.round(frame["depth"] * 1000.0).astype(np.uint16)
+                else:  # metres x 256, the KITTI devkit's, KITTI_VALID of the pixels valid
+                    depth = np.round(frame["depth"] * 8.0 * 256.0).astype(np.uint16)
+                    depth[rng.random(hw) >= KITTI_VALID] = 0
+                names = [os.path.join(kind, split, f"{i:05d}_{part}.png") for part in ("rgb", "depth")]
+                write_png(os.path.join(root, names[0]), rgb)
+                write_png(os.path.join(root, names[1]), depth)
+                rows.append(",".join(names))
+            path = os.path.join(root, f"{kind}_{split}.csv")
+            with open(path, "w") as f:
+                f.write("rgb,depth\n" + "\n".join(rows) + "\n")
+            manifests[kind, split] = path
+    return manifests
+
+
+def _files_cfg(preset: str, manifests: dict, root: str, save_dir: str = "", **data):
+    from cspn_tpu_torch.config import PRESETS
+
+    cfg = PRESETS[preset]
+    kind = "kitti" if preset.startswith("kitti") else "nyu"
+    return dataclasses.replace(
+        cfg, save_dir=save_dir, best_model_dir=save_dir, log_every=1,
+        data=dataclasses.replace(cfg.data, input_format="img", root_dir=root,
+                                 train_list=manifests[kind, "train"],
+                                 eval_list=manifests[kind, "val"], **data))
+
+
+class LoaderWaits:
+    """A loader that records, on the host clock, how long each batch was
+    waited for and each step's time (from a batch's delivery to the next
+    request: the trainer's step, synchronized by its logging each step)."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.steps = loader, [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it, last = iter(self.loader), None
+        while True:
+            t0 = time.perf_counter()
+            if last is not None:
+                self.steps.append(t0 - last)
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            last = time.perf_counter()
+            self.waits.append(last - t0)
+            yield batch
+
+    def summary(self) -> str:
+        w, s = [1e3 * v for v in self.waits], [1e3 * v for v in self.steps]
+        return (f"waited {', '.join(f'{v:.1f}' for v in w)} ms for the batches, steps "
+                f"{', '.join(f'{v:.1f}' for v in s)} ms (host clock; the first step includes "
+                f"cuDNN's algorithm timing); after the first batch: wait median "
+                f"{statistics.median(w[1:]) if len(w) > 1 else float('nan'):.2f} ms against step "
+                f"median {statistics.median(s[1:]) if len(s) > 1 else float('nan'):.2f} ms")
+
+
+def check_samples(label: str, ds, indices, hw) -> None:
+    """Shapes, channel 3 equal to depth where it is nonzero, and the sparse
+    count within SPARSE_SIGMAS sigma of its Bernoulli mean (p = n_sample /
+    the pixels, or / the valid ones after depth /= s for KITTI)."""
+    from cspn_tpu_torch.data import native
+
+    worst = 0.0
+    for i in indices:
+        s = ds[i]
+        rgbd, depth = s["rgbd"], s["depth"]
+        if rgbd.shape != (*hw, 4) or depth.shape != hw or not np.isfinite(rgbd).all():
+            raise AssertionError(f"{label}[{i}]: shapes {rgbd.shape} {depth.shape} or not finite")
+        nz = rgbd[..., 3] != 0
+        if not np.array_equal(rgbd[..., 3][nz], depth[nz]):
+            raise AssertionError(f"{label}[{i}]: channel 3 differs from depth where it is nonzero")
+        denom = depth.size if ds.sparse_denom == "total" else max(native.count_valid(depth), 1)
+        p = min(ds.n_sample / denom, 1.0)
+        n = int((depth != 0).sum())
+        mean, sigma = n * p, np.sqrt(n * p * (1 - p))
+        z = abs(int(nz.sum()) - mean) / max(sigma, 1e-30)
+        if z > SPARSE_SIGMAS:
+            raise AssertionError(f"{label}[{i}]: {int(nz.sum())} sparse samples, Bernoulli mean "
+                                 f"{mean:.1f} sigma {sigma:.1f}")
+        worst = max(worst, z)
+    log(f"  {label}: {len(indices)} samples {hw[0]}x{hw[1]}, channel 3 equal to depth where it is "
+        f"nonzero, sparse counts within {worst:.2f} sigma of their Bernoulli means (limit "
+        f"{SPARSE_SIGMAS})")
+
+
+def time_data_layer(label: str, ds, n: int = 8) -> None:
+    """Decode ms (load_img_pair) and aug_pack ms a frame, one thread, over
+    `n` samples of `ds` built through its own route."""
+    from cspn_tpu_torch.data import datasets, native
+
+    times = {"decode": [], "aug_pack": []}
+    originals = {"decode": datasets.load_img_pair, "aug_pack": native.aug_pack}
+
+    def timed(what):
+        def fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[what](*args, **kwargs)
+            times[what].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return fn
+
+    datasets.load_img_pair, native.aug_pack = timed("decode"), timed("aug_pack")
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds[i]
+        total = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        datasets.load_img_pair, native.aug_pack = originals["decode"], originals["aug_pack"]
+    log(f"  {label} data layer, one thread: decode (PNG pair) {statistics.median(times['decode']):.2f} "
+        f"ms, aug_pack {statistics.median(times['aug_pack']):.2f} ms, the whole sample "
+        f"{total:.2f} ms a frame (medians over {n} frames, host clock)")
+
+
+def drain(loader, epochs: int = 1) -> tuple[list, float, float]:
+    """Iterate `loader` alone: (the first epoch's batches, the seconds to
+    its first batch, the ms a batch after the first of each epoch)."""
+    first, steady, n_steady, batches = 0.0, 0.0, 0, None
+    for e in range(epochs):
+        t0 = time.perf_counter()
+        stamps, got = [], []
+        for b in loader:
+            stamps.append(time.perf_counter())
+            got.append(b)
+        if e == 0:
+            first, batches = stamps[0] - t0, got
+        steady += stamps[-1] - stamps[0]
+        n_steady += len(stamps) - 1
+    return batches, first, 1e3 * steady / max(n_steady, 1)
+
+
+class Repeated:
+    """A dataset `times` over: loader epochs long enough for the workers to
+    reach their steady rate (picklable for worker processes)."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset, self.times = dataset, times
+
+    def __len__(self):
+        return self.times * len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
+
+
+def loader_rates(label: str, cfg) -> None:
+    """The loader's host ms a batch, drained alone (no step consuming it),
+    at one thread, LOADER_WORKERS threads and LOADER_WORKERS spawned
+    processes, on a seeded train split LOADER_REPEATS over; the thread and
+    process loaders' batches over one epoch bit for bit equal."""
+    from cspn_tpu_torch.data import DataLoader
+    from cspn_tpu_torch.train.factory import build_dataset
+
+    ds = Repeated(build_dataset(cfg, "train", seed=0), LOADER_REPEATS)
+    bs = cfg.data.batch_size_train
+    out = {}
+    for mode, workers, epochs in (("thread", 1, 1), ("thread", LOADER_WORKERS, 1),
+                                  ("process", LOADER_WORKERS, 1)):
+        loader = DataLoader(ds, bs, shuffle=True, drop_last=True, num_workers=workers,
+                            worker_mode=mode)
+        out[mode, workers] = drain(loader, epochs)
+        batches, first, ms = out[mode, workers]
+        log(f"  {label} b{bs} loader, {workers} {mode} worker(s): {ms:.1f} ms a batch after the "
+            f"first ({ms / bs:.2f} ms a frame), first batch after {first:.2f} s (host clock)")
+    a, b = out["thread", LOADER_WORKERS][0], out["process", LOADER_WORKERS][0]
+    if len(a) != len(b) or any(not np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in x):
+        raise AssertionError(f"{label}: thread and process workers gave different batches")
+    log(f"  {label}: thread and process workers gave the same {len(a)} batches bit for bit")
+
+
+def files_slice(name: str) -> dict:
+    """Phase 15 (module docstring).  Returns {path: launches} for the runs
+    fed from files: files_train (nyu_train's fit), files_eval (nyu_eval's
+    run_eval), files_kitti (kitti_benchmark's fit), files_mono (a nyu_mono
+    step)."""
+    from cspn_tpu_torch import cli
+    from cspn_tpu_torch.data.datasets import read_manifest
+    from cspn_tpu_torch.train.evaluate import run_eval
+    from cspn_tpu_torch.train.factory import build_dataset, build_loaders
+    from cspn_tpu_torch.train.loop import Trainer
+
+    def loaded():
+        return sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py"))
+
+    before = loaded()
+    installed = [m for m in ("PIL", "h5py") if importlib.util.find_spec(m) is not None]
+    log(f"  installed here: {installed or 'neither PIL nor h5py'}; imported before this phase: "
+        f"{before or 'neither'}")
+    check_png_unfilter()
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as root:
+        t0 = time.perf_counter()
+        manifests = write_file_frames(root)
+        listed = os.path.join(root, "listed.csv")
+        cli.main(["make-manifest", os.path.join(root, "nyu", "train"), listed, "--pattern",
+                  "*_rgb.png", "--relative-to", root])
+        if read_manifest(listed) != read_manifest(manifests["nyu", "train"]):
+            raise AssertionError("make-manifest listed other RGB files than the script's manifest")
+        log(f"  wrote {sum(NYU_FILES)} NYU pairs at {NYU_FILE_HW[0]}x{NYU_FILE_HW[1]} and "
+            f"{sum(KITTI_FILES)} KITTI pairs at {KITTI_FILE_HW[0]}x{KITTI_FILE_HW[1]} (8-bit RGB, "
+            f"16-bit depth PNGs) and their manifests in {time.perf_counter() - t0:.1f} s; "
+            "make-manifest lists the script's NYU train RGB files")
+
+        # the datasets themselves
+        nyu, kitti = (_files_cfg("nyu_train", manifests, root),
+                      _files_cfg("kitti_benchmark", manifests, root))
+        for label, cfg in (("nyu_train", nyu), ("kitti_benchmark", kitti)):
+            hw = tuple(cfg.data.crop_hw or (228, 304))
+            for split in ("train", "val"):
+                ds = build_dataset(cfg, split, seed=0)
+                check_samples(f"{label} {split}", ds, range(min(len(ds), 8)), hw)
+            a, b = build_dataset(cfg, "val", seed=0), build_dataset(cfg, "val", seed=0)
+            if any(not np.array_equal(a[i][k], b[i][k]) for i in range(len(a)) for k in a[i]):
+                raise AssertionError(f"{label}: two val datasets of one seed differ")
+            log(f"  {label}: two val datasets of seed 0 equal bit for bit ({len(a)} frames)")
+            time_data_layer(label, build_dataset(cfg, "train", seed=0))
+            loader_rates(label, cfg)
+
+        # nyu_train from files: Trainer.fit(1), 4 steps of b8, validation on 8 frames at b1
+        save = os.path.join(root, "nyu_train")
+        cfg = _files_cfg("nyu_train", manifests, root, save)
+        train_loader, val_loader = build_loaders(cfg)
+        train_loader = LoaderWaits(train_loader)
+        trainer = Trainer(cfg, train_loader, val_loader, device="cuda")
+        n_train, n_val = len(train_loader), len(val_loader)
+        p0 = {k: v.detach().clone() for k, v in trainer.state.model.named_parameters()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        val = trainer.fit(1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+        per_fwd = d2s_per_forward(trainer.state.model)
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train, cspn2d_tiled=n_val,
+                        cspn2d_bwd=n_train, d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
+        log(f"  nyu_train from PNG files, Trainer.fit(1): {n_train} steps of "
+            f"{cfg.data.batch_size_train}, {n_val} val batches of {cfg.data.batch_size_eval} in "
+            f"{elapsed:.2f} s ({cfg.data.num_workers} {cfg.data.worker_mode} workers); launches "
+            f"{launches} (expected {expected})")
+        log(f"  nyu_train b8 from files: {train_loader.summary()}")
+        if launches != expected:
+            raise AssertionError(f"nyu_train from files launched {launches}, expected {expected}")
+        moved = sum(not torch.equal(p, p0[k]) for k, p in trainer.state.model.named_parameters())
+        if moved != len(p0) or not all(np.isfinite(v) for v in val.values()):
+            raise AssertionError(f"{moved} of {len(p0)} parameter tensors moved; val {val}")
+        log(f"  val MAE {val['MAE']:.4f} RMSE {val['RMSE']:.4f}; all {len(p0)} parameter tensors "
+            "moved")
+        by_path["files_train"] = launches
+        del trainer, p0
+
+        # nyu_eval from files: run_eval's 5 runs at b1 on the weights just trained
+        ecfg = _files_cfg("nyu_eval", manifests, root, save)
+        sparse = [build_dataset(ecfg, "val", seed=r)[0]["rgbd"][..., 3] for r in range(EVAL_RUNS)]
+        if any(np.array_equal(sparse[i], sparse[j]) for i in range(EVAL_RUNS) for j in range(i)):
+            raise AssertionError("two eval runs drew the same sparse input")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_eval(ecfg, runs=EVAL_RUNS, device="cuda")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        frames = EVAL_RUNS * NYU_FILES[1]
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=frames, d2s=per_fwd * frames)
+        maes = [r["MAE"] for r in res["runs"]]
+        log(f"  nyu_eval from PNG files, run_eval({EVAL_RUNS} runs of {NYU_FILES[1]} frames at b1) "
+            f"in {time.perf_counter() - t0:.2f} s: MAE per run {', '.join(f'{m:.4f}' for m in maes)}; "
+            f"launches {launches} (expected {expected}); the runs' sparse inputs differ")
+        if launches != expected:
+            raise AssertionError(f"nyu_eval from files launched {launches}, expected {expected}")
+        if len(res["runs"]) != EVAL_RUNS or not all(np.isfinite(v) for r in res["runs"]
+                                                     for v in r.values()):
+            raise AssertionError(f"eval runs: {res['runs']}")
+        by_path["files_eval"] = launches
+
+        # nyu_mono: one b8 step on an all-zero sparse channel
+        mcfg = _files_cfg("nyu_mono", manifests, root, os.path.join(root, "mono"))
+        train_loader, val_loader = build_loaders(mcfg)
+        trainer = Trainer(mcfg, train_loader, val_loader, device="cuda")
+        batch = next(iter(train_loader))
+        if batch["rgbd"][..., 3].any():
+            raise AssertionError("nyu_mono's sparse channel is not all zero")
+        reset_launches()
+        loss, _ = trainer.train_step(*trainer._to_device(batch))
+        loss = loss.item()
+        launches = read_launches()
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=1, cspn2d_bwd=1, d2s=per_fwd,
+                        s2d=per_fwd)
+        log(f"  nyu_mono from PNG files (n_sample 0, an all-zero sparse channel): one b"
+            f"{batch['rgbd'].shape[0]} step, loss {loss:.4f}; launches {launches} "
+            f"(expected {expected})")
+        if launches != expected or not np.isfinite(loss):
+            raise AssertionError(f"nyu_mono step: loss {loss}, launches {launches}")
+        by_path["files_mono"] = launches
+        del trainer
+
+        # kitti_benchmark from files: Trainer.fit(1), 4 steps of b4, validation at b1
+        save = os.path.join(root, "kitti")
+        cfg = _files_cfg("kitti_benchmark", manifests, root, save)
+        train_loader, val_loader = build_loaders(cfg)
+        train_loader = LoaderWaits(train_loader)
+        trainer = Trainer(cfg, train_loader, val_loader, device="cuda")
+        n_train, n_val = len(train_loader), len(val_loader)
+        p0 = {k: v.detach().clone() for k, v in trainer.state.model.named_parameters()}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        val = trainer.fit(1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+        per_fwd = d2s_per_forward(trainer.state.model)
+        expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=n_train, cspn2d_tiled=n_val,
+                        cspn2d_bwd=n_train, d2s=per_fwd * (n_train + n_val), s2d=per_fwd * n_train)
+        log(f"  kitti_benchmark from PNG files, Trainer.fit(1): {n_train} steps of "
+            f"{cfg.data.batch_size_train}, {n_val} val batches of {cfg.data.batch_size_eval} in "
+            f"{elapsed:.2f} s; launches {launches} (expected {expected})")
+        log(f"  kitti_benchmark b4 from files: {train_loader.summary()}")
+        if launches != expected:
+            raise AssertionError(f"kitti_benchmark from files launched {launches}, expected {expected}")
+        moved = sum(not torch.equal(p, p0[k]) for k, p in trainer.state.model.named_parameters())
+        if moved != len(p0) or not all(np.isfinite(v) for v in val.values()):
+            raise AssertionError(f"{moved} of {len(p0)} parameter tensors moved; val {val}")
+        by_path["files_kitti"] = launches
+        del trainer, p0
+
+        # the eval subcommand, as a user runs it, on the weights just trained
+        cmd = [sys.executable, "-m", "cspn_tpu_torch", "eval", "--preset", "kitti_benchmark",
+               "--input-format", "img", "--eval-list", manifests["kitti", "val"], "--root-dir", root,
+               "--best-model-dir", save, "--runs", "2"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=ROOT))
+        if r.returncode != 0 or "eval_mean_of_2_runs" not in r.stdout:
+            raise AssertionError(f"the eval subcommand exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        tail = r.stdout[r.stdout.index("eval_mean_of_2_runs"):].splitlines()[:2]
+        log(f"  `python -m cspn_tpu_torch eval --preset kitti_benchmark --input-format img ... "
+            f"--runs 2` exited 0 in {time.perf_counter() - t0:.1f} s: {' '.join(tail)}")
+
+    new = sorted(set(loaded()) - set(before))
+    if new:
+        raise AssertionError(f"the file paths imported {new[:5]}: the PNG route needs neither")
+    log("  this phase imported neither PIL nor h5py")
+    return by_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
@@ -3900,7 +4337,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/14] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/15] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -3908,9 +4345,11 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[2/14] built {sorted(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    host = _build.build_seconds.get("host_pipeline")
+    log(f"[2/15] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
+        f"{'already built' if host is None else f'{host:.1f} s'}) in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/14] kernels against their plain versions")
+    log("[3/15] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -3923,38 +4362,38 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/14] nyu_eval served through DepthServer")
+    log("[4/15] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/14] nyu_train trained through Trainer.fit")
+    log("[5/15] nyu_train trained through Trainer.fit")
     by_path["train"] = train_slice(name, kernel_ms)
 
-    log("[6/14] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/15] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/14] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/15] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/14] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/15] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/14] kitti_benchmark trained through Trainer.fit")
+    log("[9/15] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/14] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/15] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/14] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/15] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/14] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/15] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
 
-    log("[13/14] precision: bf16 and int8 serving through load_server, bf16 training")
+    log("[13/15] precision: bf16 and int8 serving through load_server, bf16 training")
     from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
 
     serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
@@ -3964,9 +4403,13 @@ def main(argv=None) -> int:
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
     by_path["precision_train"] = precision_train(name)
 
-    log("[14/14] deployment: reference-checkpoint import, export to torch.export artifacts, "
+    log("[14/15] deployment: reference-checkpoint import, export to torch.export artifacts, "
         "image dumps")
     by_path["deploy"] = deployment_slice(name)
+
+    log("[15/15] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
+        "nyu_mono fed from PNG files")
+    by_path.update(files_slice(name))
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

@@ -1,7 +1,9 @@
 """Command-line interface (counterpart of cspn_tpu/cli.py:18-233,451-485).
 
+    python -m cspn_tpu_torch train --preset nyu_train [--input-format img --train-list train.csv \
+        --eval-list val.csv --root-dir DIR] [--num-workers N --worker-mode thread|process]
     python -m cspn_tpu_torch train --preset nyu_train --dataset synthetic --crop-hw 228,304
-    python -m cspn_tpu_torch eval  --preset nyu_eval --dataset synthetic --runs 5
+    python -m cspn_tpu_torch eval  --preset nyu_eval --runs 5 [--eval-list val.csv]
     python -m cspn_tpu_torch eval  ... [--dump-images] [--import-torch-checkpoint best_model.pth]
     python -m cspn_tpu_torch infer --preset nyu_eval --dataset synthetic --buckets 1,8,32 \
         [--int8-from 8] [--act-static] [--out-dir DIR] [--import-torch-checkpoint best_model.pth]
@@ -13,8 +15,16 @@
     python -m cspn_tpu_torch demo --dim-num 2 [--prop-step 24 --batch-size 3 --iter-num 20]
     torchrun --nproc-per-node N -m cspn_tpu_torch train --mesh-data N [--grad-reduce-dtype bfloat16] ...
     python -m cspn_tpu_torch bench-scaling --mode train|eval|stereo [--force-cpu-devices N]
+    python -m cspn_tpu_torch make-manifest DATA_DIR OUT.csv [--pattern '**/*.h5'] [--relative-to DIR]
 
-All run on `--device` (default cuda).  The stereo subcommands train on the
+All run on `--device` (default cuda).  `train`, `eval`, `infer` and
+`export` read the NYU and KITTI frames of the preset's manifests
+(`--train-list`, `--eval-list` under `--root-dir`): `--input-format hdf5`
+(one .h5 a frame, h5py) or `img` (two columns, rgb and depth images; PNGs
+are decoded without PIL), augmented by the host library
+(csrc/host_pipeline.cpp) in `--num-workers` loader workers, threads or
+spawned processes (`--worker-mode`); `--dataset synthetic` trains on
+procedural frames instead.  The stereo subcommands train on the
 synthetic stereo pairs unless --train-list names a Scene Flow manifest.
 `train` and `train-stereo` train data-parallel when a launcher (torchrun)
 starts them as ranks of a process group (parallel/distributed.py): one
@@ -27,9 +37,9 @@ activation scales calibrated at load.  `infer` serves through
 3D CSPNs run float32 states at every dtype.  `export` writes the eval
 graph as one `torch.export` artifact (export.py); `--import-torch-checkpoint`
 evaluates, serves or exports a whole model trained by the reference
-(models/torch_import.py).  The NYU/KITTI file datasets and the `bench`
-subcommand wait for later slices (ROADMAP.md Queue 1).  --tf32 computes
-float32 convolutions in TF32 (default off).
+(models/torch_import.py).  The `bench` subcommand waits for a later
+slice (ROADMAP.md Queue 1).  --tf32 computes float32 convolutions in TF32
+(default off).
 """
 
 from __future__ import annotations
@@ -44,9 +54,21 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--preset", default=None, help="named config preset")
     p.add_argument("--dataset", "--data-set", dest="dataset", default=None,
                    choices=["nyudepth", "kitti", "synthetic"])
+    p.add_argument("--train-list", default=None)
+    p.add_argument("--eval-list", default=None)
+    p.add_argument("--root-dir", default=None)
     p.add_argument("--n-sample", type=int, default=None)
+    p.add_argument("--input-format", dest="input_format", default=None, choices=["hdf5", "img"],
+                   help="hdf5: one-column manifest of .h5 frames; img: two-column manifest of "
+                        "(rgb, depth) images")
+    p.add_argument("--num-workers", dest="num_workers", type=int, default=None,
+                   help="loader workers (reference train.py:117 workers=2)")
+    p.add_argument("--worker-mode", dest="worker_mode", default=None,
+                   choices=["thread", "process"],
+                   help="loader worker model: threads, or spawned worker processes")
     p.add_argument("--crop-hw", default=None, type=lambda v: tuple(int(x) for x in v.split(",")),
-                   help="H,W of the frames (e.g. 228,304, the NYU crop, for synthetic data)")
+                   help="H,W of the frames: the file datasets' centre crop (e.g. 352,1216), or "
+                        "the synthetic frames' size (e.g. 228,304)")
     p.add_argument("--batch-size-eval", type=int, default=None)
     p.add_argument("--model", default=None, help="resnet18|34|50|101|152")
     p.add_argument("--no-cspn", action="store_true", help="baseline model")
@@ -119,7 +141,13 @@ def _build_config(args):
     optim = dataclasses.replace(cfg.optim)
     for src, obj, dst in [
         ("dataset", data, "dataset"),
+        ("train_list", data, "train_list"),
+        ("eval_list", data, "eval_list"),
+        ("root_dir", data, "root_dir"),
         ("n_sample", data, "n_sample"),
+        ("input_format", data, "input_format"),
+        ("num_workers", data, "num_workers"),
+        ("worker_mode", data, "worker_mode"),
         ("crop_hw", data, "crop_hw"),
         ("batch_size_eval", data, "batch_size_eval"),
         ("batch_size_train", data, "batch_size_train"),
@@ -231,10 +259,6 @@ def cmd_infer(args):
     return preds
 
 
-# the val split's geometry of the file datasets, which the port does not read yet
-_DATASET_HW = {"nyudepth": (228, 304), "kitti": (228, 912)}
-
-
 def cmd_export(args):
     """Export the eval graph at the serving geometry (--height/--width,
     default the val split's) as one torch.export artifact (export.py), with
@@ -258,11 +282,9 @@ def cmd_export(args):
     model = load_eval_state(cfg, device=device, torch_checkpoint=args.import_torch_checkpoint)
     if args.height and args.width:
         h, w = args.height, args.width
-    elif cfg.data.crop_hw:
+    elif cfg.data.crop_hw:  # every dataset's output geometry where set
         h, w = cfg.data.crop_hw
-    elif cfg.data.dataset in _DATASET_HW:
-        h, w = _DATASET_HW[cfg.data.dataset]
-    else:
+    else:  # the val split's first frame (cspn_tpu/cli.py:256-260)
         from cspn_tpu_torch.train.factory import build_dataset
 
         h, w = build_dataset(cfg, "val", seed=0)[0]["rgbd"].shape[:2]
@@ -374,6 +396,14 @@ def cmd_demo(args):
     return losses
 
 
+def cmd_make_manifest(args):
+    from cspn_tpu_torch.data.manifest import make_manifest
+
+    n = make_manifest(args.data_dir, args.out, pattern=args.pattern, relative_to=args.relative_to)
+    print(f"wrote {n} rows to {args.out}")
+    return n
+
+
 def cmd_bench_scaling(args):
     """Throughput against the data axis' size (utils/scaling.py); one JSON
     line a mesh size.  --force-cpu-devices N: N gloo ranks on the CPU (the
@@ -419,7 +449,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="cspn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_train = sub.add_parser("train", help="train (synthetic data; one device)")
+    p_train = sub.add_parser("train", help="train on the preset's frames (or synthetic ones)")
     _add_common_overrides(p_train)
     _add_train_overrides(p_train)
     p_train.set_defaults(fn=cmd_train)
@@ -504,6 +534,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_sc.add_argument("--force-cpu-devices", type=int, default=0,
                       help="N>0: N gloo ranks on the CPU (default: one card a rank)")
     p_sc.set_defaults(fn=cmd_bench_scaling)
+
+    p_mm = sub.add_parser("make-manifest",
+                          help="generate a datalist CSV of the files under a directory "
+                               "(h5 frames by default)")
+    p_mm.add_argument("data_dir")
+    p_mm.add_argument("out")
+    p_mm.add_argument("--pattern", default="**/*.h5")
+    p_mm.add_argument("--relative-to", default=None)
+    p_mm.set_defaults(fn=cmd_make_manifest)
     return parser
 
 

@@ -1,11 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
-Each source in `csrc/` is compiled by `nvcc` for sm_90a into a shared
-library with a plain C interface and loaded with ctypes.  Libraries go into
+Each CUDA source in `csrc/` is compiled by `nvcc` for sm_90a into a shared
+library with a plain C interface and loaded with ctypes; the host library
+(`csrc/host_pipeline.cpp`: the data layer's augmentation, packing and PNG
+unfiltering) is compiled the same way by `g++` with `HOST_FLAGS`, the JAX
+package's `native/Makefile` flags.  Libraries go into
 `cspn_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
-source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
-is rebuilt at its next use and an unchanged one is reused.  `build()` starts one `nvcc` per missing library,
-all at once, and waits for them together.
+source, the shared headers (`csrc/*.cuh`, for the CUDA sources), the
+flags and, for the host library, the CPU target they select, so an edited
+source is rebuilt at its next use and an unchanged one is reused.  `build()` starts one compiler per missing library, all at once,
+and waits for them together; each compiles to a temporary file that
+`os.replace` moves into place, so processes that build at once (test
+workers, a loader's worker processes) never load half a file.
 
 Nothing here runs at import time: the CPU tests import every module, on
 machines without a CUDA toolkit.
@@ -14,11 +20,13 @@ machines without a CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -82,6 +90,31 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
 }
 
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-pthread", "-Wall")
+
+_c_long, _c_float, _c_u64 = ctypes.c_long, ctypes.c_float, ctypes.c_uint64
+
+# host library name -> (source file, {C function: (argtypes, restype)})
+HOST_LIBRARIES: dict[str, tuple[str, dict[str, tuple[list, object]]]] = {
+    "host_pipeline": (
+        "host_pipeline.cpp",
+        {"cspn_count_valid": ([_c_void_p, ctypes.c_int64, _c_float], ctypes.c_int64),
+         "cspn_pack_sample": ([_c_void_p, _c_void_p, _c_int, _c_int, _c_float, _c_float, _c_u64,
+                               _c_void_p, _c_void_p, _c_int], None),
+         "cspn_aug_pack": ([_c_void_p, _c_long, _c_long, _c_long,  # rgb u8 and its strides
+                            _c_void_p, _c_long, _c_long,  # depth f32 and its strides
+                            _c_int, _c_int, _c_int, _c_int,  # h0, w0, rh, rw
+                            _c_float, _c_int, _c_int, _c_int,  # angle, oh, ow, flip
+                            _c_void_p, _c_void_p, _c_int,  # jitter ops, factors, count
+                            _c_float, _c_int, _c_int, _c_u64,  # inv_scale, n_sample, denom, seed
+                            _c_void_p, _c_void_p], _c_int),  # out rgbd, out depth
+         "cspn_png_unfilter": ([_c_void_p, _c_int, _c_long, _c_int, _c_void_p], _c_int)},
+    ),
+}
+
+# seconds each library's compiler ran in the last build() that compiled it
+build_seconds: dict[str, float] = {}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -96,9 +129,30 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def find_cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found; the host library (csrc/host_pipeline.cpp) cannot be built")
+    return cxx
+
+
+@functools.lru_cache(maxsize=None)
+def host_target() -> bytes:
+    """The target options -march=native selects on this machine (g++ -Q
+    --help=target: this CPU's model and features), so that a host library
+    built on one machine is not loaded on another (a checkout copied
+    between them)."""
+    return subprocess.run([find_cxx(), "-march=native", "-Q", "--help=target"],
+                          capture_output=True, check=True, timeout=60).stdout
+
+
 def library_path(name: str) -> Path:
-    src = b"".join(p.read_bytes() for p in [CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if name in HOST_LIBRARIES:
+        src, flags = (CSRC / HOST_LIBRARIES[name][0]).read_bytes() + host_target(), HOST_FLAGS
+    else:
+        src = b"".join(p.read_bytes() for p in [CSRC / KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))])
+        flags = NVCC_FLAGS
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -106,31 +160,38 @@ def nvcc_command(name: str, out: Path) -> list[str]:
     return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / KERNELS[name][0])]
 
 
+def cxx_command(name: str, out: Path) -> list[str]:
+    return [find_cxx(), *HOST_FLAGS, "-o", str(out), str(CSRC / HOST_LIBRARIES[name][0])]
+
+
 def build(names=None) -> dict[str, str]:
-    """Compile every library in `names` (default: all) that is not built
-    yet, one nvcc each, all started together.  Returns {name: nvcc output}
-    for the libraries it compiled.  Raises if any compile fails."""
+    """Compile every library in `names` (default: all, the host library
+    and every CUDA kernel) that is not built yet, one compiler each, all
+    started together.  Returns {name: compiler output} for the libraries it
+    compiled.  Raises if any compile fails, with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names or KERNELS:
+    for name in names or [*HOST_LIBRARIES, *KERNELS]:
         out = library_path(name)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = nvcc_command(name, Path(tmp))
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+        cmd = (cxx_command if name in HOST_LIBRARIES else nvcc_command)(name, Path(tmp))
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out, time.perf_counter())
+    logs, failed = {}, {}
+    for name, (proc, tmp, out, t0) in procs.items():
         logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
+            failed[name] = f"{name}: {Path(proc.args[0]).name} exited {proc.returncode}\n{logs[name]}"
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        kind = "CUDA kernel" if any(name in KERNELS for name in failed) else "host library"
+        raise RuntimeError(f"{kind} build failed:\n" + "\n".join(failed.values()))
     return logs
 
 
@@ -140,8 +201,12 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in KERNELS[name][1].items():
+        if name in HOST_LIBRARIES:
+            signatures = HOST_LIBRARIES[name][1]
+        else:  # every CUDA entry point returns a cudaError_t
+            signatures = {fn: (argtypes, ctypes.c_int) for fn, argtypes in KERNELS[name][1].items()}
+        for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib

@@ -16,7 +16,7 @@ import torch
 
 from cspn_tpu_torch import resolve_device, set_conv_policy
 from cspn_tpu_torch.config import RunConfig
-from cspn_tpu_torch.data import batches
+from cspn_tpu_torch.data import DataLoader
 from cspn_tpu_torch.models.convert import load_jax_variables
 from cspn_tpu_torch.models.resnet import init_weights
 from cspn_tpu_torch.models.torch_import import load_torch_cspn_checkpoint
@@ -140,7 +140,9 @@ def run_eval(cfg: RunConfig, runs: int = 5, checkpoint: str = "best_model",
              max_batches: int | None = None, device=None, jax_variables=None,
              tf32: bool = False, dump_images: bool = False,
              torch_checkpoint: str | None = None) -> dict:
-    """`runs` passes over the val split (module docstring); `tf32` is the
+    """`runs` passes over the val split (module docstring), each through a
+    DataLoader of cfg.data.num_workers workers (the first `max_batches`
+    batches of it, when given); `tf32` is the
     convolution policy's (cspn_tpu_torch.set_conv_policy).  `dump_images`
     writes the first run's frames as %05d_{input,gt,pred}.png into
     <cfg.best_model_dir>/eval_result (utils/images.py); `torch_checkpoint`
@@ -155,9 +157,13 @@ def run_eval(cfg: RunConfig, runs: int = 5, checkpoint: str = "best_model",
     for run in range(runs):
         dump = dump_images and run == 0
         ds = build_dataset(cfg, "val", seed=run, return_raw_rgb=dump)
+        loader = DataLoader(ds, cfg.data.batch_size_eval, num_workers=cfg.data.num_workers,
+                            worker_mode=cfg.data.worker_mode)
         sums = np.zeros(len(METRIC_KEYS))
         total = 0
-        for batch in batches(ds, cfg.data.batch_size_eval, max_batches):
+        for bi, batch in enumerate(loader):
+            if max_batches is not None and bi >= max_batches:
+                break
             rgbd = torch.from_numpy(batch["rgbd"]).to(dev)
             depth = torch.from_numpy(batch["depth"]).to(dev)
             pred, _, error = eval_step(rgbd, depth)

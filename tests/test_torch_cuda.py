@@ -1096,3 +1096,50 @@ def test_export_on_the_card_launches_the_kernels(gen, dtype, tmp_path):
         assert (cspn_cuda.tiled_launches, d2s.launches, cspn_cuda.launches) == (
             before[0] + 1, before[1] + 9, before[2])
         assert torch.equal(got, want)
+
+
+# --- the file datasets: nyu_train fed from PNG files ---
+
+
+def test_nyu_train_from_png_files_launches_the_kernels(gen, tmp_path):
+    """nyu_train (ResNet-50, 228x304, b8) fed from 480x640 PNG pairs (8-bit
+    RGB, 16-bit depth in millimetres) through the host library: a fit of 2
+    steps and 2 val frames launches the train route's kernels a step and the
+    tiled forward a val frame, as the synthetic fit does."""
+    import dataclasses
+
+    import numpy as np
+
+    from cspn_tpu_torch import config
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.train.factory import build_loaders
+    from cspn_tpu_torch.train.loop import Trainer
+    from cspn_tpu_torch.utils.images import write_png
+
+    frames = SyntheticDepthDataset(length=18, hw=(480, 640), n_sample=1, seed=3,
+                                   return_raw_rgb=True)
+    lists = {}
+    for split, idx in (("train", range(16)), ("val", range(16, 18))):
+        rows = []
+        for i in idx:
+            f = frames[i]
+            write_png(str(tmp_path / f"{i}_rgb.png"),
+                      np.clip(f["raw_rgb"] * 255 + 0.5, 0, 255).astype(np.uint8))
+            write_png(str(tmp_path / f"{i}_d.png"), np.round(f["depth"] * 1000).astype(np.uint16))
+            rows.append(f"{i}_rgb.png,{i}_d.png")
+        lists[split] = tmp_path / f"{split}.csv"
+        lists[split].write_text("rgb,depth\n" + "\n".join(rows) + "\n")
+    cfg = config.PRESETS["nyu_train"]
+    cfg = dataclasses.replace(cfg, save_dir=str(tmp_path), best_model_dir=str(tmp_path),
+                              data=dataclasses.replace(
+                                  cfg.data, input_format="img", root_dir=str(tmp_path),
+                                  train_list=str(lists["train"]), eval_list=str(lists["val"])))
+    trainer = Trainer(cfg, *build_loaders(cfg), device="cuda")
+    counters = lambda: (cspn_cuda.launches, cspn_cuda.bwd_launches, cspn_cuda.tiled_launches,  # noqa: E731
+                        d2s.launches, d2s.bwd_launches)
+    before = counters()
+    val = trainer.fit(1)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counters(), before))
+    assert got == (2, 2, 2, 9 * 4, 9 * 2)
+    assert all(np.isfinite(v) for v in val.values())

@@ -16,7 +16,7 @@ from cspn_tpu.train import logging as jlogging
 from cspn_tpu.train import loss as jloss
 from cspn_tpu.train import metrics as jmetrics
 from cspn_tpu_torch import config
-from cspn_tpu_torch.data import batches, datasets, transforms
+from cspn_tpu_torch.data import DataLoader, datasets, transforms
 from cspn_tpu_torch.train import factory, logging, loss, metrics
 
 torch.set_num_threads(1)
@@ -55,11 +55,12 @@ def test_normalize_equals_jax():
 
 
 def test_batches_stack_in_order():
+    """The eval loader (run_eval's): in-order batches, the short last one kept."""
     ds = datasets.SyntheticDepthDataset(length=5, hw=(8, 12), n_sample=10)
-    got = list(batches(ds, 2))
+    got = list(DataLoader(ds, 2, num_workers=2))
     assert [b["rgbd"].shape[0] for b in got] == [2, 2, 1]
     assert np.array_equal(got[1]["depth"][1], ds[3]["depth"])
-    assert len(list(batches(ds, 2, max_batches=2))) == 2
+    assert len(list(DataLoader(ds, 2, drop_last=True))) == 2
 
 
 @pytest.mark.parametrize("split, seed, crop_hw", [("val", 0, None), ("train", None, None), ("val", 3, (32, 48))])
@@ -73,9 +74,15 @@ def test_build_dataset_matches_jax(split, seed, crop_hw):
         assert np.array_equal(got[1]["rgbd"], want[1]["rgbd"])
     else:
         assert got[0]["rgbd"].shape == (*crop_hw, 4)
-    nyu = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="nyudepth"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the file datasets read their manifest (tests/test_torch_datasets.py holds them to
+    # JAX's); an unknown dataset raises as in the JAX factory
+    nyu = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="nyudepth",
+                                                            eval_list="/nonexistent/val.csv"))
+    with pytest.raises(FileNotFoundError):
         factory.build_dataset(nyu, "val")
+    bad = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="imagenet"))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        factory.build_dataset(bad, "val")
 
 
 def test_presets_equal_jax():
