@@ -31,7 +31,12 @@ paths on the card and fails (non-zero exit) if any phase fails:
      kernels' launch counts on that run, and agreement with the same
      server on the plain CSPN; prints metrics and frames/s; times the b8
      forward in both decoder forms with the same weights and holds their
-     outputs together;
+     outputs together.  The server replays one captured CUDA graph a
+     bucket (serving.py): its outputs equal the same model's eager server
+     bit for bit, each replay counts one forward's launches, which
+     torch.profiler's device records confirm, and each bucket's forward
+     (CUDA events) and served frames/s (host clock) are timed graphed and
+     eager in turns, with the graphs' memory (check_graphed);
   5. training: nyu_train (ResNet-50, 228x304, batch 8, 24 steps, SGD-Nesterov,
      the subpixel decoder) on synthetic frames: Trainer.fit(1) (4 train
      steps, validation on 8 frames) with finite metrics, moved parameters,
@@ -40,7 +45,9 @@ paths on the card and fails (non-zero exit) if any phase fails:
      state; one train step through the kernels against the same step
      through the plain CSPN (loss and every gradient); the train step's
      forward / backward / optimizer split in both decoder forms, frames/s
-     and peak memory;
+     and peak memory; then `--debug-nans` (utils/profiling.py:debug_nans)
+     over a b8 step that stays finite and one on a NaN input that raises
+     FloatingPointError (debug_nans_slice);
   6. stereo eval: the PSMNet + 3D-CSPN stereo model at StereoConfig width
      (max_disp 192, features 32, 24 CSPN steps) with seeded random weights
      and BN statistics calibrated on one synthetic batch, evaluated by
@@ -80,7 +87,8 @@ paths on the card and fails (non-zero exit) if any phase fails:
      counters, every request's output against a plain twin's (the same
      models on the plain 2D CSPN and depth-to-space), each bucket's
      depth-to-space calls bit for bit against the plain versions, frames/s
-     and both paths' forwards per bucket, rel-norms against float32; and
+     and both paths' forwards per bucket, rel-norms against float32, and
+     each path's graphed buckets against the eager server as in phase 4; and
      the bf16 nyu_train b8 and stereo b4 steps against their plain twins
      and the float64 oracle, timed beside float32 (precision_serve,
      precision_train);
@@ -102,12 +110,17 @@ paths on the card and fails (non-zero exit) if any phase fails:
      sparse channel and Bernoulli counts, seeded val splits equal; decode
      and aug_pack ms a frame, the loader's ms a batch drained alone at 1
      and 4 threads and 4 spawned processes (whose batches equal the
-     threads'); nyu_train's Trainer.fit(1) (4 steps of b8, 8 val frames)
+     threads'; one pool of the same 4 workers over 2 epochs, the second
+     epoch's first batch timed beside the first's); nyu_train's Trainer.fit(1) (4 steps of b8, 8 val frames)
      and kitti_benchmark's (4 steps of b4, 4 val frames at b1) from the
      files with exact launches and each step's wait in the loader beside
      its time, nyu_eval's run_eval (5 runs) on the trained weights, one
      nyu_mono b8 step, the `eval` subcommand on the KITTI files; neither
-     PIL nor h5py imported.
+     PIL nor h5py imported, and every sample on the host library's route;
+ 16. the `bench` subcommand in a subprocess (bench.py: nyu_eval frames/s at
+     b128 on the kernel, int8 and plain reference paths, each timed as one
+     captured CUDA graph of 8 chained forwards): exit code 0 and one JSON
+     line with metric, value > 0, unit and vs_baseline (bench_slice).
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -223,14 +236,14 @@ D2S_STAGES = (
 )
 REQUESTS = (1, 3, 8, 11)
 BUCKETS = (1, 8)
-SERVE_WINDOW = 240  # requests of a served-rate window, cycling through a path's requests
+SERVE_WINDOW = 120  # requests of a served-rate window, cycling through a path's requests
 # phase 13 (precision): nyu_eval's buckets and requests (1 on bf16; 5 and 8 on
 # bucket 8, 20 and 32 on bucket 32, int8 from 8, the JAX package's default),
 # kitti_benchmark's (its buckets stop at 4, so int8 from 4 there, to run both
 # paths), and the frames of a bucket's served-rate window
 PRECISION_BUCKETS, PRECISION_REQUESTS, PRECISION_INT8_FROM = (1, 8, 32), (1, 5, 8, 20, 32), 8
 KITTI_PRECISION_REQUESTS, KITTI_INT8_FROM = (1, 3, 4), 4
-PRECISION_WINDOW = 256
+PRECISION_WINDOW = 128
 # phase 13's served outputs against the plain twin's (the plain 2D CSPN and
 # depth-to-space on the same bf16 / int8 models and cuDNN algorithms), x
 # max|plain|: half a bf16 ulp, the rounding of a bf16 output (the 2D CSPN's
@@ -2228,6 +2241,125 @@ def check_halo_seg_kernels(name: str) -> list[dict]:
     return rows
 
 
+# serving.py:LAUNCH_COUNTERS by the kernels line's names
+COUNTER_KERNELS = {("cspn_tpu_torch.ops.cspn_cuda", "launches"): "cspn2d_fwd",
+                   ("cspn_tpu_torch.ops.cspn_cuda", "tiled_launches"): "cspn2d_tiled",
+                   ("cspn_tpu_torch.ops.cspn_cuda", "bwd_launches"): "cspn2d_bwd",
+                   ("cspn_tpu_torch.ops.d2s", "launches"): "d2s",
+                   ("cspn_tpu_torch.ops.d2s", "bwd_launches"): "s2d",
+                   ("cspn_tpu_torch.ops.cspn_halo_cuda", "launches"): "cspn2d_halo_seg",
+                   ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"): "cspn2d_halo_seg_bwd"}
+GRAPH_WINDOW = 16  # requests of a bucket's served-rate window, graphed and eager in turns
+GRAPH_REPLAYS = 5  # replays a torch.profiler session counts the kernels of
+
+
+def graph_memory(srv) -> str:
+    """The device memory of a server's graph pool (serving.py: one pool for
+    every bucket's graph), from the caching allocator's segments: what it
+    reserves and what is allocated in it (the graphs' static outputs)."""
+    pool = tuple(srv._pool)
+    segs = [seg for seg in torch.cuda.memory_snapshot() if tuple(seg.get("segment_pool_id", ())) == pool]
+    reserved = sum(seg["total_size"] for seg in segs) / 2**30
+    alloc = sum(seg.get("allocated_size", 0) for seg in segs) / 2**30
+    return (f"the graphs' pool reserves {reserved:.3f} GiB in {len(segs)} segments, {alloc:.3f} "
+            "GiB of it allocated")
+
+
+def path_label(srv, bucket: int) -> str:
+    """The bucket's path, or the one model's where the server has one."""
+    if srv.models["int8"] is not None:
+        return srv.path_for(bucket)
+    model = srv.models["bf16"]
+    return "int8" if getattr(model, "quant", False) else \
+        str(next(model.parameters()).dtype).removeprefix("torch.")
+
+
+def replay_records(graph, keys, reps: int = GRAPH_REPLAYS) -> dict:
+    """torch.profiler's device kernel records over `reps` replays of a
+    CUDA graph: {key: records of kernels whose name holds it}.  (A replay
+    is one cudaGraphLaunch on the host, so only the card's records count
+    its kernels; they can lose a session's first ones, kernel_profile.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(keys, 0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for key in keys:
+                if key in e.key:
+                    found[key] += e.count
+    return found
+
+
+def check_graphed(label: str, srv, eager, reqs, frames, name: str) -> None:
+    """Phases 4 and 13: `srv` serves each bucket by replaying its CUDA
+    graph, `eager` (cuda_graphs=False) the same models eagerly.  Every
+    request's output equal bit for bit; each bucket's launches a replay
+    (what its capture counted) equal to one forward's (the tiled 2D CSPN
+    once, `d2s` d2s_per_forward times), and torch.profiler's device records
+    over GRAPH_REPLAYS replays holding those kernels' CUDA launches
+    (ops/cspn_cuda.py:cuda_launches_per_call, one a `d2s`); then
+    time_graphed."""
+    from cspn_tpu_torch.ops.cspn_cuda import cuda_launches_per_call
+
+    for r in reqs:
+        got, want = srv.predict(r), eager.predict(r)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: request of {len(r)} graphed vs eager: max|err| "
+                                 f"{np.abs(got - want).max():.3e}, not bit for bit")
+    log(f"  {label}: graphed = eager bit for bit on requests {tuple(len(r) for r in reqs)}")
+    keys = ("cspn2d_tiled_kernel", "d2s_kernel")
+    # the int8 model's subpixel convs are QuantConvs: count the bf16 model's
+    want = {"cspn2d_tiled": 1, "d2s": d2s_per_forward(srv.models["bf16"])}
+    for (b, h, w), g in sorted(srv.graphs.items()):
+        model = srv.models[srv.path_for(b)]
+        per = {COUNTER_KERNELS[k]: v for k, v in g.launches.items() if v}
+        if per != want:
+            raise AssertionError(f"{label} bucket {b}: a replay counts {per}, a forward {want}")
+        cuda = dict(zip(keys, (cuda_launches_per_call(model.cspn_steps)["cspn2d_tiled"],
+                               want["d2s"])))
+        rec = replay_records(g.graph, keys)
+        for k, n in cuda.items():  # short by less than a replay: the session's first records lost
+            if not GRAPH_REPLAYS * n - n < rec[k] <= GRAPH_REPLAYS * n:
+                raise AssertionError(f"{label} bucket {b}: torch.profiler recorded {rec[k]} {k} "
+                                     f"over {GRAPH_REPLAYS} replays, {n} a replay expected")
+        log(f"    bucket {b} ({path_label(srv, b)}): a replay counts {per}; torch.profiler over "
+            f"{GRAPH_REPLAYS} replays recorded {rec} (a replay: {cuda})")
+    time_graphed(srv, eager, frames, name)
+
+
+def time_graphed(srv, eager, frames, name: str) -> None:
+    """In turns (graphed, eager, eager, graphed), each of `srv`'s buckets:
+    the forward by CUDA events (a replay of its graph against `eager`'s
+    model call) and served frames/s over GRAPH_WINDOW requests of the
+    bucket's size (rows of `frames`) by the host clock."""
+    with torch.inference_mode():
+        for (b, h, w), g in sorted(srv.graphs.items()):
+            model, req = srv.models[srv.path_for(b)], frames[:b]
+            x = torch.from_numpy(req).cuda()
+            fwd, fps = {"graphed": [], "eager": []}, {"graphed": [], "eager": []}
+            for kind in ("graphed", "eager", "eager", "graphed"):
+                server = srv if kind == "graphed" else eager
+                fwd[kind].append(time_ms(g.graph.replay if kind == "graphed" else lambda: model(x),
+                                         reps=5, warmup=1))
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_WINDOW):
+                    server.predict(req)
+                fps[kind].append(b * GRAPH_WINDOW / (time.perf_counter() - t0))
+            log(f"    bucket {b} ({path_label(srv, b)}), graphed / eager in turns (G, E, E, G): "
+                f"forward {' / '.join(f'{t:.3f}' for t in fwd['graphed'])} ms graphed, "
+                f"{' / '.join(f'{t:.3f}' for t in fwd['eager'])} ms eager (CUDA events); served "
+                f"{' / '.join(f'{t:.2f}' for t in fps['graphed'])} frames/s graphed, "
+                f"{' / '.join(f'{t:.2f}' for t in fps['eager'])} eager ({GRAPH_WINDOW} requests of "
+                f"{b}, host clock) on {name}")
+
+
 def served_rate(srv, reqs, name: str) -> float:
     """Frames/s of SERVE_WINDOW requests to `srv`, cycling through `reqs`,
     by the host's clock (DepthServer.predict returns host arrays, so each
@@ -2266,8 +2398,11 @@ def serve_slice(name: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  built + calibrated {n_params / 1e6:.1f} M params in {time.perf_counter() - t0:.1f} s")
 
-    srv, srv_ref = DepthServer(model, BUCKETS), DepthServer(model_ref, BUCKETS)
-    srv.warmup(h, w)
+    srv, srv_ref = DepthServer(model, BUCKETS), DepthServer(model_ref, BUCKETS, cuda_graphs=False)
+    t0 = time.perf_counter()
+    srv.warmup(h, w)  # captures each bucket's graph
+    log(f"  warmup captured {len(srv.graphs)} graphs (buckets {BUCKETS}) in "
+        f"{time.perf_counter() - t0:.1f} s; {graph_memory(srv)}")
     srv_ref.warmup(h, w)
     ds = SyntheticDepthDataset(length=sum(REQUESTS), hw=(h, w), n_sample=cfg.data.n_sample,
                                seed=1, split="val")
@@ -2307,6 +2442,8 @@ def serve_slice(name: str) -> dict:
         avg.update({k: float(v) for k, v in error.items()}, len(req))
     log(f"  outputs finite, shapes right; max|kernel - plain| / max|plain| = {worst:.3e}")
     served_rate(srv, reqs, name)
+    check_graphed("nyu_eval float32", srv, DepthServer(model, BUCKETS, cuda_graphs=False), reqs,
+                  np.stack([f["rgbd"] for f in frames[:BUCKETS[-1]]]), name)
     with torch.inference_mode():
         for b in BUCKETS:
             x = torch.from_numpy(np.stack([f["rgbd"] for f in frames[:b]])).cuda()
@@ -2748,7 +2885,8 @@ def kitti_serve_slice(name: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  built + calibrated {n_params / 1e6:.1f} M params in {time.perf_counter() - t0:.1f} s")
 
-    srv, srv_ref = DepthServer(model, KITTI_BUCKETS), DepthServer(model_ref, KITTI_BUCKETS)
+    srv = DepthServer(model, KITTI_BUCKETS)
+    srv_ref = DepthServer(model_ref, KITTI_BUCKETS, cuda_graphs=False)
     srv.warmup(h, w)
     srv_ref.warmup(h, w)
     ds = SyntheticDepthDataset(length=sum(KITTI_REQUESTS), hw=(h, w), n_sample=cfg.data.n_sample,
@@ -3289,7 +3427,8 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
     requests."""
     from cspn_tpu_torch.data import SyntheticDepthDataset
     from cspn_tpu_torch.ops import d2s
-    from cspn_tpu_torch.serving import DepthServer, chunk_plan, load_server, pick_bucket
+    from cspn_tpu_torch.serving import (WARMUP_FORWARDS, DepthServer, chunk_plan, load_server,
+                                        pick_bucket)
     from cspn_tpu_torch.utils.profiling import calibrated_model
 
     h, w = cfg.data.crop_hw
@@ -3313,11 +3452,14 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
             for b in buckets:  # the warmup, a bucket at a time, with its peak
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
                 srv._run_bucket(torch.zeros((b, h, w, 4), device="cuda"), b)
                 torch.cuda.synchronize()
-                log(f"    warmup bucket {b} ({srv.path_for(b)}): peak device memory "
-                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (cuDNN's algorithm "
-                    "timing included) on " + name)
+                log(f"    warmup bucket {b} ({srv.path_for(b)}): {WARMUP_FORWARDS} eager forwards "
+                    f"and the graph's capture in {time.perf_counter() - t0:.1f} s, peak device "
+                    f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (cuDNN's "
+                    "algorithm timing included) on " + name)
+            log(f"    {len(srv.graphs)} graphs captured: {graph_memory(srv)}")
             for k in srv.served:
                 srv.served[k] = 0
             torch.cuda.synchronize()
@@ -3340,7 +3482,7 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
                 if out.shape != (n, h, w) or not np.isfinite(out).all():
                     raise AssertionError(f"{label}: bad output {out.shape}")
             twin = DepthServer(plain_twin(srv.models["bf16"]), buckets,
-                               plain_twin(srv.models["int8"]), int8_from)
+                               plain_twin(srv.models["int8"]), int8_from, cuda_graphs=False)
             torch.cuda.synchronize()
             reset_launches()
             with decoder_d2s(d2s.depth_to_space2_ref):
@@ -3361,6 +3503,19 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
                 f"requests {requests}): max|err| / max|plain| = {worst:.3e} (tol "
                 f"{PRECISION_TWIN_TOL:.3e})")
             del twin, wants
+            eager = DepthServer(srv.models["bf16"], buckets, srv.models["int8"], int8_from,
+                                cuda_graphs=False)
+            check_graphed(f"{label}, {scales}", srv, eager, [frames[:n] for n in requests],
+                          frames, name)
+            del eager
+            if not static:  # each path at every bucket, graphed and eager
+                for p_ in ("bf16", "int8"):
+                    one = DepthServer(srv.models[p_], buckets)
+                    one.warmup(h, w)
+                    log(f"    the {p_} path at every bucket ({graph_memory(one)}):")
+                    time_graphed(one, DepthServer(srv.models[p_], buckets, cuda_graphs=False),
+                                 frames, name)
+                    del one
             gen = torch.Generator(device="cuda").manual_seed(13)
             for b in buckets:
                 cases = check_d2s_on_path(f"{label} bucket {b}", srv.models[srv.path_for(b)],
@@ -4079,21 +4234,24 @@ def time_data_layer(label: str, ds, n: int = 8) -> None:
         f"{total:.2f} ms a frame (medians over {n} frames, host clock)")
 
 
-def drain(loader, epochs: int = 1) -> tuple[list, float, float]:
-    """Iterate `loader` alone: (the first epoch's batches, the seconds to
-    its first batch, the ms a batch after the first of each epoch)."""
-    first, steady, n_steady, batches = 0.0, 0.0, 0, None
+def drain(loader, epochs: int, after_epoch) -> tuple[list, list, float]:
+    """Iterate `loader` alone, calling `after_epoch()` after each epoch:
+    (the first epoch's batches, each epoch's seconds to its first batch,
+    the ms a batch after the first of each epoch)."""
+    firsts, steady, n_steady, batches = [], 0.0, 0, None
     for e in range(epochs):
         t0 = time.perf_counter()
         stamps, got = [], []
         for b in loader:
             stamps.append(time.perf_counter())
             got.append(b)
+        after_epoch()
         if e == 0:
-            first, batches = stamps[0] - t0, got
+            batches = got
+        firsts.append(stamps[0] - t0)
         steady += stamps[-1] - stamps[0]
         n_steady += len(stamps) - 1
-    return batches, first, 1e3 * steady / max(n_steady, 1)
+    return batches, firsts, 1e3 * steady / max(n_steady, 1)
 
 
 class Repeated:
@@ -4114,7 +4272,9 @@ def loader_rates(label: str, cfg) -> None:
     """The loader's host ms a batch, drained alone (no step consuming it),
     at one thread, LOADER_WORKERS threads and LOADER_WORKERS spawned
     processes, on a seeded train split LOADER_REPEATS over; the thread and
-    process loaders' batches over one epoch bit for bit equal."""
+    process loaders' batches over one epoch bit for bit equal; the process
+    loader drained over 2 epochs by one pool of workers (the same PIDs),
+    the second epoch's first batch timed beside the first's."""
     from cspn_tpu_torch.data import DataLoader
     from cspn_tpu_torch.train.factory import build_dataset
 
@@ -4122,13 +4282,26 @@ def loader_rates(label: str, cfg) -> None:
     bs = cfg.data.batch_size_train
     out = {}
     for mode, workers, epochs in (("thread", 1, 1), ("thread", LOADER_WORKERS, 1),
-                                  ("process", LOADER_WORKERS, 1)):
+                                  ("process", LOADER_WORKERS, 2)):
         loader = DataLoader(ds, bs, shuffle=True, drop_last=True, num_workers=workers,
                             worker_mode=mode)
-        out[mode, workers] = drain(loader, epochs)
-        batches, first, ms = out[mode, workers]
+        pids = []  # the process loader's worker PIDs after each epoch
+        try:
+            out[mode, workers] = drain(loader, epochs,
+                                       lambda loader=loader: pids.append(loader.worker_pids()))
+        finally:
+            loader.close()
+        batches, firsts, ms = out[mode, workers]
         log(f"  {label} b{bs} loader, {workers} {mode} worker(s): {ms:.1f} ms a batch after the "
-            f"first ({ms / bs:.2f} ms a frame), first batch after {first:.2f} s (host clock)")
+            f"first ({ms / bs:.2f} ms a frame), first batch after "
+            f"{' / '.join(f'{t:.2f}' for t in firsts)} s in epoch{'s' if epochs > 1 else ''} "
+            f"{' / '.join(str(e + 1) for e in range(epochs))} (host clock)")
+        if mode == "process":
+            if len(pids) != epochs or len(pids[0]) != workers or any(p != pids[0] for p in pids):
+                raise AssertionError(f"{label}: the process loader's worker PIDs by epoch {pids}: "
+                                     "one pool should serve every epoch")
+            log(f"  {label}: the same {workers} worker processes (PIDs {pids[0]}) served both "
+                "epochs; the pool closed after")
     a, b = out["thread", LOADER_WORKERS][0], out["process", LOADER_WORKERS][0]
     if len(a) != len(b) or any(not np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in x):
         raise AssertionError(f"{label}: thread and process workers gave different batches")
@@ -4307,8 +4480,91 @@ def files_slice(name: str) -> dict:
     new = sorted(set(loaded()) - set(before))
     if new:
         raise AssertionError(f"the file paths imported {new[:5]}: the PNG route needs neither")
-    log("  this phase imported neither PIL nor h5py")
+    from cspn_tpu_torch.data import datasets, native
+
+    if not native.available() or datasets._warned_no_library:
+        raise AssertionError(f"a file path took the transforms chain (PIL route): the host library "
+                             f"is not available here: {native.build_error()}")
+    log("  this phase imported neither PIL nor h5py; every file path took the host library's "
+        "route (none the transforms chain)")
     return by_path
+
+
+def debug_nans_slice(name: str) -> dict:
+    """Phase 5, `--debug-nans`: utils/profiling.py:debug_nans (what `train
+    --debug-nans` turns on) over nyu_train b8 steps at 228x304 from seeded
+    weights: a step on a synthetic batch stays finite and launches the
+    train route's kernels, a step with a NaN put into its input raises
+    FloatingPointError where the first conv's output holds it.  Returns the
+    kernels' launches of the checked steps."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.train.evaluate import build_model
+    from cspn_tpu_torch.train.loop import make_train_step
+    from cspn_tpu_torch.train.state import make_optimizer
+    from cspn_tpu_torch.utils.profiling import debug_nans
+
+    cfg = _train_cfg("")
+    n = cfg.data.batch_size_train
+    model = build_model(cfg, train=True, device="cuda", seed=0)
+    step = make_train_step(model, make_optimizer(model.parameters()))
+    ds = SyntheticDepthDataset(length=n, hw=tuple(cfg.data.crop_hw), n_sample=cfg.data.n_sample,
+                               seed=3)
+    x, depth = (torch.from_numpy(np.stack([ds[i][k] for i in range(n)])).cuda()
+                for k in ("rgbd", "depth"))
+    step(x, depth)  # cuDNN's algorithm timing, unchecked
+    torch.cuda.synchronize()
+    reset_launches()
+    debug_nans(True)
+    try:
+        t0 = time.perf_counter()
+        loss = step(x, depth)[0].item()
+        elapsed = time.perf_counter() - t0
+        launches = read_launches()
+        bad = x.clone()
+        bad[0, 100, 150, 0] = float("nan")
+        try:
+            step(bad, depth)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a train step on a NaN input raised nothing under --debug-nans")
+    finally:
+        debug_nans(False)
+    per_fwd = d2s_per_forward(model)
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_fwd=1, cspn2d_bwd=1, d2s=per_fwd,
+                    s2d=per_fwd)
+    if not np.isfinite(loss) or launches != expected:
+        raise AssertionError(f"--debug-nans step: loss {loss}, launches {launches} (expected "
+                             f"{expected})")
+    log(f"  --debug-nans (utils/profiling.py:debug_nans): a b{n} train step stays finite (loss "
+        f"{loss:.4f}, {elapsed:.2f} s with every module's output checked and autograd's anomaly "
+        f"mode; launches {launches}); a NaN in its input raises FloatingPointError: {raised}")
+    return launches
+
+
+def bench_slice(name: str) -> None:
+    """Phase 16: `python -m cspn_tpu_torch bench` in a subprocess (the
+    ResNet-50 CSPN-UNet at 228x304, b128, on the kernel, int8 and plain
+    reference paths, each a captured CUDA graph of 8 chained forwards):
+    exit code 0, exactly one stdout line holding the four keys with a
+    positive value; echoes the line and the paths' frames/s."""
+    torch.cuda.empty_cache()  # the bench process wants the card's memory
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cspn_tpu_torch", "bench"], capture_output=True,
+                       text=True, timeout=900, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    elapsed = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"bench exited {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    line = json.loads(lines[0]) if len(lines) == 1 else None
+    if line is None or list(line) != ["metric", "value", "unit", "vs_baseline"] \
+            or line["metric"] != "nyu_eval_frames_per_s" or not line["value"] > 0:
+        raise AssertionError(f"bench printed {lines[:3]} on stdout: one line with metric, value, "
+                             "unit and vs_baseline expected")
+    for row in r.stderr.splitlines():
+        if row.startswith("bench:"):
+            log(f"  {row}")
+    log(f"  `python -m cspn_tpu_torch bench` exited 0 in {elapsed:.1f} s; its line: {lines[0]}")
 
 
 def main(argv=None) -> int:
@@ -4337,7 +4593,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/15] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/16] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -4346,10 +4602,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build()
     host = _build.build_seconds.get("host_pipeline")
-    log(f"[2/15] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
+    log(f"[2/16] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
         f"{'already built' if host is None else f'{host:.1f} s'}) in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/15] kernels against their plain versions")
+    log("[3/16] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -4362,38 +4618,39 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/15] nyu_eval served through DepthServer")
+    log("[4/16] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/15] nyu_train trained through Trainer.fit")
+    log("[5/16] nyu_train trained through Trainer.fit, and a --debug-nans step")
     by_path["train"] = train_slice(name, kernel_ms)
+    by_path["debug_nans"] = debug_nans_slice(name)
 
-    log("[6/15] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/16] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/15] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/16] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/15] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/16] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/15] kitti_benchmark trained through Trainer.fit")
+    log("[9/16] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/15] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/16] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/15] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/16] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/15] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/16] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
 
-    log("[13/15] precision: bf16 and int8 serving through load_server, bf16 training")
+    log("[13/16] precision: bf16 and int8 serving through load_server, bf16 training")
     from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
 
     serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
@@ -4403,13 +4660,16 @@ def main(argv=None) -> int:
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
     by_path["precision_train"] = precision_train(name)
 
-    log("[14/15] deployment: reference-checkpoint import, export to torch.export artifacts, "
+    log("[14/16] deployment: reference-checkpoint import, export to torch.export artifacts, "
         "image dumps")
     by_path["deploy"] = deployment_slice(name)
 
-    log("[15/15] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
+    log("[15/16] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
         "nyu_mono fed from PNG files")
     by_path.update(files_slice(name))
+
+    log("[16/16] the bench subcommand: nyu_eval frames/s through captured CUDA graphs")
+    bench_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

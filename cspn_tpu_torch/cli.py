@@ -15,6 +15,7 @@
     python -m cspn_tpu_torch demo --dim-num 2 [--prop-step 24 --batch-size 3 --iter-num 20]
     torchrun --nproc-per-node N -m cspn_tpu_torch train --mesh-data N [--grad-reduce-dtype bfloat16] ...
     python -m cspn_tpu_torch bench-scaling --mode train|eval|stereo [--force-cpu-devices N]
+    python -m cspn_tpu_torch bench [--device cuda]
     python -m cspn_tpu_torch make-manifest DATA_DIR OUT.csv [--pattern '**/*.h5'] [--relative-to DIR]
 
 All run on `--device` (default cuda).  `train`, `eval`, `infer` and
@@ -37,9 +38,13 @@ activation scales calibrated at load.  `infer` serves through
 3D CSPNs run float32 states at every dtype.  `export` writes the eval
 graph as one `torch.export` artifact (export.py); `--import-torch-checkpoint`
 evaluates, serves or exports a whole model trained by the reference
-(models/torch_import.py).  The `bench` subcommand waits for a later
-slice (ROADMAP.md Queue 1).  --tf32 computes float32 convolutions in TF32
-(default off).
+(models/torch_import.py).  `bench` prints nyu_eval frames/s on the card
+as one JSON line (bench.py: the ResNet-50 CSPN-UNet at 228x304, b128, on
+the kernel, int8 and plain reference paths, each a captured CUDA graph).
+`--cspn-io-dtype bfloat16` rounds the 2D CSPN's inputs through bf16;
+`train --debug-nans` raises where a forward first gives a NaN
+(utils/profiling.py:debug_nans).  --tf32 computes float32 convolutions in
+TF32 (default off).
 """
 
 from __future__ import annotations
@@ -83,6 +88,13 @@ def _add_common_overrides(p: argparse.ArgumentParser):
     p.add_argument("--act-static", dest="act_static", action="store_true",
                    help="int8 serving: static activation scales calibrated at load (no "
                         "abs-max reduce per quantized conv and call)")
+    p.add_argument("--cspn-io-dtype", dest="cspn_io_dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="I/O dtype of the 2D CSPN's inputs (bfloat16: rounded through it; the "
+                        "arithmetic stays float32)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError where a module's forward first gives a NaN, "
+                        "and check the backward for NaNs (utils/profiling.py:debug_nans)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _add_tf32(p)
 
@@ -156,6 +168,7 @@ def _build_config(args):
         ("cspn_norm_type", model, "cspn_norm_type"),
         ("cspn_backend", model, "cspn_backend"),
         ("dtype", model, "dtype"),
+        ("cspn_io_dtype", model, "cspn_io_dtype"),
         ("lr", optim, "lr"),
         ("momentum", optim, "momentum"),
         ("weight_decay", optim, "weight_decay"),
@@ -193,6 +206,10 @@ def cmd_train(args):
     from cspn_tpu_torch.train.loop import Trainer
     from cspn_tpu_torch.utils.profiling import trace
 
+    if args.debug_nans:  # cspn_tpu/cli.py:161-164
+        from cspn_tpu_torch.utils.profiling import debug_nans
+
+        debug_nans(True)
     initialize_multihost()  # under torchrun: this rank's process group
     cfg = _build_config(args)
     train_loader, val_loader = build_loaders(cfg)
@@ -422,6 +439,14 @@ def cmd_bench_scaling(args):
     return records
 
 
+def cmd_bench(args):
+    """nyu_eval frames/s on the card, one JSON line (bench.py; the
+    counterpart of cspn_tpu/cli.py:cmd_bench and the JAX package's bench.py)."""
+    from cspn_tpu_torch.bench import run_bench
+
+    return run_bench(device=args.device)
+
+
 def _add_stereo_args(p: argparse.ArgumentParser):
     p.add_argument("--max-disp", type=int, default=64)
     p.add_argument("--features", type=int, default=16)
@@ -534,6 +559,11 @@ def build_parser() -> argparse.ArgumentParser:
     p_sc.add_argument("--force-cpu-devices", type=int, default=0,
                       help="N>0: N gloo ranks on the CPU (default: one card a rank)")
     p_sc.set_defaults(fn=cmd_bench_scaling)
+
+    p_bench = sub.add_parser("bench", help="nyu_eval frames/s on the card: the kernel, int8 and "
+                                           "plain reference paths (one JSON line)")
+    p_bench.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p_bench.set_defaults(fn=cmd_bench)
 
     p_mm = sub.add_parser("make-manifest",
                           help="generate a datalist CSV of the files under a directory "

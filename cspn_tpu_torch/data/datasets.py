@@ -26,14 +26,17 @@ The default route (`use_native=True`) runs the whole chain in one pass of
 the host library (data/native.py:aug_pack) and needs neither PIL nor, for
 `img` manifests of PNG files, anything but numpy and zlib (utils/images.py
 reads them).  The transforms chain (PIL, imported for the frame) runs with
-`use_native=False`, with `return_raw_rgb` (the image dumps) and for a crop
-larger than the frame; `hdf5` manifests import h5py for each frame.
+`use_native=False`, with `return_raw_rgb` (the image dumps), for a crop
+larger than the frame, and, as in the JAX package, wherever the host
+library cannot be built (a warning, once, carries the compiler's output);
+`hdf5` manifests import h5py for each frame.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+import warnings
 import numpy as np
 
 from cspn_tpu_torch.data import transforms as T
@@ -52,6 +55,20 @@ def read_manifest_rows(csv_file: str) -> list[list[str]]:
     if rows and rows[0] and rows[0][0].strip().lower() in ("name", "path", "rgb"):
         rows = rows[1:]
     return [r for r in rows if r]
+
+
+_warned_no_library = False
+
+
+def _warn_no_library(error: str) -> None:
+    """Warn, once a process, that the samples take the transforms chain
+    because the host library did not build, with the compiler's output."""
+    global _warned_no_library
+    if not _warned_no_library:
+        _warned_no_library = True
+        warnings.warn("the host library (csrc/host_pipeline.cpp) is not available, so the "
+                      "samples take the transforms chain (PIL), as the JAX package's do "
+                      f"without theirs:\n{error}", RuntimeWarning, stacklevel=3)
 
 
 # PIL modes whose pixels are bytes: torchvision's ToTensor divides them by 255
@@ -208,9 +225,15 @@ class _DepthCompletionDataset:
         sparse/pack -- in one pass of the host library (csrc/host_pipeline.cpp
         cspn_aug_pack), drawing the same random stream as the transforms
         chain, draw for draw.  None where the library refuses the geometry
-        (a crop larger than the resized frame)."""
+        (a crop larger than the resized frame) or cannot be built: the
+        transforms chain then takes the sample, as the JAX package's does
+        (cspn_tpu/data/datasets.py:189-190), with one warning a process
+        that carries the compiler's output."""
         from cspn_tpu_torch.data import native
 
+        if not native.aug_available():
+            _warn_no_library(native.build_error())
+            return None
         rgb, depth = self._load_arrays(idx)
         rng = self._rng(idx)
         if self.box_crop is not None:
@@ -285,10 +308,10 @@ class _DepthCompletionDataset:
         depth_raw = T.depth_to_array(depth)
         inv_scale = (1.0 / s) if self.split == "train" else 1.0
 
-        if self.use_native and not self.return_raw_rgb:
-            # the host library's pass: normalize + scale + sparse-sample + pack
-            from cspn_tpu_torch.data import native
+        from cspn_tpu_torch.data import native
 
+        if self.use_native and not self.return_raw_rgb and native.available():
+            # the host library's pass: normalize + scale + sparse-sample + pack
             if self.sparse_denom == "total":
                 p = self.n_sample / depth_raw.size
             else:

@@ -8,21 +8,37 @@ Two worker modes:
 
   - 'thread' (default): a pool of worker threads builds up to `prefetch`
     batches ahead of the consumer;
-  - 'process': a `torch.utils.data.DataLoader` over the epoch's batch index
-    lists, with `num_workers` worker processes started by 'spawn' (never
-    fork(): the parent may hold CUDA and threads), new for each epoch.  A
-    worker hands its batch over as tensors, which travel through shared
-    memory, not pickled through a pipe (a kitti_benchmark b4 batch is 34
-    MB), and the consumer gets them back as numpy arrays.
+  - 'process': a persistent pool of `num_workers` worker processes started
+    by 'spawn' (never fork(): the parent may hold CUDA and threads), fed
+    batch index lists over a queue, as the JAX package's loader
+    (cspn_tpu/data/loader.py:12-25, 179-300).  The pool is built at the
+    first process-mode iteration and serves every later epoch (a spawned
+    worker takes seconds to import torch and the package); a worker's
+    death raises in the iteration that waits on it, and the next
+    iteration builds a new pool; each task carries an id, so that batches
+    of an abandoned iteration never reach a later one; `close()` (or the
+    loader's deletion) ends the workers.  A worker hands its batch over as
+    tensors, which travel through shared memory, not pickled through a
+    pipe (a kitti_benchmark b4 batch is 34 MB), and the consumer gets them
+    back as numpy arrays.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import queue
+import traceback
 from typing import Iterator
 
 import numpy as np
+
+
+# process mode: seconds between the consumer's checks that its workers
+# live, and how long live workers may stay silent on one batch before the
+# iteration declares them hung (as the JAX package's stall_timeout)
+_POLL_S = 1.0
+_STALL_S = 300.0
 
 
 def stack_samples(samples: list[dict]) -> dict[str, np.ndarray]:
@@ -31,7 +47,7 @@ def stack_samples(samples: list[dict]) -> dict[str, np.ndarray]:
 
 class _IndexedBatches:
     """Map-style view of `dataset` whose item i is the stacked batch of the
-    indices `batches[i]` (picklable for worker processes)."""
+    indices `batches[i]`."""
 
     def __init__(self, dataset, batches):
         self.dataset, self.batches = dataset, batches
@@ -43,17 +59,23 @@ class _IndexedBatches:
         return stack_samples([self.dataset[int(j)] for j in self.batches[i]])
 
 
-class _SharedBatches(_IndexedBatches):
-    """_IndexedBatches whose items are tensors (for worker processes)."""
+def _process_worker(dataset, task_q, result_q):
+    """A worker process's loop: (task id, indices) in, (task id, the batch
+    as tensors, which the queue hands over through shared memory) out;
+    an error travels back as (task id, ("error", its traceback))."""
+    import torch
+    import torch.multiprocessing  # noqa: F401  (the tensors' shared-memory reductions)
 
-    def __getitem__(self, i):
-        import torch
-
-        return {k: torch.from_numpy(v) for k, v in super().__getitem__(i).items()}
-
-
-def _unwrap(batch):
-    return batch
+    while True:
+        msg = task_q.get()
+        if msg is None:
+            return
+        task_id, idx = msg
+        try:
+            batch = stack_samples([dataset[int(j)] for j in idx])
+            result_q.put((task_id, {k: torch.from_numpy(v) for k, v in batch.items()}))
+        except Exception:  # the consumer raises it in the iteration that asked
+            result_q.put((task_id, ("error", traceback.format_exc())))
 
 
 class DataLoader:
@@ -82,6 +104,13 @@ class DataLoader:
         self.shard_index, self.shard_count = shard
         self.worker_mode = worker_mode
         self._epoch = 0
+        self._pool: dict | None = None
+        self._task_seq = 0
+        # the pool's results go to the iteration that asked for them: task
+        # id -> (iteration, batch index); iteration -> {batch index: batch}
+        self._iter_seq = 0
+        self._pending: dict[int, tuple[int, int]] = {}
+        self._results: dict[int, dict[int, object]] = {}
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -123,17 +152,117 @@ class DataLoader:
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
-    def _iter_processes(self, batches) -> Iterator[dict[str, np.ndarray]]:
-        import torch.utils.data
+    def worker_pids(self) -> list[int]:
+        """The process-mode pool's worker PIDs (none before its first epoch)."""
+        return [] if self._pool is None else [p.pid for p in self._pool["procs"]]
 
-        loader = torch.utils.data.DataLoader(
-            _SharedBatches(self.dataset, batches),
-            batch_size=None,  # each item already is a batch
-            shuffle=False,
-            num_workers=self.num_workers,
-            collate_fn=_unwrap,
-            prefetch_factor=self.prefetch,
-            multiprocessing_context="spawn",
-        )
-        for batch in loader:
-            yield {k: v.numpy() for k, v in batch.items()}
+    def _ensure_pool(self) -> dict:
+        """The pool of worker processes, built now if there is none or one
+        of its workers has died.  The dataset is pickled into each worker
+        once, here, not each epoch."""
+        pool = self._pool
+        if pool is not None and all(p.is_alive() for p in pool["procs"]):
+            return pool
+        self.close()
+        import torch.multiprocessing
+
+        ctx = torch.multiprocessing.get_context("spawn")
+        task_q, result_q = ctx.Queue(), ctx.Queue()
+        procs = [ctx.Process(target=_process_worker, args=(self.dataset, task_q, result_q),
+                             daemon=True) for _ in range(self.num_workers)]
+        for p in procs:
+            p.start()
+        self._pool = {"procs": procs, "task_q": task_q, "result_q": result_q}
+        return self._pool
+
+    def close(self) -> None:
+        """End the process-mode pool's workers (nothing to do without one)."""
+        pool, self._pool = self._pool, None
+        self._pending.clear()
+        if pool is None:
+            return
+        for _ in pool["procs"]:
+            pool["task_q"].put(None)
+        try:  # drain what the workers still send, so that none blocks on a full pipe
+            while True:
+                pool["result_q"].get(timeout=0.1)
+        except (queue.Empty, OSError, EOFError):
+            pass
+        for p in pool["procs"]:
+            p.join(timeout=5.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+        for q in (pool["task_q"], pool["result_q"]):
+            q.close()
+            q.cancel_join_thread()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown: the queues' modules may be gone
+            pass
+
+    def _deliver(self, task_id: int, payload) -> None:
+        """Hand a result to the iteration that asked for it; a result of an
+        abandoned iteration (no longer pending) is dropped."""
+        target = self._pending.pop(task_id, None)
+        if target is not None:
+            it, i = target
+            results = self._results.get(it)
+            if results is not None:
+                results[i] = payload
+
+    def _iter_processes(self, batches) -> Iterator[dict[str, np.ndarray]]:
+        pool = self._ensure_pool()
+        procs, task_q, result_q = pool["procs"], pool["task_q"], pool["result_q"]
+        it = self._iter_seq
+        self._iter_seq += 1
+        results = self._results.setdefault(it, {})
+        window = self.prefetch + self.num_workers
+        submitted = 0
+
+        def submit():
+            nonlocal submitted
+            self._pending[self._task_seq] = (it, submitted)
+            task_q.put((self._task_seq, np.asarray(batches[submitted])))
+            self._task_seq += 1
+            submitted += 1
+
+        try:
+            while submitted < min(window, len(batches)):
+                submit()
+            for i in range(len(batches)):
+                waited = 0.0
+                while i not in results:
+                    try:
+                        self._deliver(*result_q.get(timeout=_POLL_S))
+                        continue
+                    except queue.Empty:
+                        pass
+                    dead = [p for p in procs if not p.is_alive()]
+                    if dead:  # deliver what has arrived before deciding
+                        try:
+                            while True:
+                                self._deliver(*result_q.get_nowait())
+                        except queue.Empty:
+                            pass
+                        if i in results:
+                            break
+                        raise RuntimeError(f"DataLoader worker process {dead[0].pid} died "
+                                           f"(exit code {dead[0].exitcode}) before batch {i} "
+                                           "arrived; the next iteration starts a new pool")
+                    waited += _POLL_S
+                    if waited >= _STALL_S:
+                        raise RuntimeError(f"DataLoader workers alive but silent for "
+                                           f"{waited:.0f} s, waiting for batch {i}")
+                if submitted < len(batches):
+                    submit()
+                item = results.pop(i)
+                if isinstance(item, tuple):
+                    raise RuntimeError(f"DataLoader worker failed:\n{item[1]}")
+                yield {k: v.numpy() for k, v in item.items()}
+        finally:
+            self._results.pop(it, None)
+            for tid in [t for t, (owner, _) in self._pending.items() if owner == it]:
+                del self._pending[tid]

@@ -3,19 +3,30 @@ the counterpart of cspn_tpu/data/native.py.
 
 The library is built with g++ at first use by ops/_build.py (`HOST_FLAGS`,
 the JAX package's native/Makefile flags) into `cspn_tpu_torch/_build/`.
-Unlike the JAX package's binding, nothing here falls back quietly: a
-library that does not build or load raises, with the compiler's output.
-The one route a caller takes by semantics is `aug_pack`'s None for a crop
-larger than the resized frame (the library's rc 1).
+As in the JAX package, the callers ask `available()` / `aug_available()`
+first and take the transforms chain (PIL) where the library cannot be
+built or loaded (data/datasets.py, which warns once with the compiler's
+output, `build_error()`), and utils/images.py:decode_png leaves such PNGs
+to PIL.  The bindings themselves raise without the library, with the
+compiler's output, as JAX's do without theirs.  The other route a caller
+takes by semantics is `aug_pack`'s None for a crop larger than the
+resized frame (the library's rc 1).
 """
 
 from __future__ import annotations
 
 import ctypes
+import subprocess
+import threading
 
 import numpy as np
 
 LIBRARY = "host_pipeline"
+
+_lock = threading.Lock()
+# the outcome of this process's one try at the library: None until tried,
+# then "" where it loaded, else the build's error with the compiler's output
+_build_error: str | None = None
 
 
 def library() -> ctypes.CDLL:
@@ -23,6 +34,34 @@ def library() -> ctypes.CDLL:
     from cspn_tpu_torch.ops import _build
 
     return _build.load(LIBRARY)
+
+
+def available() -> bool:
+    """True where the host library builds and loads.  Tried once a process
+    (cspn_tpu/data/native.py:available); a failure keeps its message and
+    the compiler's output (`build_error()`)."""
+    global _build_error
+    with _lock:
+        if _build_error is None:
+            try:
+                library()
+                _build_error = ""
+            # a failed compile, no g++ (or g++ failing on its target query), a bad .so
+            except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+                _build_error = str(e)
+        return not _build_error
+
+
+def aug_available() -> bool:
+    """True where the library's one-pass augmentation `aug_pack` can run
+    (cspn_tpu/data/native.py:aug_available): the library loads (the port's
+    source always defines `cspn_aug_pack`)."""
+    return available()
+
+
+def build_error() -> str:
+    """Why the library is not available ("" where it is, or not tried yet)."""
+    return _build_error or ""
 
 
 def pack_sample(

@@ -14,8 +14,9 @@ RGBA and 16-bit grey PNGs itself, whatever row filters the encoder chose
 (PIL, OpenCV and the KITTI devkit filter their rows): zlib inflates, the
 host library undoes the filters (`data/native.py:png_unfilter`; a plain
 numpy version, `_unfilter_plain`, is kept for the tests and the card
-check).  Any other file goes to PIL, imported for that file; where PIL is
-absent that raises an ImportError naming the file and its format.
+check).  Any other file goes to PIL, imported for that file, and so does
+every file where the host library cannot be built; where PIL is absent
+that raises an ImportError naming the file and its format.
 """
 
 from __future__ import annotations
@@ -121,7 +122,14 @@ def _unfilter_plain(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarra
 def decode_png(path: str) -> np.ndarray | None:
     """The pixels of a non-interlaced 8-bit grey ([H, W] uint8), RGB ([H, W,
     3]), RGBA ([H, W, 4]) or 16-bit grey ([H, W] uint16) PNG, any row
-    filters; None for any other file (another PNG format, or not a PNG)."""
+    filters; None for any other file (another PNG format, or not a PNG),
+    and for every file where the host library that undoes the row filters
+    cannot be built (data/native.py:available): PIL then decodes it, as
+    the JAX package's readers do."""
+    from cspn_tpu_torch.data import native
+
+    if not native.available():
+        return None
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -133,8 +141,6 @@ def decode_png(path: str) -> np.ndarray | None:
     bpp = _DECODED.get((depth, colour))
     if bpp is None or interlace:
         return None
-    from cspn_tpu_torch.data import native
-
     rows = native.png_unfilter(np.frombuffer(zlib.decompress(idat), np.uint8), h, w * bpp, bpp)
     if depth == 16:
         return rows.view(">u2").astype(np.uint16).reshape(h, w)

@@ -12,6 +12,8 @@ torch.profiler).
     `logdir/trace.json` (chrome://tracing, Perfetto);
   - `train_step_split_ms`: a train step's forward, backward and optimizer
     time by CUDA events;
+  - `debug_nans(enable)`: raise where a forward first gives a NaN (the
+    counterpart of jax_debug_nans);
   - `decoder_twin`: a CSPN-UNet's weights in the other decoder form.
 
 The module's main builds the nyu_eval ResNet-50 CSPN-UNet (228x304, 24
@@ -196,6 +198,49 @@ class StepTimer:
             f"steps={len(times)} mean={sum(times) / len(times) * 1e3:.1f}ms "
             f"median={self.median_step_s * 1e3:.1f}ms throughput={self.frames_per_s:.1f} frames/s"
         )
+
+
+_nan_hook = None  # debug_nans' global forward hook, while it is on
+
+
+def _floats(value) -> Iterator[torch.Tensor]:
+    """The floating-point tensors in a module's output (a tensor, or
+    tuples, lists and dicts of them)."""
+    if isinstance(value, torch.Tensor):
+        if value.is_floating_point():
+            yield value
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _floats(v)
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _floats(v)
+
+
+def _raise_on_nan(module, inputs, output) -> None:
+    for t in _floats(output):
+        if torch.isnan(t).any():
+            raise FloatingPointError(
+                f"NaN in the output {tuple(t.shape)} of {module._get_name()}"
+                f"({module.extra_repr()}), the first module whose forward gave one")
+
+
+def debug_nans(enable: bool = True) -> None:
+    """NaN checking, the counterpart of jax_debug_nans
+    (cspn_tpu/utils/profiling.py:31-33).  On: a global module forward hook
+    raises FloatingPointError naming the first module whose output holds a
+    NaN (modules finish inside out, so the innermost one; each output is
+    read on the host, a synchronization a module), and autograd's anomaly
+    mode checks every backward function's output for NaNs (its error names
+    the function and carries its forward's traceback).  `debug_nans(False)`
+    removes both.  A CUDA graph cannot be captured while it is on."""
+    global _nan_hook
+    torch.autograd.set_detect_anomaly(enable, check_nan=True)
+    if enable and _nan_hook is None:
+        _nan_hook = torch.nn.modules.module.register_module_forward_hook(_raise_on_nan)
+    elif not enable and _nan_hook is not None:
+        _nan_hook.remove()
+        _nan_hook = None
 
 
 @contextlib.contextmanager

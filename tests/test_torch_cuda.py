@@ -2,7 +2,8 @@
 for the backward, and the tiled one) and backward, the sharded 2D CSPN's segment and its backward, the
 paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
 the subpixel decoder's depth-to-space and its adjoint, the step-body probe
--- against their plain versions, on the card.
+-- against their plain versions, on the card; and the serving graphs
+(one CUDA graph a bucket) against the eager server.
 
 Marked `cuda`: without a card every test here skips.  On a machine with
 one (and without JAX, which tests/conftest.py imports) run:
@@ -1143,3 +1144,42 @@ def test_nyu_train_from_png_files_launches_the_kernels(gen, tmp_path):
     got = tuple(a - b for a, b in zip(counters(), before))
     assert got == (2, 2, 2, 9 * 4, 9 * 2)
     assert all(np.isfinite(v) for v in val.values())
+
+
+# --- serving: one CUDA graph a bucket ---
+
+
+def test_graphed_server_equals_eager_and_counts_replays(gen):
+    """DepthServer replays one captured graph a bucket: a request of 300
+    frames at buckets (1, 8, 128) replays bucket 128's graph three times
+    (128 + 128 + 44 padded), and every row equals the eager server's bit
+    for bit (the first chunk's rows were cloned before the next replay
+    overwrote the graph's output); the launch counters count each replay's
+    tiled 2D CSPN and nine `d2s`, and no capture."""
+    import numpy as np
+
+    from cspn_tpu_torch.models import unet
+    from cspn_tpu_torch.serving import DepthServer
+    from cspn_tpu_torch.train.evaluate import calibrate_bn_stats
+
+    with torch.device("cuda"):
+        model = unet.cspn_unet_resnet18(cspn_steps=4, generator=gen)
+    calibrate_bn_stats(model, torch.randn(8, 64, 96, 4, device="cuda", generator=gen))
+    buckets = (1, 8, 128)
+    graphed = DepthServer(model, buckets)
+    eager = DepthServer(model, buckets, cuda_graphs=False)
+    assert graphed.cuda_graphs and not eager.cuda_graphs
+    graphed.warmup(64, 96)
+    assert sorted(graphed.graphs) == [(b, 64, 96) for b in buckets]
+    x = torch.randn(300, 64, 96, 4, device="cuda", generator=gen).cpu().numpy()
+    want = eager.predict(x)
+    before = (cspn_cuda.tiled_launches, d2s.launches, cspn_cuda.launches)
+    got = graphed.predict(x)
+    assert (cspn_cuda.tiled_launches, d2s.launches, cspn_cuda.launches) == (
+        before[0] + 3, before[1] + 27, before[2])
+    assert got.shape == (300, 64, 96) and np.isfinite(want).all() and (got == want).all()
+    assert graphed.served == {"bf16": 300, "int8": 0}
+    one = graphed.predict(x[:5])  # bucket 8, pad rows zeroed
+    assert (one == eager.predict(x[:5])).all()
+    model.load_state_dict(model.state_dict())
+    assert graphed.graphs == {}

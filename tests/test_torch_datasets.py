@@ -340,11 +340,47 @@ def test_pack_sample_and_count_valid_equal_jax_library():
 
 
 def test_host_library_build_failure_raises(monkeypatch):
-    """No quiet fallback: a library that does not build raises with g++'s output."""
+    """The binding raises where the library does not build, with g++'s output."""
     monkeypatch.setattr(_build, "HOST_FLAGS", _build.HOST_FLAGS + ("--no-such-flag",))
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="host library build failed(.|\n)*no-such-flag"):
         native.library()
+    assert not _build.library_path(native.LIBRARY).exists()
+
+
+def test_without_the_host_library_samples_take_jax_pil_route(files, monkeypatch):
+    """Where the library does not build (g++ refusing a flag), the NYU PNG
+    samples take the transforms chain, equal to JAX's with its library
+    blocked too, PIL decoding the PNGs; one warning carries g++'s output;
+    the bindings still raise (ROADMAP.md Queue 3, F3)."""
+    import warnings
+
+    monkeypatch.setattr(_build, "HOST_FLAGS", _build.HOST_FLAGS + ("--no-such-flag",))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(native, "_build_error", None)
+    monkeypatch.setattr(datasets, "_warned_no_library", False)
+    monkeypatch.setattr(jnative, "_lib", None)  # JAX's loader: tried, nothing loaded
+    monkeypatch.setattr(jnative, "_tried", True)
+    assert not native.available() and not native.aug_available() and not jnative.available()
+    assert "no-such-flag" in native.build_error()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for split, seed in (("train", 3), ("val", 0)):
+            got = datasets.NyuDepthDataset(files["nyu", "img"], split=split, seed=seed,
+                                           input_format="img")
+            want = jdatasets.NyuDepthDataset(files["nyu", "img"], split=split, seed=seed,
+                                             input_format="img")
+            _assert_same_samples(got, want, [0, 1])
+    ours = [w for w in caught if "host library" in str(w.message)]
+    assert len(ours) == 1 and issubclass(ours[0].category, RuntimeWarning)
+    assert "transforms chain" in str(ours[0].message) and "no-such-flag" in str(ours[0].message)
+    assert images.decode_png(str(pathlib.Path(files["nyu", "img"]).parent / "nyu0_rgb.png")) is None
+    rgb, depth = np.zeros((4, 6, 3), np.uint8), np.ones((4, 6), np.float32)
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        native.pack_sample(rgb, depth, 1.0, 0.5, 0)
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        native.aug_pack(rgb, depth, resize_hw=None, angle=0.0, crop_hw=(2, 2), flip=False,
+                        jitter=[], inv_scale=1.0, n_sample=1, sparse_denom="total", seed=0)
     assert not _build.library_path(native.LIBRARY).exists()
 
 

@@ -100,6 +100,33 @@ def test_server_input_validation(tiny_model):
         srv.predict(np.zeros((2, 64, 96), np.float32))
 
 
+def test_graphs_are_the_cards_and_a_weight_load_drops_them(tiny_model):
+    """On the CPU the server runs eagerly and refuses CUDA graphs; a weight
+    load into a served model drops the server's graphs (they hold the old
+    tensors' addresses); a replay adds to the launch counters what its
+    capture counted (serving.py:add_counters)."""
+    from cspn_tpu_torch.ops import d2s
+    from cspn_tpu_torch.serving import LAUNCH_COUNTERS, add_counters, read_counters
+
+    srv = DepthServer(tiny_model, buckets=(1, 4), model_int8=tiny_model)
+    assert not srv.cuda_graphs and srv._pool is None
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        DepthServer(tiny_model, buckets=(1,), cuda_graphs=True)
+    srv.warmup(64, 96)
+    assert srv.graphs == {}
+    srv.graphs[4, 64, 96] = "captured"
+    tiny_model.load_state_dict(tiny_model.state_dict())
+    assert srv.graphs == {}
+    del srv  # the model's hook holds the server weakly
+    tiny_model.load_state_dict(tiny_model.state_dict())
+    before = read_counters()
+    assert set(before) == set(LAUNCH_COUNTERS)
+    add_counters({("cspn_tpu_torch.ops.d2s", "launches"): 9}, 3)
+    assert d2s.launches == before["cspn_tpu_torch.ops.d2s", "launches"] + 27
+    add_counters({("cspn_tpu_torch.ops.d2s", "launches"): 9}, -3)
+    assert read_counters() == before
+
+
 def _smoke_cfg(tmp_path, steps=2, **data):
     cfg = config.PRESETS["synthetic_smoke"]
     return dataclasses.replace(
