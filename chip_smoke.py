@@ -120,7 +120,16 @@ paths on the card and fails (non-zero exit) if any phase fails:
  16. the `bench` subcommand in a subprocess (bench.py: nyu_eval frames/s at
      b128 on the kernel, int8 and plain reference paths, each timed as one
      captured CUDA graph of 8 chained forwards): exit code 0 and one JSON
-     line with metric, value > 0, unit and vs_baseline (bench_slice).
+     line with metric, value > 0, unit and vs_baseline (bench_slice);
+ 17. the accuracy experiments (cspn_tpu_torch/experiments/) at reduced
+     depth (experiments_slice): the completion ablation's three arms at its
+     real geometry (ResNet-18, 228x304, 24 steps, b8, 96 / 32 frames) for
+     one seed of 3 epochs, the stereo ablation at its defaults (64x96,
+     max_disp 32) for one seed of 2 + 2 epochs, and the precision deltas'
+     5-run evals of six variants on a synthetic_smoke checkpoint that the
+     `train` subcommand trains; every metric finite, exact launches; the
+     `cspn` arm's first epoch once more through the plain CSPN, printed
+     beside the kernels', not gated.
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -4567,6 +4576,144 @@ def bench_slice(name: str) -> None:
     log(f"  `python -m cspn_tpu_torch bench` exited 0 in {elapsed:.1f} s; its line: {lines[0]}")
 
 
+# phase 17 (the accuracy experiments, cspn_tpu_torch/experiments/): (a) the
+# completion ablation at its real geometry (ResNet-18 CSPN-UNet, 228x304, 24
+# steps, 500 samples, 'edges', b8, 96 / 32 frames, all three arms) cut to
+# one seed of EXPERIMENT_EPOCHS epochs; (b) the stereo ablation at the
+# script's own defaults (64x96, max_disp 32, features 16, 12 steps, 64
+# frames) cut to one seed of STEREO_EXPERIMENT_EPOCHS + as many; (c) a
+# synthetic_smoke checkpoint trained by the `train` subcommand, then the
+# precision deltas' 5-run evals on it
+EXPERIMENT_EPOCHS = 3
+STEREO_EXPERIMENT_EPOCHS = 2
+
+
+def _finite_metrics(label: str, metrics: dict) -> None:
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{label}: metrics not finite: {bad}")
+
+
+def _expected_launches(label: str, got: dict, **want) -> None:
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), **want)
+    if got != expected:
+        raise AssertionError(f"{label}: launches {got}, expected {expected}")
+
+
+def experiments_slice(name: str) -> dict:
+    """Phase 17: the accuracy experiments at reduced depth on the card
+    through their entry points (the constants above); every arm's metrics
+    finite, each run's kernel launches exact.  Then, not gated (ROADMAP
+    trap 5: float32 training drifts between two CSPN implementations), one
+    epoch of (a)'s `cspn` arm once more through the plain CSPN
+    (cspn_backend 'reference') from the same init and batches, its train
+    loss and val RMSE beside the kernel run's first epoch.  Returns the
+    kernels' launches of (a), (b) and (c)."""
+    from cspn_tpu_torch import cli
+    from cspn_tpu_torch.experiments import completion_refinement_ablation as comp
+    from cspn_tpu_torch.experiments import precision_deltas, stereo_refinement_ablation
+    from cspn_tpu_torch.train.evaluate import build_model
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as root:
+        # (a) the completion ablation
+        t0 = time.perf_counter()
+        args = comp.parse_args(["--seeds", "1", "--epochs", str(EXPERIMENT_EPOCHS), "--out",
+                                os.path.join(root, "completion.json")])
+        data = comp.seed_data(args, 0)
+        log(f"  (a) completion ablation: {args.arch}, {args.height}x{args.width}, "
+            f"{args.prop_step} steps, {args.n_sample} samples, '{args.style}', b{args.batch_size}, "
+            f"{args.train_size} / {args.val_size} frames, seed 0, {args.epochs} epochs; frames "
+            f"made in {time.perf_counter() - t0:.1f} s")
+        steps = args.epochs * (args.train_size // args.batch_size)
+        vals = args.epochs * -(-args.val_size // min(args.batch_size, args.val_size))
+        runs, per_seed = {}, {}
+        for arm in comp.ARMS:
+            t0 = time.perf_counter()
+            reset_launches()
+            runs[arm] = comp.run_arm(args, arm, 0, data=data, device="cuda", save_root=root)
+            got = read_launches()
+            per_fwd = d2s_per_forward(build_model(comp.arm_config(args, arm, ""), device="cuda",
+                                                  seed=None))
+            cspn = comp.ARMS[arm]["use_cspn"]
+            _expected_launches(f"(a) {arm}", got, d2s=(steps + vals) * per_fwd, s2d=steps * per_fwd,
+                               **(dict(cspn2d_fwd=steps, cspn2d_bwd=steps, cspn2d_tiled=vals)
+                                  if cspn else {}))
+            total = {k: total[k] + got[k] for k in KERNEL_NAMES}
+            _finite_metrics(f"(a) {arm}", runs[arm].best)
+            per_seed[arm] = [runs[arm].best]
+            log(f"    {arm}: best {runs[arm].best}; train loss by epoch "
+                f"{[round(h['train_loss'], 4) for h in runs[arm].history]}, val RMSE "
+                f"{[round(h['val']['RMSE'], 4) for h in runs[arm].history]}; launches "
+                f"{ {k: v for k, v in got.items() if v} } ({time.perf_counter() - t0:.1f} s)")
+        rec = comp.record(args, per_seed, 1, "cuda")
+        log(f"    paired RMSE improvement over no_cspn (1 seed): "
+            f"{ {a: p['RMSE']['mean'] for a, p in rec['paired_improvement_vs_no_cspn'].items()} }")
+        # (b) the stereo ablation through its entry point
+        t0 = time.perf_counter()
+        reset_launches()
+        srec = stereo_refinement_ablation.main([
+            "--pretrain-epochs", str(STEREO_EXPERIMENT_EPOCHS), "--finetune-epochs",
+            str(STEREO_EXPERIMENT_EPOCHS), "--out", os.path.join(root, "stereo.json")])
+        got = read_launches()
+        sargs = stereo_refinement_ablation.parse_args([])
+        s_steps = STEREO_EXPERIMENT_EPOCHS * (sargs.train_size // 4)
+        s_vals = STEREO_EXPERIMENT_EPOCHS * 4  # 16 val pairs at b4
+        _expected_launches("(b) stereo ablation", got, cspn3d_fwd=s_steps + s_vals,
+                           cspn3d_bwd=s_steps)
+        total = {k: total[k] + got[k] for k in KERNEL_NAMES}
+        for arm in ("no_cspn", "cspn"):
+            _finite_metrics(f"(b) {arm}", srec[arm])
+        log(f"  (b) stereo ablation: {sargs.height}x{sargs.width}, max_disp {sargs.max_disp}, "
+            f"features {sargs.features}, {sargs.prop_step} steps, {sargs.train_size} frames, seed "
+            f"0, {STEREO_EXPERIMENT_EPOCHS} + {STEREO_EXPERIMENT_EPOCHS} epochs: no_cspn "
+            f"{srec['no_cspn']}, cspn {srec['cspn']}, paired {srec['paired_improvement']}; "
+            f"launches { {k: v for k, v in got.items() if v} } ({time.perf_counter() - t0:.1f} s)")
+        # (c) a synthetic_smoke checkpoint by the train subcommand, then the precision deltas
+        t0 = time.perf_counter()
+        smoke = os.path.join(root, "smoke")
+        reset_launches()
+        cli.main(["train", "--preset", "synthetic_smoke", "--save-dir", smoke, "--best-model-dir",
+                  smoke])
+        got_train = read_launches()
+        _expected_launches("(c) train --preset synthetic_smoke", got_train, cspn2d_fwd=16,
+                           cspn2d_bwd=16, cspn2d_tiled=4, d2s=20 * 9, s2d=16 * 9)
+        t1 = time.perf_counter()
+        reset_launches()
+        prec = precision_deltas.main(["--best-model-dir", smoke, "--out",
+                                      os.path.join(root, "precision.json")])
+        got = read_launches()
+        variants = len(precision_deltas.IO_VARIANTS) + len(precision_deltas.DTYPE_VARIANTS)
+        forwards = 4 * 5 * variants  # 8 val frames at b2, 5 runs
+        if got["cspn2d_tiled"] < forwards or got["d2s"] < forwards or any(
+                got[k] for k in KERNEL_NAMES if k not in ("cspn2d_tiled", "d2s")):
+            raise AssertionError(f"(c) precision deltas: launches {got}, expected at least "
+                                 f"{forwards} cspn2d_tiled and d2s and nothing else")
+        for variant, rs in prec["per_run"].items():
+            for i, r in enumerate(rs):
+                _finite_metrics(f"(c) {variant} run {i}", r)
+        total = {k: total[k] + got_train[k] + got[k] for k in KERNEL_NAMES}
+        log(f"  (c) `train --preset synthetic_smoke` in {t1 - t0:.1f} s (launches "
+            f"{ {k: v for k, v in got_train.items() if v} }), then the precision deltas' 5-run "
+            f"evals of {len(prec['per_run'])} variants in {time.perf_counter() - t1:.1f} s "
+            f"(launches { {k: v for k, v in got.items() if v} }): RMSE "
+            f"{ {v: precision_deltas.run_means(rs)['RMSE'] for v, rs in prec['per_run'].items()} }"
+            f"; bf16_io - f32_io RMSE "
+            f"{prec['bf16_io']['paired_deltas_bf16io_vs_f32io']['RMSE']}, int8 - bf16 RMSE "
+            f"{prec['rmse_delta']}")
+        # not gated: the cspn arm's first epoch once more through the plain CSPN
+        t0 = time.perf_counter()
+        ref = comp.run_arm(args, "cspn", 0, data=data, device="cuda", backend="reference",
+                           epochs=1, save_root=root)
+        k0, r0 = runs["cspn"].history[0], ref.history[0]
+        log(f"  not gated: (a)'s cspn arm, epoch 0 from the same init and batches, kernels / "
+            f"plain CSPN: train loss {k0['train_loss']:.6f} / {r0['train_loss']:.6f}, val RMSE "
+            f"{k0['val']['RMSE']:.6f} / {r0['val']['RMSE']:.6f} ({time.perf_counter() - t0:.1f} s)")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
@@ -4593,7 +4740,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/16] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/17] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -4602,10 +4749,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build()
     host = _build.build_seconds.get("host_pipeline")
-    log(f"[2/16] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
+    log(f"[2/17] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
         f"{'already built' if host is None else f'{host:.1f} s'}) in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/16] kernels against their plain versions")
+    log("[3/17] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -4618,39 +4765,39 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/16] nyu_eval served through DepthServer")
+    log("[4/17] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/16] nyu_train trained through Trainer.fit, and a --debug-nans step")
+    log("[5/17] nyu_train trained through Trainer.fit, and a --debug-nans step")
     by_path["train"] = train_slice(name, kernel_ms)
     by_path["debug_nans"] = debug_nans_slice(name)
 
-    log("[6/16] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/17] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/16] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/17] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/16] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/17] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/16] kitti_benchmark trained through Trainer.fit")
+    log("[9/17] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/16] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/17] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/16] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/17] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/16] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/17] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
 
-    log("[13/16] precision: bf16 and int8 serving through load_server, bf16 training")
+    log("[13/17] precision: bf16 and int8 serving through load_server, bf16 training")
     from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
 
     serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
@@ -4660,16 +4807,20 @@ def main(argv=None) -> int:
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
     by_path["precision_train"] = precision_train(name)
 
-    log("[14/16] deployment: reference-checkpoint import, export to torch.export artifacts, "
+    log("[14/17] deployment: reference-checkpoint import, export to torch.export artifacts, "
         "image dumps")
     by_path["deploy"] = deployment_slice(name)
 
-    log("[15/16] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
+    log("[15/17] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
         "nyu_mono fed from PNG files")
     by_path.update(files_slice(name))
 
-    log("[16/16] the bench subcommand: nyu_eval frames/s through captured CUDA graphs")
+    log("[16/17] the bench subcommand: nyu_eval frames/s through captured CUDA graphs")
     bench_slice(name)
+
+    log("[17/17] the accuracy experiments: the completion and stereo ablations and the "
+        "precision deltas at reduced depth")
+    by_path["experiments"] = experiments_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}
