@@ -129,7 +129,15 @@ paths on the card and fails (non-zero exit) if any phase fails:
      5-run evals of six variants on a synthetic_smoke checkpoint that the
      `train` subcommand trains; every metric finite, exact launches; the
      `cspn` arm's first epoch once more through the plain CSPN, printed
-     beside the kernels', not gated.
+     beside the kernels', not gated;
+ 18. the timing drivers (cspn_tpu_torch/timing/) through their entry
+     points at their own shapes, cut only in repeats (timing_slice): the
+     serving latency of every path and batch, the nyu_train and stereo
+     train steps, the stereo forward with and without the 3D CSPN, the
+     CSPN roofline's 2D and 3D probes, the loader's sweep and its stage
+     profile; each artifact holds the JAX script's keys, every time is
+     finite and positive, no roofline fraction exceeds
+     ROOFLINE_FRACTION_MAX, and the launches of each driver are exact.
 Phases 4 and 8 also time DepthServer over SERVE_WINDOW requests.
 
 Phase 3 also holds the 3D CSPN forward and backward kernels against their
@@ -204,14 +212,6 @@ import time
 import numpy as np
 import torch
 
-# (name substring, memory bytes/s, f32 non-tensor-core FLOP/s): NVIDIA's data
-# sheets, dense rates at the full power limit; first match wins
-_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
-)
 KERNEL_TOL = 1e-4  # x max|plain|: FMA contraction and summation order differ
 # A train step's gradients against the float64 oracle (the same step through
 # the plain CSPN in float64): each tensor within GRAD_TOL x its max, or within
@@ -331,19 +331,16 @@ def d2s_per_forward(model) -> int:
     return calls + int(fused and model.subpixel)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def peaks(name: str) -> tuple[float, float]:
-    for key, bw, flops in _PEAKS:
-        if key in name:
-            return bw, flops
-    raise RuntimeError(f"no published peak rates for {name!r}")
+@functools.cache
+def card_module():
+    """This checkout's cspn_tpu_torch/utils/card.py (the card's name and power
+    limit, the published peak rates), loaded by its path: --routes-of and
+    --steps-of import another checkout's cspn_tpu_torch, which may predate it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_card", os.path.join(ROOT, "cspn_tpu_torch", "utils", "card.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def time_ms(fn, reps: int = 21, warmup: int = 3) -> float:
@@ -399,7 +396,7 @@ def cspn_inputs(gen, n, h, w, with_sparse, n_sample=500, negative=0.0):
 
 def bound(name: str, bytes_moved: float, ops: float) -> tuple[float, str, float, float]:
     """(bound ms, 'bytes' or 'operations', bytes ms, operations ms)."""
-    bw, flops = peaks(name)
+    bw, flops = card_module().peaks(name)
     bytes_ms, ops_ms = bytes_moved / bw * 1e3, ops / flops * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms
 
@@ -1718,7 +1715,7 @@ def routes_of(checkout: str, d2s_only: bool = False) -> int:
         raise RuntimeError(f"cspn_tpu_torch came from {cspn_tpu_torch.__file__}, not {root}")
     from cspn_tpu_torch.ops import _build
 
-    name, card = torch.cuda.get_device_name(0), card_line()
+    name, card = torch.cuda.get_device_name(0), card_module().card_line(0)
     result = {"card": card, "package": cspn_tpu_torch.__file__, "steps": STEPS}
     if not d2s_only:
         result["fwd_routes"] = time_fwd_routes(name, count_launches=False)
@@ -1816,7 +1813,7 @@ def steps_of(checkout: str) -> int:
     from cspn_tpu_torch.train.state import make_optimizer
     from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
 
-    name, card = torch.cuda.get_device_name(0), card_line()
+    name, card = torch.cuda.get_device_name(0), card_module().card_line(0)
     set_conv_policy("cuda")
     result = {"card": card, "package": cspn_tpu_torch.__file__, "steps_ms": {},
               "step_peak_gib": {}, "eval_forward_ms": {}, "served_frames_per_s": {}}
@@ -4714,6 +4711,185 @@ def experiments_slice(name: str) -> dict:
     return total
 
 
+# phase 18 (the timing drivers, cspn_tpu_torch/timing/): every driver at its
+# own shapes, cut only in repeats: the latency chains' forwards and trials,
+# the train steps' chains and trials, the stereo forward's and the
+# roofline's two chain lengths (reps) and trials, the loaders' frames
+TIMING_LATENCY_REPEATS = 4
+TIMING_TRIALS = 1
+TIMING_TRAIN_CHAIN = 2
+TIMING_STEREO_REPS = (1, 2)
+TIMING_ROOFLINE_REPS = (2, 4)
+TIMING_ROOFLINE_PROBES = 5  # the 2D probes at 16x228x304 and 2x704x1216, both dtypes, and 3D
+TIMING_LOADER_FRAMES = 16
+# a roofline fraction above 1 is a time below the card's bound: a fault of
+# the timing or of the arithmetic, not a fast kernel (5% for the events'
+# resolution at these chain lengths)
+ROOFLINE_FRACTION_MAX = 1.05
+
+
+def _positive(label: str, **times) -> None:
+    bad = {k: v for k, v in times.items() if not (isinstance(v, (int, float))
+                                                  and np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{label}: times not finite and positive: {bad}")
+
+
+def _slope_calls(timing: str, lo: int, hi: int, trials: int) -> int:
+    """The calls timing/__init__.py:slope_seconds makes, by how it timed."""
+    if timing == "graph":
+        return (2 + trials) * (lo + hi)
+    return lo + (1 + trials) * (lo + hi)
+
+
+def timing_slice(name: str) -> dict:
+    """Phase 18: the seven timing drivers through their entry points
+    (python -m cspn_tpu_torch.timing.<name>'s main) at their own shapes,
+    cut in repeats (the constants above); each artifact against the JAX
+    script's keys (the module's JAX_KEYS, held to the JAX artifacts by
+    tests/test_torch_timing.py), every time finite and positive, every
+    roofline fraction at most ROOFLINE_FRACTION_MAX, and each driver's
+    kernel launches exact.  Returns the kernels' launches of the phase."""
+    from cspn_tpu_torch.models.unet import LAYERS, CSPNUNet
+    from cspn_tpu_torch.timing import (kernel_roofline, latency_bench, loader_bench,
+                                       loader_profile, missing_keys, stereo_bench,
+                                       stereo_train_bench, train_bench)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    with torch.device("meta"):
+        per_fwd = d2s_per_forward(CSPNUNet(*LAYERS[50], STEPS))
+
+    def keys(label: str, rec, schema) -> None:
+        missing = missing_keys(rec, schema)
+        if missing:
+            raise AssertionError(f"{label}: the artifact lacks the JAX script's keys {missing}")
+
+    def run(label: str, fn, want):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        _expected_launches(label, got, **want(result))
+        for k in KERNEL_NAMES:
+            total[k] += got[k]
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        return result
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as root:
+        def out(stem: str) -> list[str]:
+            return ["--out", os.path.join(root, stem)]
+
+        # serving latency: every path and batch; a row's forwards are its
+        # capture's warmup chain, one warm replay and the trials' replays,
+        # and int8_static calibrates on one b8 forward
+        forwards = (len(latency_bench.PATHS) * len(latency_bench.BATCHES)
+                    * (2 + TIMING_TRIALS) * TIMING_LATENCY_REPEATS + 1)
+        lat = run("latency_bench", lambda: latency_bench.main(
+            ["--repeats", str(TIMING_LATENCY_REPEATS), "--trials", str(TIMING_TRIALS)]
+            + out("latency_bench.json")),
+            lambda _: dict(cspn2d_tiled=forwards, d2s=forwards * per_fwd))
+        keys("latency_bench", lat, latency_bench.JAX_KEYS)
+        _positive("latency_bench", qcache_build_ms=lat["qcache_build_ms"],
+                  **{f"{r['path']} b{r['batch']}": r["latency_ms"] for r in lat["results"]})
+        log("    latency ms " + ", ".join(f"{r['path']} b{r['batch']} {r['latency_ms']}"
+                                          for r in lat["results"])
+            + f"; qcache_build_ms {lat['qcache_build_ms']}; hybrid policy "
+            + str([(r["batch"], r["path"], r["policy_matches_measured_best"])
+                   for r in lat["hybrid_policy"]["results"]]))
+
+        # the nyu_train step: a first step, a warm chain, the trials' chains
+        steps = 1 + (1 + TIMING_TRIALS) * TIMING_TRAIN_CHAIN
+        tb = run("train_bench", lambda: train_bench.main(
+            ["--chain", str(TIMING_TRAIN_CHAIN), "--trials", str(TIMING_TRIALS)]
+            + out("train_bench.json")),
+            lambda _: dict(cspn2d_fwd=steps, cspn2d_bwd=steps, d2s=steps * per_fwd,
+                           s2d=steps * per_fwd))
+        keys("train_bench", tb, train_bench.JAX_KEYS)
+        _positive("train_bench", step_ms=tb["step_ms"], value=tb["value"])
+        log(f"    nyu_train b{tb['batch']} {tb['dtype']}: {tb['step_ms']} ms a step, "
+            f"{tb['value']} frames/s")
+
+        # the stereo forward with and without the 3D CSPN, both dtypes
+        lo, hi = TIMING_STEREO_REPS
+        sb = run("stereo_bench", lambda: stereo_bench.main(
+            out("stereo_bench.jsonl"), reps=TIMING_STEREO_REPS, trials=TIMING_TRIALS),
+            lambda rows: dict(cspn3d_fwd=sum(_slope_calls(r["timing"], lo, hi, TIMING_TRIALS)
+                                             for r in rows if r["cspn_steps"])))
+        for r in sb:
+            keys(f"stereo_bench {r['model']} {r['dtype']}", r, stereo_bench.JAX_KEYS)
+            _positive(f"stereo_bench {r['model']} {r['dtype']}", ms_per_batch=r["ms_per_batch"])
+        log("    stereo b4 forward ms " + ", ".join(
+            f"{r['model']} {r['dtype']} {r['ms_per_batch']} ({r['timing']})" for r in sb))
+
+        # the stereo train step: two warm chains and the trials' chains
+        steps = (2 + TIMING_TRIALS) * TIMING_TRAIN_CHAIN * len(stereo_bench.DTYPES)
+        stb = run("stereo_train_bench", lambda: stereo_train_bench.main(
+            out("stereo_train_bench.jsonl"), chain=TIMING_TRAIN_CHAIN, trials=TIMING_TRIALS),
+            lambda _: dict(cspn3d_fwd=steps, cspn3d_bwd=steps))
+        for r in stb:
+            keys(f"stereo_train_bench {r['dtype']}", r, stereo_train_bench.JAX_KEYS)
+            _positive(f"stereo_train_bench {r['dtype']}", ms_per_step=r["ms_per_step"])
+        log("    stereo b4 train step ms " + ", ".join(f"{r['dtype']} {r['ms_per_step']}"
+                                                     for r in stb))
+
+        # the roofline's 2D and 3D probes
+        lo, hi = TIMING_ROOFLINE_REPS
+        probes = kernel_roofline.PROBES[:TIMING_ROOFLINE_PROBES]
+
+        rr = run("kernel_roofline", lambda: kernel_roofline.run(
+            probes, out=os.path.join(root, "kernel_roofline.jsonl"), reps=TIMING_ROOFLINE_REPS,
+            trials=TIMING_TRIALS),
+            lambda rows: {k: sum(_slope_calls(r["timing"], lo, hi, TIMING_TRIALS)
+                                 for r in rows if r["kernel"].startswith(k))
+                          for k in ("cspn2d_tiled", "cspn3d_fwd")})
+        for r in rr:
+            label = f"kernel_roofline {r['kernel']} {r['shape']}"
+            keys(label, r, kernel_roofline.JAX_KEYS)
+            _positive(label, us=r["us"], hbm_sol_fraction=r["hbm_sol_fraction"],
+                      read_sol_fraction=r["read_sol_fraction"])
+            if r["kernel"].startswith("cspn2d") and r["timing"] != "graph":
+                raise AssertionError(f"{label}: timed {r['timing']}, one CUDA graph expected")
+            worst = max(r["hbm_sol_fraction"], r["read_sol_fraction"])
+            if worst > ROOFLINE_FRACTION_MAX:
+                raise AssertionError(f"{label}: a roofline fraction {worst} > "
+                                     f"{ROOFLINE_FRACTION_MAX}")
+        log("    roofline " + "; ".join(
+            f"{r['kernel']} {r['shape']} {r['us']} us, fractions {r['hbm_sol_fraction']} "
+            f"(work) / {r['read_sol_fraction']} (read) ({r['timing']})" for r in rr))
+
+        # the loader's sweep against the demand of this phase's train step, and its profile
+        lb = run("loader_bench", lambda: loader_bench.main(
+            ["--frames", str(TIMING_LOADER_FRAMES), "--device-train-fps", str(tb["value"])]
+            + out("loader_bench.json")), lambda _: {})
+        keys("loader_bench", lb, loader_bench.JAX_KEYS)
+        _positive("loader_bench", **{f"{r['mode']} {r['format']} {r['split']} native "
+                                     f"{r['native']} x{r['workers']}": r["frames_per_s"]
+                                     for r in lb["results"]})
+        cfg = ("mode", "format", "split", "native", "workers")
+        log(f"    loader frames/s {[(*(r[k] for k in cfg), r['frames_per_s']) for r in lb['results']]}"
+            f"; skipped {[tuple(r[k] for k in cfg) for r in lb['skipped']]}; train / val "
+            f"frames/s a worker {lb['train_fps_per_worker']} / {lb['val_fps_per_worker']}")
+        lp = run("loader_profile", lambda: loader_profile.main(
+            ["--frames", str(TIMING_LOADER_FRAMES)] + out("loader_profile.json")),
+            lambda _: {})
+        stages = lp["stages_ms_per_frame"]
+        fmt = next(k for k in stages if k.startswith("decode_"))[len("decode_"):-len("_ms")]
+        keys("loader_profile", lp, loader_profile.jax_keys(fmt))
+        _positive("loader_profile", **{k: stages[k] for k in (f"decode_{fmt}_ms",
+                                                              "aug_pack_only_ms",
+                                                              "aug_full_chain_ms", "e2e_ms")})
+        bad = {k: v for k, v in stages.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"loader_profile: stages not finite: {bad}")
+        log(f"    loader profile ms a frame {stages}; dominant {lp['dominant']}")
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="chip_smoke.py", description="the port's check on one card")
     p.add_argument("--routes-of", metavar="CHECKOUT",
@@ -4738,9 +4914,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = card_module().card_line(0)
     set_conv_policy("cuda")  # the entry points' default policy, before the first convolution
-    log(f"[1/17] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+    log(f"[1/18] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}; L2 "
@@ -4749,10 +4925,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build()
     host = _build.build_seconds.get("host_pipeline")
-    log(f"[2/17] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
+    log(f"[2/18] built {sorted(_build.KERNELS)} (nvcc) and {sorted(_build.HOST_LIBRARIES)} (g++, "
         f"{'already built' if host is None else f'{host:.1f} s'}) in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/17] kernels against their plain versions")
+    log("[3/18] kernels against their plain versions")
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
@@ -4765,39 +4941,39 @@ def main(argv=None) -> int:
     kernel_ms["cspn2d_train_nyu"], kernel_ms["cspn2d_train_kitti"] = (train_ms[MAIN_SHAPE],
                                                                       train_ms[KITTI_SHAPE])
 
-    log("[4/17] nyu_eval served through DepthServer")
+    log("[4/18] nyu_eval served through DepthServer")
     by_path = {"serve": serve_slice(name)}
 
-    log("[5/17] nyu_train trained through Trainer.fit, and a --debug-nans step")
+    log("[5/18] nyu_train trained through Trainer.fit, and a --debug-nans step")
     by_path["train"] = train_slice(name, kernel_ms)
     by_path["debug_nans"] = debug_nans_slice(name)
 
-    log("[6/17] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
+    log("[6/18] stereo (PSMNet + 3D CSPN) evaluated through StereoTrainer.run_eval")
     by_path["stereo_eval"] = stereo_eval_slice(name)
 
-    log("[7/17] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
+    log("[7/18] stereo (PSMNet + 3D CSPN) trained through StereoTrainer.fit")
     by_path["stereo_train"] = stereo_train_slice(name, kernel_ms)
 
-    log("[8/17] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
+    log("[8/18] kitti_benchmark (ResNet-18, 352x1216) served through DepthServer")
     by_path["kitti_serve"] = kitti_serve_slice(name)
 
-    log("[9/17] kitti_benchmark trained through Trainer.fit")
+    log("[9/18] kitti_benchmark trained through Trainer.fit")
     by_path["kitti_train"] = kitti_train_slice(name, kernel_ms)
 
-    log("[10/17] the demo subcommand (dims 2 and 3) and the step-body probe")
+    log("[10/18] the demo subcommand (dims 2 and 3) and the step-body probe")
     by_path["demo2d"] = demo_slice(name, 2)
     by_path["demo3d"] = demo_slice(name, 3)
     by_path["probe"] = probe_slice(name)
 
-    log("[11/17] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
+    log("[11/18] the spatially sharded CSPN (in-process meshes) on kitti_benchmark and stereo")
     check_sharded_op(name)
     by_path["kitti_sharded"] = sharded_kitti_slice(name)
     by_path["stereo_sharded"] = sharded_stereo_slice(name)
 
-    log("[12/17] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
+    log("[12/18] data-parallel nyu_train through DDP (1-rank NCCL group), and bench-scaling")
     by_path["ddp"] = ddp_slice(name)
 
-    log("[13/17] precision: bf16 and int8 serving through load_server, bf16 training")
+    log("[13/18] precision: bf16 and int8 serving through load_server, bf16 training")
     from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
 
     serve = [precision_serve(name, "nyu_eval", nyu_eval_synthetic(), PRECISION_BUCKETS,
@@ -4807,20 +4983,24 @@ def main(argv=None) -> int:
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
     by_path["precision_train"] = precision_train(name)
 
-    log("[14/17] deployment: reference-checkpoint import, export to torch.export artifacts, "
+    log("[14/18] deployment: reference-checkpoint import, export to torch.export artifacts, "
         "image dumps")
     by_path["deploy"] = deployment_slice(name)
 
-    log("[15/17] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
+    log("[15/18] the NYU and KITTI file datasets: nyu_train, nyu_eval, kitti_benchmark and "
         "nyu_mono fed from PNG files")
     by_path.update(files_slice(name))
 
-    log("[16/17] the bench subcommand: nyu_eval frames/s through captured CUDA graphs")
+    log("[16/18] the bench subcommand: nyu_eval frames/s through captured CUDA graphs")
     bench_slice(name)
 
-    log("[17/17] the accuracy experiments: the completion and stereo ablations and the "
+    log("[17/18] the accuracy experiments: the completion and stereo ablations and the "
         "precision deltas at reduced depth")
     by_path["experiments"] = experiments_slice(name)
+
+    log("[18/18] the timing drivers: serving latency, nyu and stereo step throughput, the "
+        "CSPN roofline, the loader's throughput and stage profile")
+    by_path["timing"] = timing_slice(name)
 
     for r in rows:  # launches on the main paths' runs
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in by_path.items()}

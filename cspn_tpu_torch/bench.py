@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -43,6 +42,7 @@ import numpy as np
 import torch
 
 from cspn_tpu_torch import resolve_device, set_conv_policy
+from cspn_tpu_torch.utils.card import card_line
 
 PATHS = ("kernel", "int8", "reference")
 STEPS = 24  # the CSPN's steps (nyu_eval's)
@@ -52,10 +52,11 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
-def build_path_model(path: str, arch: str, device, calib: torch.Tensor):
+def build_path_model(path: str, arch: str, device, calib: torch.Tensor | None = None):
     """The path's eval-mode model with the weights of the seed-0 float32
     model (init_weights' he_normal convs, the init's BN statistics); the
-    int8 path's static activation scales calibrated on `calib`."""
+    int8 path's weight cache built, and its static activation scales
+    calibrated on `calib` (None: dynamic scales, quantized at every call)."""
     from cspn_tpu_torch.models.resnet import init_weights
     from cspn_tpu_torch.models.unet import LAYERS, CSPNUNet
     from cspn_tpu_torch.utils.precision import cast_floating
@@ -74,7 +75,8 @@ def build_path_model(path: str, arch: str, device, calib: torch.Tensor):
     model.eval()
     if path == "int8":
         build_weight_qcache(model)
-        build_act_calibration(model, [calib])
+        if calib is not None:
+            build_act_calibration(model, [calib])
     return model
 
 
@@ -92,45 +94,50 @@ def chained(model, x: torch.Tensor, repeats: int):
     return run
 
 
+def graphed(run, device: torch.device):
+    """`run` as one call: on the card one captured CUDA graph of it (after
+    one eager call), whose every replay adds the kernels' launches it makes
+    (serving.py:capture_graph); on the CPU `run` itself."""
+    from cspn_tpu_torch.serving import add_counters, capture_graph
+
+    if device.type != "cuda":
+        return run
+    graph, _, per_replay = capture_graph(run, device, warmup=1)
+
+    def replay():
+        graph.replay()
+        add_counters(per_replay)
+
+    return replay
+
+
+def time_call(call, device: torch.device) -> float:
+    """Seconds of one `call()`: CUDA events around it on the card, the
+    host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        call()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def timed_chain(run, x: torch.Tensor, rng, repeats: int, trials: int) -> float:
     """Seconds a forward: the median of `trials` timed chains over
     `repeats` (bench.py:_timed_repeat), the input nudged before each; on
     the card one captured CUDA graph, replayed between CUDA events."""
-    from cspn_tpu_torch.serving import capture_graph
-
     x.add_(float(rng.uniform(1e-7, 1e-6)))
-    cuda = x.device.type == "cuda"
-    if cuda:
-        graph, _, _ = capture_graph(run, x.device, warmup=1)
-        call = graph.replay
-    else:
-        call = run
+    call = graphed(run, x.device)
     call()  # warm
     times = []
     for _ in range(trials):
         x.add_(float(rng.uniform(1e-7, 1e-6)))
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            call()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            call()
-            times.append(time.perf_counter() - t0)
+        times.append(time_call(call, x.device))
     return statistics.median(times) / repeats
-
-
-def card_line(device) -> str:
-    """nvidia-smi's name and power limit of the card (the CPU: its name)."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[device.index or 0]
 
 
 def run_bench(batch: int = 128, hw: tuple[int, int] = (228, 304), arch: str = "resnet50",

@@ -32,7 +32,7 @@ def platform_fields(device) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         return {"platform": "cpu", "card": None}
-    from cspn_tpu_torch.bench import card_line
+    from cspn_tpu_torch.utils.card import card_line
 
     name, _, power = card_line(dev).rpartition(", ")
     return {"platform": "gpu", "card": {"name": name, "power_limit": power}}

@@ -49,7 +49,7 @@ from cspn_tpu_torch.config import RunConfig
 # eager forwards on a side stream before a bucket's capture
 WARMUP_FORWARDS = 3
 
-# the kernel wrappers' launch counters that a served forward can move
+# the kernel wrappers' launch counters that a captured forward can move
 LAUNCH_COUNTERS = (
     ("cspn_tpu_torch.ops.cspn_cuda", "launches"),
     ("cspn_tpu_torch.ops.cspn_cuda", "tiled_launches"),
@@ -58,6 +58,8 @@ LAUNCH_COUNTERS = (
     ("cspn_tpu_torch.ops.d2s", "bwd_launches"),
     ("cspn_tpu_torch.ops.cspn_halo_cuda", "launches"),
     ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"),
+    ("cspn_tpu_torch.ops.cspn3d_cuda", "launches"),
+    ("cspn_tpu_torch.ops.cspn3d_cuda", "bwd_launches"),
 )
 
 
@@ -76,7 +78,8 @@ def capture_graph(fn, device, pool=None, warmup: int = WARMUP_FORWARDS):
     """One call of `fn()` captured as a CUDA graph on `device`, after
     `warmup` eager calls on a side stream; returns (graph, fn's output as
     captured, the launch counts one replay makes).  The counts the capture
-    added are taken back: a capture launches nothing."""
+    added are taken back, also where the capture raises: a capture launches
+    nothing."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -85,10 +88,12 @@ def capture_graph(fn, device, pool=None, warmup: int = WARMUP_FORWARDS):
     torch.cuda.current_stream(device).wait_stream(side)
     before = read_counters()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        out = fn()
-    per_replay = {k: v - before[k] for k, v in read_counters().items()}
-    add_counters(per_replay, -1)
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        per_replay = {k: v - before[k] for k, v in read_counters().items()}
+        add_counters(per_replay, -1)
     return graph, out, per_replay
 
 
