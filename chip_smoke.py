@@ -88,10 +88,14 @@ paths on the card and fails (non-zero exit) if any phase fails:
      models on the plain 2D CSPN and depth-to-space), each bucket's
      depth-to-space calls bit for bit against the plain versions, frames/s
      and both paths' forwards per bucket, rel-norms against float32, and
-     each path's graphed buckets against the eager server as in phase 4; and
-     the bf16 nyu_train b8 and stereo b4 steps against their plain twins
-     and the float64 oracle, timed beside float32 (precision_serve,
-     precision_train);
+     each path's graphed buckets against the eager server as in phase 4;
+     the bf16 nyu_eval model at `cspn_io_dtype` bfloat16 served through
+     load_server's graphs at buckets 1 and 8 (its bf16 heads reach the 2D
+     CSPN as they are, the kernel rounds the float32 sparse map): exact
+     launches, a plain twin, graphed = eager bit for bit
+     (precision_serve_bf16io); and the bf16 nyu_train b8 and stereo b4
+     steps against their plain twins and the float64 oracle, timed beside
+     float32 (precision_serve, precision_train);
  14. deployment: a reference-format checkpoint of the calibrated nyu_eval
      model (`module.` prefixes, the keys the reference builds but never
      calls) imported and exported with a symbolic batch at float32 (the
@@ -168,7 +172,13 @@ sparse, at NYU b8, an odd shape, KITTI b4 and a ragged shape, and at their
 edges (1-row and 1-column maps, sides no multiple of the tile, 1, 7, 9 and
 24 steps): the two forwards equal value for value, every kept state
 within tolerance of the plain forward's, the backward on the kept states
-equal to its replay and to a second run bit for bit; it counts their CUDA
+equal to its replay and to a second run bit for bit; the tiled forward's
+bf16-I/O routes (bf16 inputs, float32 ones rounded in registers, bf16 heads
+beside a float32 sparse map) at every case equal to the float32 kernel on
+`_round_io`'s inputs bit for bit, its rounding equal to
+Tensor.to(torch.bfloat16), the route through cspn2d_cuda launching the
+kernel's CUDA launches and no cast or copy, and the routes timed beside
+the float32 kernel and `_round_io` + the kernel (time_bf16_io); it counts their CUDA
 launches a call with torch.profiler and holds them to
 ops/cspn_cuda.py:cuda_launches_per_call; it times both 2D CSPN forwards,
 the backward on both routes and both ways to run a train step's 2D CSPN
@@ -518,10 +528,89 @@ TILED_SERVED_CASES = tuple(
     for label, shape in (("nyu bucket 1", (1, 228, 304)), ("nyu bucket 32", (32, 228, 304)),
                          ("kitti bucket 1", (1, 352, 1216)))
     for norm in ("8sum", "8sum_abs"))
+# the tiled forward's bf16-I/O routes (csrc/cspn2d_tiled.cu:cspn2d_tiled_io)
+# timed beside the float32 one and the parent's rounding route: NYU b8 and
+# the roofline's 16x228x304
+BF16_IO_TIMED_SHAPES = (MAIN_SHAPE, (16, 228, 304))
+# float32 values the kernel rounds to bf16 in registers, held to
+# Tensor.to(torch.bfloat16) bit for bit: ties to even, the largest finite
+# floats (to inf), bf16's largest, infinities, subnormals
+BF16_ROUNDING_VALUES = (0.0, -0.0, 1.0, 1 + 2**-8, 1 + 3 * 2**-8, 1 + 2**-8 + 2**-23, 255.5, 256.5,
+                        3.4028235e38, -3.4028235e38, 3.3895314e38, 3.3961776e38, float("inf"),
+                        float("-inf"), 1.1754944e-38, 1e-40, -1e-40, 1.4e-45, 65504.0)
 # the tile kernels' edges: 1-row and 1-column maps, sides no multiple of the
 # tile (ops/cspn_cuda.py:TILE), every launch split of `steps`
 CSPN2D_EDGE_SHAPES = ((2, 1, 300), (2, 300, 1), (3, 97, 145))
 CSPN2D_EDGE_STEPS = (1, 7, 9, 24)
+
+
+def bf16_io_routes(g, b, s, norm, steps=STEPS) -> dict:
+    """The tiled kernel's bf16-I/O routes on float32 inputs g, b, s, each a
+    call: bf16 inputs read as they are (`bf16_inputs`), float32 inputs
+    rounded in registers (`f32_rounded`), and the served bf16 model's bf16
+    heads beside its float32 sparse map, rounded (`bf16_heads`)."""
+    from cspn_tpu_torch.ops import cspn_cuda
+
+    bf = torch.bfloat16
+    g16, b16, s16 = g.to(bf), b.to(bf), None if s is None else s.to(bf)
+    return {"bf16_inputs": lambda: cspn_cuda._launch_tiled(g16, b16, s16, steps, norm),
+            "f32_rounded": lambda: cspn_cuda._launch_tiled(g, b, s, steps, norm, bf),
+            "bf16_heads": lambda: cspn_cuda._launch_tiled(g16, b16, s, steps, norm, bf)}
+
+
+def check_bf16_rounding(gen) -> int:
+    """The kernel's in-register rounding (steps 0: the output is blur as
+    the kernel reads it) against Tensor.to(torch.bfloat16), bit for bit, on
+    BF16_ROUNDING_VALUES and on random bit patterns (NaN left out).
+    Returns the values checked."""
+    from cspn_tpu_torch.ops import cspn_cuda
+
+    bits = torch.randint(-2**31, 2**31 - 1, (1 << 16,), device="cuda", generator=gen,
+                         dtype=torch.int64).to(torch.int32).view(torch.float32)
+    vals = torch.cat([torch.tensor(BF16_ROUNDING_VALUES, device="cuda"), bits[~bits.isnan()]])
+    blur = vals[None, None]
+    out = cspn_cuda._launch_tiled(torch.zeros((1, 8, 1, vals.numel()), device="cuda"), blur, None,
+                                  0, "8sum", torch.bfloat16)
+    want = blur.to(torch.bfloat16).float()
+    if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+        bad = (out.view(torch.int32) != want.view(torch.int32)).nonzero()[:5, -1]
+        raise AssertionError(f"cspn2d_tiled_io rounds {vals[bad].tolist()} to {out[0, 0, bad].tolist()}"
+                             f", Tensor.to(torch.bfloat16) to {want[0, 0, bad].tolist()}")
+    return vals.numel()
+
+
+def time_bf16_io(name: str) -> list[dict]:
+    """At BF16_IO_TIMED_SHAPES (24 steps, 8sum, 500 samples), by CUDA events
+    around one call and queued: the float32 kernel (`float32`), the bf16-I/O
+    routes (bf16_io_routes) and the parent's bf16-I/O route, `_round_io`'s
+    PyTorch casts then the float32 kernel (`round_io_f32`)."""
+    from cspn_tpu_torch.ops import cspn_cuda
+    from cspn_tpu_torch.ops.cspn import _round_io
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for n, h, w in BF16_IO_TIMED_SHAPES:
+        g, b, s = cspn_inputs(gen, n, h, w, True)
+        calls = {"float32": lambda: cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum"),
+                 **bf16_io_routes(g, b, s, "8sum"),
+                 "round_io_f32": lambda: cspn_cuda._launch_tiled(
+                     *_round_io(g, b, s, torch.bfloat16), STEPS, "8sum")}
+        # the bounds: float32 reads 44 bytes a pixel, bf16 inputs 24, the
+        # bf16 heads beside float32 sparse 26 (and the float32 output)
+        row = {"shape": [n, h, w], **{
+            f"bound_{what}_ms": bound(name, px_bytes * n * h * w, 17 * STEPS * n * h * w)[0]
+            for what, px_bytes in (("float32", 44), ("bf16_inputs", 24), ("bf16_heads", 26))}}
+        for what, fn in calls.items():
+            row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
+        log(f"  cspn2d_tiled bf16 I/O at [{n},8,{h},{w}] steps={STEPS}, ms by events (queued): "
+            + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
+                        for what in calls) + "; bound float32 / bf16 inputs / bf16 heads "
+            + " / ".join(f"{row[f'bound_{w_}_ms']:.4f}" for w_ in ("float32", "bf16_inputs",
+                                                                   "bf16_heads"))
+            + f" ms on {name}")
+        rows.append(row)
+        del g, b, s, calls
+    return rows
 
 
 def cspn2d_bwd_routes(g, b, s, ct, norm, steps=STEPS):
@@ -1322,7 +1411,12 @@ def profile_phase_stage(name: str, reps: int = 3) -> dict:
 
 def check_tiled_kernel(name: str) -> dict:
     """Phase 3: the tiled 2D CSPN forward against its plain version and
-    cspn2d_fwd's values at every CSPN2D_CASES and TILED_SERVED_CASES case;
+    cspn2d_fwd's values at every CSPN2D_CASES and TILED_SERVED_CASES case,
+    and there its bf16-I/O routes (bf16_io_routes) against the float32
+    kernel on the rounded inputs, bit for bit, and the plain version; the
+    in-register rounding against Tensor.to(torch.bfloat16); the bf16-I/O
+    route through cspn2d_cuda at NYU b8, its CUDA launches counted by
+    torch.profiler (the kernel's and no cast or copy); time_bf16_io;
     cspn2d_cuda's routing at kitti_benchmark's training batch (no backward:
     tiled; with one: cspn2d_fwd keeping its states, then cspn2d_bwd, against
     autograd of the plain version under a random cotangent); then timed
@@ -1330,6 +1424,7 @@ def check_tiled_kernel(name: str) -> dict:
     by torch.profiler, and cspn2d_bwd timed there on both routes (the KITTI
     train step's backward runs on the kept states)."""
     from cspn_tpu_torch.ops import cspn_cuda, cspn_ref
+    from cspn_tpu_torch.ops.cspn import _round_io
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     n, h, w = KITTI_SHAPE
@@ -1347,7 +1442,47 @@ def check_tiled_kernel(name: str) -> dict:
         if not torch.equal(got, kept):
             raise AssertionError(f"cspn2d_tiled {label}: values differ from cspn2d_fwd's "
                                  f"(max {(got - kept).abs().max().item():.3e})")
-    log(f"  cspn2d_tiled equals cspn2d_fwd value for value in all {len(cases)} cases")
+        # bf16 I/O: every route the float32 kernel's values on the rounded
+        # inputs, and those within KERNEL_TOL of the plain version's
+        rounded = _round_io(g, b, s, torch.bfloat16)
+        want16 = cspn_cuda._launch_tiled(*rounded, STEPS, norm)
+        for route, call in bf16_io_routes(g, b, s, norm).items():
+            got16 = call()
+            if not torch.equal(got16, want16):
+                raise AssertionError(f"cspn2d_tiled {label} {route}: values differ from the float32 "
+                                     f"kernel's on the rounded inputs (max "
+                                     f"{(got16 - want16).abs().max().item():.3e})")
+        plain16 = cspn_ref.cspn2d_reference(rounded[0].movedim(1, -1), *rounded[1:], steps=STEPS,
+                                            norm_type=norm)
+        max_err = max(max_err, _check_close(f"cspn2d_tiled bf16 I/O {label} [{cn},8,{ch},{cw}]",
+                                            want16, plain16, quiet=True))
+        del rounded, want16, got16, plain16
+    log(f"  cspn2d_tiled equals cspn2d_fwd value for value in all {len(cases)} cases; its bf16-I/O "
+        "routes (bf16_io_routes) equal the float32 kernel on the rounded inputs and "
+        "lie within KERNEL_TOL of the plain version on them in all of them")
+    rounding = check_bf16_rounding(gen)
+    log(f"  cspn2d_tiled_io rounds {rounding} float32 values to bf16 as Tensor.to(torch.bfloat16) "
+        "does, bit for bit")
+    # through the wrapper, no backward following, as the bf16 model serves:
+    # the kernel's CUDA launches and no cast or copy kernel
+    bf = torch.bfloat16
+    g, b, s = cspn_inputs(gen, *MAIN_SHAPE, True)
+    g16, b16 = g.to(bf), b.to(bf)
+    bf16_counted = {}
+    for what, args in (("bf16 heads, float32 sparse", (g16, b16, s)),
+                       ("float32 inputs", (g, b, s))):
+        def served(args=args):
+            with torch.no_grad():
+                return cspn_cuda.cspn2d_cuda(*args, steps=STEPS, channel_first=True, io_dtype=bf)
+
+        bf16_counted[what] = launches_per_call(
+            served, CSPN2D_KERNELS, cspn_cuda.cuda_launches_per_call(STEPS)["cspn2d_tiled"],
+            f"cspn2d_cuda at io_dtype bfloat16 on {what}, NYU b8")[0]
+    log(f"  cspn2d_cuda at io_dtype bfloat16, NYU b8: CUDA launches a call {bf16_counted}, no cast "
+        "or copy kernel (torch.profiler)")
+    del g, b, s, g16, b16
+    bf16_io = {"cuda_launches_per_call": bf16_counted, "rounding_values": rounding,
+               "timed": time_bf16_io(name)}
 
     # through the wrapper: a forward without a backward runs the tiled
     # kernel, one with a backward cspn2d_fwd and cspn2d_bwd
@@ -1420,6 +1555,7 @@ def check_tiled_kernel(name: str) -> dict:
         "cspn2d_bwd_bound_ms": bwd_bound_ms,
         "cspn2d_bwd_kept_bound_ms": bwd_kept_bound_ms,
         "cspn2d_bwd_cuda_launches_per_call": bwd_counted,
+        "bf16_io": bf16_io,  # the bf16-I/O routes: launches a call, rounding, times
     }
 
 
@@ -1433,7 +1569,11 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
     to run a train step's forward and backward, the tiled forward then the
     replaying backward (`train_tiled`) or the forward keeping its states
     then the backward on them (`train_kept`: ops/cspn_cuda.py:use_tiled is
-    set from these); with `count_launches`, each call's CUDA launches,
+    set from these); the bf16-I/O route through cspn2d_cuda with no
+    backward following, on float32 inputs (`bf16io`) and on the bf16 model's
+    bf16 heads beside its float32 sparse map (`bf16_heads`; a tree whose
+    kernel reads float32 only gets the heads upcast, as its model did);
+    with `count_launches`, each call's CUDA launches,
     counted by torch.profiler and held to
     ops/cspn_cuda.py:cuda_launches_per_call.  It drives only the wrappers'
     `_launch`, `_launch_tiled` and `_launch_bwd`, which every tree since
@@ -1445,12 +1585,20 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
     fwd_kept = cspn_cuda._launch
     if "keep_states" in inspect.signature(fwd_kept).parameters:
         fwd_kept = functools.partial(fwd_kept, keep_states=True)
+    reads_bf16 = "io_dtype" in inspect.signature(cspn_cuda._launch_tiled).parameters
+    bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
     for n, h, w in shapes:
         g, b, s = cspn_inputs(gen, n, h, w, True)
         ct = torch.randn(n, h, w, device="cuda", generator=gen)
         kept = fwd_kept(g, b, s, STEPS, "8sum")[1:]
+        g16, b16 = g.to(bf), b.to(bf)
+
+        def served(g_, b_):
+            with torch.no_grad():
+                return cspn_cuda.cspn2d_cuda(g_, b_, s, steps=STEPS, channel_first=True,
+                                             io_dtype=bf)
 
         def train_tiled():
             cspn_cuda._launch_tiled(g, b, s, STEPS, "8sum")
@@ -1467,23 +1615,31 @@ def time_fwd_routes(name: str, shapes=FWD_ROUTE_SHAPES, count_launches: bool = T
             "bwd_replay": lambda: cspn_cuda._launch_bwd(g, b, s, ct, STEPS, "8sum"),
             "train_tiled": train_tiled,
             "train_kept": train_kept,
+            "bf16io": lambda: served(g, b),
+            "bf16_heads": (lambda: served(g16, b16)) if reads_bf16 else
+                          (lambda: served(g16.float(), b16.float())),
         }
         row = {"shape": [n, h, w]}
         for what, fn in calls.items():
             row[f"{what}_ms"], row[f"{what}_queued_ms"] = time_ms(fn), time_queued_ms(fn)
         if count_launches:
             want = cspn_cuda.cuda_launches_per_call(STEPS)
+            # the bf16-I/O routes: the tiled kernel's launches, no cast or copy
             row["cuda_launches_per_call"] = {
-                key: launches_per_call(calls[what], CSPN2D_KERNELS, want[key],
-                                       f"{key} at {[n, h, w]}")[0]
-                for key, what in (("cspn2d_tiled", "tiled"), ("cspn2d_fwd", "fwd_kept"),
-                                  ("cspn2d_bwd_kept", "bwd_kept"),
-                                  ("cspn2d_bwd_replay", "bwd_replay"))}
-        del kept, calls
+                label: launches_per_call(calls[what], CSPN2D_KERNELS, want[key],
+                                         f"{label} at {[n, h, w]}")[0]
+                for label, key, what in (
+                    ("cspn2d_tiled", "cspn2d_tiled", "tiled"),
+                    ("cspn2d_fwd", "cspn2d_fwd", "fwd_kept"),
+                    ("cspn2d_bwd_kept", "cspn2d_bwd_kept", "bwd_kept"),
+                    ("cspn2d_bwd_replay", "cspn2d_bwd_replay", "bwd_replay"),
+                    ("cspn2d_tiled_bf16io", "cspn2d_tiled", "bf16io"),
+                    ("cspn2d_tiled_bf16_heads", "cspn2d_tiled", "bf16_heads"))}
+        del kept, calls, g16, b16
         log(f"  2D CSPN at [{n},8,{h},{w}] steps={STEPS}, ms by events (queued): "
             + ", ".join(f"{what} {row[f'{what}_ms']:.4f} ({row[f'{what}_queued_ms']:.4f})"
                         for what in ("tiled", "fwd_kept", "bwd_kept", "bwd_replay", "train_tiled",
-                                     "train_kept"))
+                                     "train_kept", "bf16io", "bf16_heads"))
             + (f"; CUDA launches a call {row['cuda_launches_per_call']}" if count_launches else "")
             + f" on {name}")
         rows.append(row)
@@ -1792,7 +1948,10 @@ def steps_of(checkout: str) -> int:
     nyu_eval's and kitti_benchmark's served frames/s over SERVE_WINDOW
     requests (served_rate); where CHECKOUT has parallel/data.py, also the
     nyu_train b8 step through DDP on a 1-rank NCCL group on both reduce
-    routes (`nyu_train b8 ddp sync` / `ddp bf16`, its make_train_step).
+    routes (`nyu_train b8 ddp sync` / `ddp bf16`, its make_train_step);
+    and the bf16 nyu_eval b8 forward as its bucket's CUDA graph replays
+    it, at `cspn_io_dtype` None and bfloat16 (`... graphed`, `... io bf16
+    graphed`).
     CHECKOUT's package builds the models, data, loss, optimizer and server;
     the timing is this script's.  Prints the card line and one JSON
     object."""
@@ -1854,16 +2013,26 @@ def steps_of(checkout: str) -> int:
     ds = SyntheticDepthDataset(length=8, hw=tuple(nyu.data.crop_hw), n_sample=nyu.data.n_sample,
                                seed=1, split="val")
     x = torch.from_numpy(np.stack([ds[i]["rgbd"] for i in range(8)])).cuda()
+    h, w = nyu.data.crop_hw
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as ckpt_dir:
         torch.save(calibrated_model(nyu, calib_batch=8).state_dict(),
                    os.path.join(ckpt_dir, "best_model.pt"))
-        srv = load_server(dataclasses.replace(nyu, best_model_dir=ckpt_dir), buckets=(8,),
-                          device="cuda", int8_from=None)
+        nyu_io = dataclasses.replace(nyu, model=dataclasses.replace(nyu.model,
+                                                                     cspn_io_dtype="bfloat16"))
+        servers = {io: load_server(dataclasses.replace(cfg, best_model_dir=ckpt_dir), buckets=(8,),
+                                   device="cuda", int8_from=None)
+                   for io, cfg in ((None, nyu), ("bfloat16", nyu_io))}
     with torch.inference_mode():
-        ms = time_ms(lambda: srv.models["bf16"](x), reps=11, warmup=2)
-    result["eval_forward_ms"]["nyu_eval b8 bf16"] = ms
-    log(f"  nyu_eval b8 bf16 eval forward: {ms:.3f} ms on {name}")
-    del srv, x
+        ms = time_ms(lambda: servers[None].models["bf16"](x), reps=11, warmup=2)
+        result["eval_forward_ms"]["nyu_eval b8 bf16"] = ms
+        log(f"  nyu_eval b8 bf16 eval forward: {ms:.3f} ms on {name}")
+        for io, srv in servers.items():
+            srv.warmup(h, w)
+            label = "nyu_eval b8 bf16" + (" io bf16" if io else "") + " graphed"
+            ms = time_ms(srv.graphs[8, h, w].graph.replay, reps=21, warmup=3)
+            result["eval_forward_ms"][label] = ms
+            log(f"  {label} forward (a replay of its CUDA graph): {ms:.3f} ms on {name}")
+    del servers, srv, x
     for label, cfg, buckets, sizes in (("nyu_eval", nyu, BUCKETS, REQUESTS),
                                        ("kitti_benchmark", kitti, KITTI_BUCKETS, KITTI_REQUESTS)):
         h, w = cfg.data.crop_hw
@@ -2303,15 +2472,15 @@ def replay_records(graph, keys, reps: int = GRAPH_REPLAYS) -> dict:
     return found
 
 
-def check_graphed(label: str, srv, eager, reqs, frames, name: str) -> None:
+def check_graphed(label: str, srv, eager, reqs, frames, name: str, timed: bool = True) -> None:
     """Phases 4 and 13: `srv` serves each bucket by replaying its CUDA
     graph, `eager` (cuda_graphs=False) the same models eagerly.  Every
     request's output equal bit for bit; each bucket's launches a replay
     (what its capture counted) equal to one forward's (the tiled 2D CSPN
     once, `d2s` d2s_per_forward times), and torch.profiler's device records
     over GRAPH_REPLAYS replays holding those kernels' CUDA launches
-    (ops/cspn_cuda.py:cuda_launches_per_call, one a `d2s`); then
-    time_graphed."""
+    (ops/cspn_cuda.py:cuda_launches_per_call, one a `d2s`); then, where
+    `timed`, time_graphed."""
     from cspn_tpu_torch.ops.cspn_cuda import cuda_launches_per_call
 
     for r in reqs:
@@ -2337,7 +2506,8 @@ def check_graphed(label: str, srv, eager, reqs, frames, name: str) -> None:
                                      f"over {GRAPH_REPLAYS} replays, {n} a replay expected")
         log(f"    bucket {b} ({path_label(srv, b)}): a replay counts {per}; torch.profiler over "
             f"{GRAPH_REPLAYS} replays recorded {rec} (a replay: {cuda})")
-    time_graphed(srv, eager, frames, name)
+    if timed:
+        time_graphed(srv, eager, frames, name)
 
 
 def time_graphed(srv, eager, frames, name: str) -> None:
@@ -3561,6 +3731,87 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
                 raise AssertionError(f"{label}: non-finite outputs")
             del srv, o32, o16, o8
     return launches
+
+
+BF16IO_BUCKETS, BF16IO_REQUESTS = (1, 8), (1, 3, 8)
+
+
+def precision_serve_bf16io(name: str) -> dict:
+    """Phase 13, the bf16 HBM-input route: nyu_eval's bf16 model with
+    `cspn_io_dtype` bfloat16 (seeded random weights, calibrated BN
+    statistics) served through load_server's CUDA graphs at buckets 1 and 8,
+    bf16 only.  Its heads reach the 2D CSPN in bf16, the sparse map in
+    float32 (one eager forward through a spy on cspn2d_cuda); the requests'
+    launches exact; each request's output held to a plain twin (the plain
+    2D CSPN and depth-to-space) within PRECISION_TWIN_TOL; graphed = eager
+    bit for bit and each replay's launches (check_graphed).  Returns the
+    kernels' launches on the served requests."""
+    from cspn_tpu_torch.data import SyntheticDepthDataset
+    from cspn_tpu_torch.ops import cspn_cuda, d2s
+    from cspn_tpu_torch.serving import DepthServer, chunk_plan, load_server
+    from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
+
+    label = "nyu_eval bf16, cspn_io_dtype bfloat16"
+    cfg = nyu_eval_synthetic()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, cspn_io_dtype="bfloat16"))
+    h, w = cfg.data.crop_hw
+    ds = SyntheticDepthDataset(length=max(BF16IO_REQUESTS), hw=(h, w), n_sample=cfg.data.n_sample,
+                               seed=2, split="val")
+    frames = np.stack([ds[i]["rgbd"] for i in range(len(ds))])
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as ckpt_dir:
+        torch.save(calibrated_model(cfg, calib_batch=8).state_dict(),
+                   os.path.join(ckpt_dir, "best_model.pt"))
+        srv = load_server(dataclasses.replace(cfg, best_model_dir=ckpt_dir), buckets=BF16IO_BUCKETS,
+                          device="cuda", int8_from=None)
+    model = srv.models["bf16"]
+    seen, real = [], cspn_cuda.cspn2d_cuda
+
+    def spy(g, b, s, **kw):
+        seen.append((g.dtype, b.dtype, s.dtype, kw["io_dtype"]))
+        return real(g, b, s, **kw)
+
+    cspn_cuda.cspn2d_cuda = spy
+    try:
+        with torch.no_grad():
+            model(torch.from_numpy(frames[:1]).cuda())
+    finally:
+        cspn_cuda.cspn2d_cuda = real
+    if seen != [(torch.bfloat16, torch.bfloat16, torch.float32, "bfloat16")]:
+        raise AssertionError(f"{label}: the 2D CSPN was handed {seen}, expected bf16 heads and a "
+                             "float32 sparse map at io_dtype bfloat16")
+    t0 = time.perf_counter()
+    srv.warmup(h, w)
+    torch.cuda.synchronize()
+    log(f"  {label}: the heads reach the 2D CSPN as {seen[0][:3]}; buckets {BF16IO_BUCKETS} warmed "
+        f"and captured in {time.perf_counter() - t0:.1f} s ({graph_memory(srv)})")
+    reset_launches()
+    outs = [srv.predict(frames[:n]) for n in BF16IO_REQUESTS]
+    got = read_launches()
+    forwards = sum(len(chunk_plan(n, BF16IO_BUCKETS)) for n in BF16IO_REQUESTS)
+    expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=forwards,
+                    d2s=d2s_per_forward(model) * forwards)
+    if got != expected:
+        raise AssertionError(f"{label}: requests {BF16IO_REQUESTS} launched {got}, expected "
+                             f"{expected}")
+    twin = DepthServer(plain_twin(model), BF16IO_BUCKETS, cuda_graphs=False)
+    with decoder_d2s(d2s.depth_to_space2_ref):
+        wants = [twin.predict(frames[:n]) for n in BF16IO_REQUESTS]
+    worst = 0.0
+    for n, out, want in zip(BF16IO_REQUESTS, outs, wants):
+        err, scale = float(np.abs(out - want).max()), float(np.abs(want).max())
+        if out.shape != (n, h, w) or not np.isfinite(out).all() \
+                or not err <= PRECISION_TWIN_TOL * scale:
+            raise AssertionError(f"{label} request {n}: {out.shape}, served output vs plain twin "
+                                 f"{err:.3e} > {PRECISION_TWIN_TOL * scale:.3e}")
+        worst = max(worst, err / scale)
+    log(f"  {label}: requests {BF16IO_REQUESTS} launched {got} (exact); served outputs vs the plain "
+        f"twin max|err| / max|plain| = {worst:.3e} (tol {PRECISION_TWIN_TOL:.3e})")
+    del twin, wants
+    # untimed: --steps-of times this forward graphed, beside a parent's
+    check_graphed(label, srv, DepthServer(model, BF16IO_BUCKETS, cuda_graphs=False),
+                  [frames[:n] for n in BF16IO_REQUESTS], frames, name, timed=False)
+    del srv, model
+    return got
 
 
 def _bf16_step_models(build, cfg32, cfg16):
@@ -4981,6 +5232,7 @@ def main(argv=None) -> int:
              precision_serve(name, "kitti_benchmark", _kitti_cfg(), KITTI_BUCKETS, KITTI_INT8_FROM,
                              KITTI_PRECISION_REQUESTS, KITTI_BUCKETS[-1])]
     by_path["precision_serve"] = {k: sum(c[k] for c in serve) for k in KERNEL_NAMES}
+    by_path["precision_serve_bf16io"] = precision_serve_bf16io(name)
     by_path["precision_train"] = precision_train(name)
 
     log("[14/18] deployment: reference-checkpoint import, export to torch.export artifacts, "

@@ -1,10 +1,11 @@
-// The 2D CSPN's gather offsets, bounds and fold (fold_pixel), shared by
-// the tile kernels (cspn2d_march.cuh, cspn2d_reverse.cuh) and the
-// pointwise kernels of cspn2d_bwd.cu and cspn2d_halo_seg_bwd.cu.  See
-// cspn2d_fwd.cu for the function they compute.
+// The 2D CSPN's gather offsets, bounds, raw-input loads (io_value) and
+// fold (fold_pixel), shared by the tile kernels (cspn2d_march.cuh,
+// cspn2d_reverse.cuh) and the pointwise kernels of cspn2d_bwd.cu and
+// cspn2d_halo_seg_bwd.cu.  See cspn2d_fwd.cu for the function they compute.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -26,25 +27,46 @@ __host__ __device__ constexpr int ref_dx(int d) {
   return d < 3 ? 1 - d : d == 3 ? 1 : d == 4 ? -1 : 6 - d;
 }
 
-// img[i, j] of an h x w plane, 0 outside it.  The load is unconditional
-// (from a clamped address) and the zero a select, so that a thread's loads
-// are all in flight together instead of one branch and one latency each.
+// How a first launch reads one raw input, guidance, blur or sparse
+// (MarchArgs::io_g, io_b, io_s; ops/cspn_cuda.py:io_codes): float32 as it
+// is, float32 rounded to bf16 (the bf16 I/O dtype, JAX's io_dtype), or
+// bf16.
+enum IoCode : int { kIoF32 = 0, kIoF32Round = 1, kIoBf16 = 2 };
+
+// A raw input's value as the arithmetic reads it, in float32: a bf16 value
+// upcast (exact), as cspn_pallas.py:_fwd_kernel upcasts at first use; a
+// float32 one as it is or, with kRound, rounded to the nearest bf16 (ties
+// to even: Tensor.to(torch.bfloat16), astype(jnp.bfloat16)), then upcast.
+template <bool kRound>
+__device__ __forceinline__ float io_value(float v) {
+  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+template <bool kRound>
+__device__ __forceinline__ float io_value(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// img[i, j] of an h x w plane of T (float or __nv_bfloat16), as io_value
+// reads it, 0 outside the plane.  The load is unconditional (from a
+// clamped address) and the zero a select, so that a thread's loads are all
+// in flight together instead of one branch and one latency each.
 // kReadOnly: through the read-only cache (the plane is not written while
 // the kernel runs).
-template <bool kReadOnly = true>
-__device__ __forceinline__ float load_or_zero(const float* img, int i, int j, int h, int w) {
-  const float* at = img + min(max(i, 0), h - 1) * w + min(max(j, 0), w - 1);
-  const float v = kReadOnly ? __ldg(at) : *at;
+template <bool kReadOnly = true, bool kRound = false, typename T = float>
+__device__ __forceinline__ float load_or_zero(const T* img, int i, int j, int h, int w) {
+  const T* at = img + min(max(i, 0), h - 1) * w + min(max(j, 0), w - 1);
+  const float v = io_value<kRound>(kReadOnly ? __ldg(at) : *at);
   return inside(i, j, h, w) ? v : 0.0f;
 }
 
 // The raw guidance pixel (i, j) gathers, B_d = g_d[(i, j) + off_d] (0
-// outside the image), from its map's [8,H,W] guidance, into b.
-__device__ __forceinline__ void gather_pixel(const float* __restrict__ g_img, int i, int j, int h,
+// outside the image), from its map's [8,H,W] guidance of T, into b.
+template <bool kRound = false, typename T = float>
+__device__ __forceinline__ void gather_pixel(const T* __restrict__ g_img, int i, int j, int h,
                                              int w, float (&b)[8]) {
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
-    b[d] = load_or_zero(g_img + d * h * w, i + ref_dy(d), j + ref_dx(d), h, w);
+    b[d] = load_or_zero<true, kRound>(g_img + d * h * w, i + ref_dy(d), j + ref_dx(d), h, w);
   }
 }
 

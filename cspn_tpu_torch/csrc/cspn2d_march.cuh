@@ -115,7 +115,9 @@ __host__ __device__ constexpr int tile_launches(int steps) {
 }
 
 // What a launch of march_tile loads, each pixel's gates and base from:
-//   kRaw: the raw guidance, blur and sparse, folded (gather_pixel, fold_pixel);
+//   kRaw: the raw guidance, blur and sparse, folded (gather_pixel, fold_pixel),
+//     each read as MarchArgs::io_g, io_b, io_s say (IoCode) in a kernel
+//     built with kIo, else as float32; the state starts at blur;
 //   kFolded: gather-form gates and base, as they are (the folded copy a
 //     first launch stored, or the halo segment's gates without keep);
 //   kKeep: the halo segment's gather-form gates, base and keep, with
@@ -129,14 +131,15 @@ enum class Load { kRaw, kFolded, kKeep, kPaddle };
 // What one launch of march_tile reads and writes.
 struct MarchArgs {
   // kRaw: the raw guidance [N,8,H,W], blur [N,H,W] and sparse [N,H,W] or
-  // null.  kFolded, kKeep: gather-form gates [N,8,H,W], base [N,H,W] and
-  // (kKeep) keep [N,H,W].
+  // null, float32 or (io_g, io_b, io_s kIoBf16) bf16.  kFolded, kKeep:
+  // gather-form gates [N,8,H,W], base [N,H,W] and (kKeep) keep [N,H,W].
   const float* gates;
   const float* base;
   const float* mask;
+  int io_g, io_b, io_s;  // kRaw with kIo: the IoCode of gates, base and mask
   float* gates_out;   // null, or the interior's folded gates [N,8,H,W] (kRaw, kKeep)
   float* base_out;    // null, or the interior's base [N,H,W] (kRaw)
-  const float* x_in;  // the state x_{t0} [N,H,W]
+  const float* x_in;  // the state x_{t0} [N,H,W] (kRaw: unused, x_0 is blur)
   float* x_out;       // x_{t0 + k} (!kStates), or x_total (kStates)
   float* states;      // kStates: [total - 1,N,H,W], x_t in states[t - 1]
   long long plane;    // N*H*W, the stride of states
@@ -259,6 +262,57 @@ __device__ __forceinline__ void store_folded(const MarchArgs& a, long long map, 
   if (a.base_out != nullptr) a.base_out[map * hw + p] = e;
 }
 
+// A first launch's raw loads for a thread's pixels (rows i0.., columns j0,
+// j0 + 1) from planes of T, read as io_value<kRound> reads them: the
+// guidance each pixel gathers into g (raw_guidance), or one plane of map
+// `map` into v (raw_plane).
+template <typename T, bool kRound>
+__device__ __forceinline__ void raw_guidance(const float* gates, long long map, int i0, int j0,
+                                             int h, int w, float (&g)[kRows][2][8]) {
+  const T* g_img = reinterpret_cast<const T*>(gates) + map * 8 * h * w;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) gather_pixel<kRound>(g_img, i0 + r, j0 + c, h, w, g[r][c]);
+  }
+}
+
+template <typename T, bool kRound>
+__device__ __forceinline__ void raw_plane(const float* img, long long map, int i0, int j0, int h,
+                                          int w, float (&v)[kRows][2]) {
+  const T* p = reinterpret_cast<const T*>(img) + map * h * w;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) v[r][c] = load_or_zero<true, kRound>(p, i0 + r, j0 + c, h, w);
+  }
+}
+
+// raw_guidance and raw_plane on an input stored as `io` says (IoCode): one
+// warp-uniform branch around all of the input's loads, so that they stay
+// in flight together, and the next input's with them.
+__device__ __forceinline__ void raw_guidance_io(int io, const float* gates, long long map, int i0,
+                                                int j0, int h, int w, float (&g)[kRows][2][8]) {
+  if (io == kIoBf16) {
+    raw_guidance<__nv_bfloat16, false>(gates, map, i0, j0, h, w, g);
+  } else if (io == kIoF32Round) {
+    raw_guidance<float, true>(gates, map, i0, j0, h, w, g);
+  } else {
+    raw_guidance<float, false>(gates, map, i0, j0, h, w, g);
+  }
+}
+
+__device__ __forceinline__ void raw_plane_io(int io, const float* img, long long map, int i0,
+                                             int j0, int h, int w, float (&v)[kRows][2]) {
+  if (io == kIoBf16) {
+    raw_plane<__nv_bfloat16, false>(img, map, i0, j0, h, w, v);
+  } else if (io == kIoF32Round) {
+    raw_plane<float, true>(img, map, i0, j0, h, w, v);
+  } else {
+    raw_plane<float, false>(img, map, i0, j0, h, w, v);
+  }
+}
+
 // Runs a.k <= kHalo forward steps on the tile (blockIdx.x, blockIdx.y) of
 // map blockIdx.z from x_{t0}, the gates and base loaded as kLoad says.
 // Every load first, unconditional (load_or_zero), so that a thread's loads
@@ -274,8 +328,12 @@ __device__ __forceinline__ void store_folded(const MarchArgs& a, long long map, 
 // kPaddle (the paddle 2D CSPN): each step has the centre tap (march_step's
 // kCentre), e holding the centre weight; x_in and x_out lie in the
 // caller's layout (paddle_layout).
-template <Load kLoad, bool kStates>
+// kIo (kRaw only): each raw input read as a.io_g, a.io_b, a.io_s say
+// (raw_guidance_io, raw_plane_io); without it, all three float32.
+// Everything after the loads is float32 whatever the inputs' storage.
+template <Load kLoad, bool kStates, bool kIo = false>
 __device__ __forceinline__ void march_tile(const MarchArgs& a) {
+  static_assert(!kIo || kLoad == Load::kRaw, "only a first launch reads the raw inputs");
   constexpr bool kCentre = kLoad == Load::kPaddle;
   static_assert(!kCentre || !kStates, "the centre-tap march keeps no states");
   __shared__ Exchange ex;
@@ -302,20 +360,16 @@ __device__ __forceinline__ void march_tile(const MarchArgs& a) {
       }
     }
   } else if constexpr (kLoad == Load::kRaw) {
-    const float* g_img = a.gates + map * 8 * hw;
-    const float* blur_img = a.base + map * hw;
-    const float* sparse_img = a.mask != nullptr ? a.mask + map * hw : nullptr;
-    float x0[kRows][2], sp[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int i = i0 + r, j = j0 + c;
-        gather_pixel(g_img, i, j, h, w, g[r][c]);
-        x0[r][c] = load_or_zero(blur_img, i, j, h, w);
-        sp[r][c] = sparse_img != nullptr ? load_or_zero(sparse_img, i, j, h, w) : 0.0f;
-        x[r][c] = load_or_zero(x_img, i, j, h, w);
-      }
+    const bool has_sparse = a.mask != nullptr;
+    float x0[kRows][2], sp[kRows][2] = {};
+    if constexpr (kIo) {
+      raw_guidance_io(a.io_g, a.gates, map, i0, j0, h, w, g);
+      raw_plane_io(a.io_b, a.base, map, i0, j0, h, w, x0);
+      if (has_sparse) raw_plane_io(a.io_s, a.mask, map, i0, j0, h, w, sp);
+    } else {
+      raw_guidance<float, false>(a.gates, map, i0, j0, h, w, g);
+      raw_plane<float, false>(a.base, map, i0, j0, h, w, x0);
+      if (has_sparse) raw_plane<float, false>(a.mask, map, i0, j0, h, w, sp);
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -323,7 +377,8 @@ __device__ __forceinline__ void march_tile(const MarchArgs& a) {
       for (int c = 0; c < 2; ++c) {
         const int i = i0 + r, j = j0 + c;
         const bool in = inside(i, j, h, w);
-        const float base = fold_pixel(g[r][c], x0[r][c], sp[r][c], sparse_img != nullptr, a.norm_abs);
+        x[r][c] = x0[r][c];  // x_0 is blur, as the input reads it
+        const float base = fold_pixel(g[r][c], x0[r][c], sp[r][c], has_sparse, a.norm_abs);
         e[r][c] = in ? base : 0.0f;
 #pragma unroll
         for (int d = 0; d < 8; ++d) g[r][c][d] = in ? g[r][c][d] : 0.0f;

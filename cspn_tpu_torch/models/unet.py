@@ -14,8 +14,10 @@ depth used for anchoring.  Output: [N, H, W] dense depth.  Inside, NCHW.
 
 `dtype=torch.bfloat16` runs the conv net in bf16 (the JAX model's
 `dtype`, unet.py:88-90): the input is cast once, every conv and BN follows
-its input's dtype (models/resnet.py), the heads are cast back to float32
-and the 2D CSPN runs float32 at every dtype.  `quant` swaps the encoder's
+its input's dtype (models/resnet.py), and the bf16 heads reach the 2D
+CSPN as they are: its kernel reads bf16 and computes in float32 at every
+dtype (`cspn_input_dtype`; JAX casts the heads to float32, the same
+values).  `quant` swaps the encoder's
 block convs and the decoder body's convs for int8 ones
 (utils/quant.py:QuantConv; JAX unet.py:91-101,126-154): the stem, the
 heads, the modules named in `quant_exclude` and the CSPN keep their
@@ -40,6 +42,13 @@ from cspn_tpu_torch.models.resnet import ResNetEncoder, init_weights
 from cspn_tpu_torch.ops.cspn import cspn2d
 from cspn_tpu_torch.parallel.halo import cspn2d_spatial
 from cspn_tpu_torch.utils import quant as quant_lib
+
+
+def cspn_input_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the heads of a `dtype` decoder reach the 2D CSPN in: bf16
+    as it is (the kernel and the plain version read bf16 as its exact
+    float32 upcast), any other promoted to float32 (float64 stays)."""
+    return dtype if dtype == torch.bfloat16 else torch.promote_types(dtype, torch.float32)
 
 
 def ceil_half_chain(h: int, w: int, n: int = 5) -> list[tuple[int, int]]:
@@ -134,7 +143,8 @@ class CSPNUNet(ResNetEncoder):
         d = self.gud_up_proj_layer2(d, skips["skip2"], *sizes[3])
         d = self.gud_up_proj_layer3(d, skips["skip3"], *sizes[2])
         d = self.gud_up_proj_layer4(d, skips["skip4"], *sizes[1])
-        # the heads go back to float32 (float64 stays) for the CSPN
+        # the no-CSPN head and the sharded CSPN take float32 (float64 stays);
+        # the 2D CSPN takes bf16 heads as they are (cspn_input_dtype)
         head_dtype = torch.promote_types(d.dtype, torch.float32)
         if not self.use_cspn:
             return self.gud_up_proj_layer5(d, *sizes[0])[:, 0].to(head_dtype)
@@ -150,8 +160,8 @@ class CSPNUNet(ResNetEncoder):
             heads = subpixel_unpool_conv(d, w_heads, *sizes[0])
         else:
             heads = F.conv2d(unpool2x(d, *sizes[0]), w_heads, padding=1)
-        heads = heads.to(head_dtype)
         if self.spatial_mesh is not None:
+            heads = heads.to(head_dtype)
             return cspn2d_spatial(
                 heads[:, 1:],
                 heads[:, 0],
@@ -162,6 +172,7 @@ class CSPNUNet(ResNetEncoder):
                 halo=self.spatial_halo,
                 channel_first=True,
             )
+        heads = heads.to(cspn_input_dtype(d.dtype))
         return cspn2d(
             heads[:, 1:],
             heads[:, 0].contiguous(),

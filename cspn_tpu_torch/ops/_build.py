@@ -69,7 +69,9 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
     ),
     "cspn2d_tiled": (
         "cspn2d_tiled.cu",
-        {"cspn2d_tiled_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p]},
+        {"cspn2d_tiled_f32": [_c_void_p] * 7 + [_c_int] * 5 + [_c_void_p],
+         "cspn2d_tiled_io": [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p] * 4 + [_c_int] * 5
+                            + [_c_void_p]},
     ),
     "paddle2d": (
         "paddle2d.cu",

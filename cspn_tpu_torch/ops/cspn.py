@@ -37,9 +37,11 @@ def _io_dtype(io_dtype) -> torch.dtype | None:
 
 
 def _round_io(guidance, blur_depth, sparse_depth, io_dtype):
-    """Emulate reduced-precision kernel I/O on paths that read f32: round
-    the inputs through io_dtype (the kernel upcasts at first use, so this is
-    the identical function)."""
+    """The plain version's I/O dtype: round the inputs through io_dtype and
+    back to float32, as JAX's reference backend does (cspn.py:_round_io).
+    The CUDA route does not run it: its kernel rounds float32 inputs in
+    registers as it loads them and reads bf16 ones as they are
+    (ops/cspn_cuda.py), the same function."""
     dt = _io_dtype(io_dtype)
     if dt is None:
         return guidance, blur_depth, sparse_depth
@@ -50,9 +52,15 @@ def _round_io(guidance, blur_depth, sparse_depth, io_dtype):
     )
 
 
+def _upcast(*tensors):
+    """bf16 tensors in float32 (exact), as the kernel reads them; float32
+    and float64 ones (and None) as they are."""
+    return tuple(t.float() if t is not None and t.dtype == torch.bfloat16 else t for t in tensors)
+
+
 def _reference(guidance, blur_depth, sparse_depth, steps, norm_type, channel_first, io_dtype):
     g = guidance.movedim(1, -1) if channel_first else guidance
-    g, b, s = _round_io(g, blur_depth, sparse_depth, io_dtype)
+    g, b, s = _upcast(*_round_io(g, blur_depth, sparse_depth, io_dtype))
     return cspn_ref.cspn2d_reference(g, b, s, steps=steps, norm_type=norm_type)
 
 
@@ -69,7 +77,10 @@ def cspn2d(
 ) -> torch.Tensor:
     """2D CSPN post-process (pytorch reference semantics); see
     cspn_ref.cspn2d_reference.  guidance is [N, H, W, 8], or [N, 8, H, W]
-    with channel_first=True; depth maps are [N, H, W]."""
+    with channel_first=True; depth maps are [N, H, W].  Each input may be
+    bf16, read as its float32 upcast; `io_dtype` bfloat16 rounds float32
+    ones to bf16 first (the JAX package's HBM I/O dtype).  The output is
+    float32 (float64 for float64 inputs on the plain version)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     on_cuda = guidance.device.type == "cuda"

@@ -15,7 +15,17 @@ PyTorch's current stream.
 `cspn2d_cuda` is the wrapper.  A tensor on the CPU goes to the kernels'
 plain version (ops/cspn_ref.py, autograd-native) because it lies on the
 CPU; a CUDA tensor goes to the kernels or raises, forward and backward.
-There is no fallback between the two.  Both forward kernels compute the
+There is no fallback between the two.
+
+Inputs may be float32 or bf16, each on its own, as
+cspn_pallas.py:_fwd_kernel reads bf16 guidance, blur and sparse under
+`io_dtype` bfloat16 (:252-255).  The tiled kernel reads them as they lie
+and upcasts bf16 at first use; with `io_dtype` bfloat16 it rounds float32
+inputs to bf16 in registers as it loads them (`io_codes`), so no cast runs
+before it.  The forward that keeps its states and the backward read
+float32: a training forward on bf16 inputs without I/O rounding upcasts
+them first (exact), and under bf16 I/O the forward runs the tiled kernel
+and the backward replays from the unrounded inputs, upcast.  Both forward kernels compute the
 same function, value for value, and the backward kernel is its exact
 adjoint at every size.  `use_tiled` picks the forward: the tiled kernel
 for a forward that no backward follows, the one keeping its states for
@@ -42,7 +52,7 @@ import dataclasses
 import torch
 
 from cspn_tpu_torch.ops import cspn_ref
-from cspn_tpu_torch.ops.cspn import _reference, _round_io
+from cspn_tpu_torch.ops.cspn import _io_dtype, _reference, _upcast
 
 launches = 0
 tiled_launches = 0
@@ -119,6 +129,24 @@ def plan_tiles(h: int, w: int, steps: int, k: int = HALO, tile: int = TILE) -> T
                     (k,) * full + ((rest,) if rest else ()))
 
 
+# csrc/cspn2d_common.cuh:IoCode: how the tiled kernel's first launch reads
+# an input
+IO_F32, IO_F32_ROUND, IO_BF16 = 0, 1, 2
+INPUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def io_codes(guid_cf, blur, sparse, io_dtype=None) -> tuple[int, int, int]:
+    """Each input's IoCode: bf16 read as it is (upcast), float32 read as it
+    is or, with `io_dtype` bfloat16, rounded to bf16 in registers.  The
+    kernel rounds through bf16 only: another `io_dtype` raises."""
+    dt = _io_dtype(io_dtype)
+    if dt not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"the 2D CSPN kernels' I/O dtype is float32 or bfloat16, got {dt}")
+    f32 = IO_F32 if dt in (None, torch.float32) else IO_F32_ROUND
+    return tuple(IO_BF16 if t is not None and t.dtype == torch.bfloat16 else f32
+                 for t in (guid_cf, blur, sparse))
+
+
 def _check_inputs(guid_cf, blur, sparse, norm_type):
     cspn_ref.check_norm_type(norm_type)
     if guid_cf.device.type != "cuda":
@@ -133,8 +161,8 @@ def _check_inputs(guid_cf, blur, sparse, norm_type):
             continue
         if t.device != guid_cf.device:
             raise ValueError(f"{name} on {t.device}, guidance on {guid_cf.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in INPUT_DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t is not guid_cf and tuple(t.shape) != (n, h, w):
@@ -143,7 +171,7 @@ def _check_inputs(guid_cf, blur, sparse, norm_type):
 
 def _launch(guid_cf, blur, sparse, steps: int, norm_type: str):
     """Run the forward that keeps its states (cspn2d_fwd) on already
-    checked inputs; returns (out [N,H,W] f32, folded gates [N,8,H,W],
+    checked float32 inputs; returns (out [N,H,W] f32, folded gates [N,8,H,W],
     states x_1..x_{T-1} [T-1,N,H,W]), the last two for `_launch_bwd`."""
     global launches
     from cspn_tpu_torch.ops import _build
@@ -168,33 +196,42 @@ def _launch(guid_cf, blur, sparse, steps: int, norm_type: str):
     return out, gates, states
 
 
-def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str) -> torch.Tensor:
-    """Run the tiled forward on already checked inputs; returns [N, H, W] f32."""
+def _launch_tiled(guid_cf, blur, sparse, steps: int, norm_type: str,
+                  io_dtype=None) -> torch.Tensor:
+    """Run the tiled forward on already checked inputs, each float32 or
+    bf16, read as `io_codes` says (`cspn2d_tiled_f32` where all three are
+    float32 read as they are, else `cspn2d_tiled_io`); returns [N, H, W]
+    f32."""
     global tiled_launches
     from cspn_tpu_torch.ops import _build
 
+    codes = io_codes(guid_cf, blur, sparse, io_dtype)
     lib = _build.load("cspn2d_tiled")
     n, _, h, w = guid_cf.shape
-    out = torch.empty_like(blur)
+    f32 = dict(dtype=torch.float32, device=blur.device)
+    out = torch.empty((n, h, w), **f32)
     # the first launch's keep * gate_d and base, for the later ones
-    gates, base = torch.empty_like(guid_cf), torch.empty_like(blur)
-    x_scratch = torch.empty_like(blur)
+    gates, base = torch.empty((n, 8, h, w), **f32), torch.empty((n, h, w), **f32)
+    x_scratch = torch.empty((n, h, w), **f32)
+    inputs = (guid_cf.data_ptr(), blur.data_ptr(), None if sparse is None else sparse.data_ptr())
+    rest = (out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
+            n, h, w, int(steps), int(norm_type == "8sum_abs"))
+    plain_f32 = codes == (IO_F32,) * 3
     with torch.cuda.device(guid_cf.device):
-        err = lib.cspn2d_tiled_f32(
-            guid_cf.data_ptr(), blur.data_ptr(),
-            None if sparse is None else sparse.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), base.data_ptr(), x_scratch.data_ptr(),
-            n, h, w, int(steps), int(norm_type == "8sum_abs"),
-            torch.cuda.current_stream(guid_cf.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(guid_cf.device).cuda_stream
+        if plain_f32:
+            err = lib.cspn2d_tiled_f32(*inputs, *rest, stream)
+        else:
+            err = lib.cspn2d_tiled_io(*inputs, *codes, *rest, stream)
     if err != 0:
-        raise RuntimeError(f"cspn2d_tiled_f32 launch failed: cudaError_t {err}")
+        fn = "cspn2d_tiled_f32" if plain_f32 else "cspn2d_tiled_io"
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
     tiled_launches += 1
     return out
 
 
 def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None):
-    """Run the backward kernel on checked f32 inputs and the cotangent `ct`
+    """Run the backward kernel on checked float32 inputs and the cotangent `ct`
     of the output; returns (d guidance [N,8,H,W], d blur [N,H,W]).  `kept` is the (folded gates,
     states) a forward on the same inputs kept (`_launch`); without it the kernel recomputes them (the states
     forward over steps - 1 steps)."""
@@ -233,59 +270,65 @@ def _launch_bwd(guid_cf, blur, sparse, ct, steps: int, norm_type: str, kept=None
 
 @torch.library.custom_op("cspn_tpu_torch::cspn2d_tiled", mutates_args=(), device_types="cuda")
 def cspn2d_tiled(guid_cf: torch.Tensor, blur: torch.Tensor, sparse: torch.Tensor | None,
-                 steps: int, norm_type: str) -> torch.Tensor:
+                 steps: int, norm_type: str, io_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The tiled forward (csrc/cspn2d_tiled.cu) as a torch op: guidance
-    [N, 8, H, W], blur and sparse [N, H, W], all float32 -> [N, H, W]
-    float32.  The checks run here, on real tensors, so that tracing
+    [N, 8, H, W], blur and sparse [N, H, W], each float32 or bf16, read as
+    they are (`io_dtype` bfloat16: float32 ones rounded to bf16 in the
+    kernel) -> [N, H, W] float32, so an exported graph hands bf16 heads to
+    the one node.  The checks run here, on real tensors, so that tracing
     (FakeTensors, a symbolic batch) reaches none of them; the inputs are
     made contiguous here too, since a traced graph's strides are its fake
     tensors' and need not be the real ones (ops/d2s.py:d2s_op)."""
     guid_cf, blur = guid_cf.contiguous(), blur.contiguous()
     sparse = None if sparse is None else sparse.contiguous()
     _check_inputs(guid_cf, blur, sparse, norm_type)
-    return _launch_tiled(guid_cf, blur, sparse, steps, norm_type)
+    return _launch_tiled(guid_cf, blur, sparse, steps, norm_type, io_dtype)
 
 
 @cspn2d_tiled.register_kernel("cpu")
-def _cspn2d_tiled_plain(guid_cf, blur, sparse, steps, norm_type):
-    # a copy: at 0 steps the plain version gives `blur` itself, and an op's
-    # output may not alias an input
-    return cspn_ref.cspn2d_reference(guid_cf.movedim(1, -1), blur, sparse, steps=steps,
-                                     norm_type=norm_type).clone()
+def _cspn2d_tiled_plain(guid_cf, blur, sparse, steps, norm_type, io_dtype=None):
+    # the plain version on the rounded and upcast inputs; a copy: at 0 steps
+    # it gives `blur` itself, and an op's output may not alias an input
+    return _reference(guid_cf, blur, sparse, steps, norm_type, True, io_dtype).clone()
 
 
 @cspn2d_tiled.register_fake
-def _(guid_cf, blur, sparse, steps, norm_type):
+def _(guid_cf, blur, sparse, steps, norm_type, io_dtype=None):
     return torch.empty_like(blur, dtype=torch.float32)
 
 
 class _Cspn2dFwd(torch.autograd.Function):
     """The forward that `cspn2d_bwd` follows: cspn2d_fwd, keeping its folded
-    gates and states for the backward kernel.  As the JAX custom VJP
-    (cspn_pallas.py:_cspn2d_fwd/_cspn2d_bwd), the forward rounds its inputs
-    through `io_dtype` and saves them unrounded: the backward is the exact
-    adjoint of the f32 function at the f32 inputs, so a forward on rounded
-    inputs runs the tiled kernel, keeps nothing, and the backward replays
-    the states from the unrounded inputs.  The sparse map enters only
-    through sign(), so its gradient is None (zero)."""
+    gates and states for the backward kernel, on float32 inputs (bf16 ones
+    upcast, exact).  As the JAX custom VJP (cspn_pallas.py:_cspn2d_fwd /
+    _cspn2d_bwd), under `io_dtype` bfloat16 the forward reads its inputs
+    rounded and saves them unrounded: the backward is the exact adjoint of
+    the f32 function at the unrounded inputs, so that forward runs the
+    tiled kernel (which rounds them as it loads them), keeps nothing, and
+    the backward replays the states from the unrounded inputs, upcast.
+    The gradients come back in the inputs' dtypes.  The sparse map enters
+    only through sign(), so its gradient is None (zero)."""
 
     @staticmethod
     def forward(ctx, guid_cf, blur, sparse, steps, norm_type, io_dtype):
-        g, b, s = _round_io(guid_cf, blur, sparse, io_dtype)
-        if g is guid_cf:
+        if _io_dtype(io_dtype) in (None, torch.float32):
+            g, b, s = _upcast(guid_cf, blur, sparse)
             out, gates, states = _launch(g, b, s, steps, norm_type)
         else:
-            out, gates, states = _launch_tiled(g, b, s, steps, norm_type), None, None
-        ctx.save_for_backward(guid_cf, blur, sparse, gates, states)
+            out = _launch_tiled(guid_cf, blur, sparse, steps, norm_type, io_dtype)
+            (g, b, s), gates, states = (guid_cf, blur, sparse), None, None
+        ctx.save_for_backward(g, b, s, gates, states)
         ctx.steps, ctx.norm_type = steps, norm_type
+        ctx.dtypes = guid_cf.dtype, blur.dtype
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         guid_cf, blur, sparse, gates, states = ctx.saved_tensors
-        dguid, dblur = _launch_bwd(guid_cf, blur, sparse, grad_out.contiguous(), ctx.steps,
-                                   ctx.norm_type, None if states is None else (gates, states))
-        return dguid, dblur, None, None, None, None
+        dguid, dblur = _launch_bwd(*_upcast(guid_cf, blur, sparse), grad_out.contiguous(),
+                                   ctx.steps, ctx.norm_type,
+                                   None if states is None else (gates, states))
+        return dguid.to(ctx.dtypes[0]), dblur.to(ctx.dtypes[1]), None, None, None, None
 
 
 def cspn2d_cuda(
@@ -304,10 +347,13 @@ def cspn2d_cuda(
         guidance: [N, H, W, 8] (or [N, 8, H, W] with channel_first=True).
         blur_depth: [N, H, W].
         sparse_depth: optional [N, H, W].
-        io_dtype: emulated I/O dtype of the inputs (e.g. torch.bfloat16):
-            they are rounded through it, then the f32 kernel runs; the
-            backward runs on the unrounded inputs.
-    Returns [N, H, W] float32, differentiable in guidance and blur_depth.
+        Each may be float32 or bfloat16 (read as its upcast).
+        io_dtype: the I/O dtype, None (float32) or torch.bfloat16: the
+            kernel rounds float32 inputs to bf16 as it loads them (the
+            plain version on the CPU rounds them first); the backward runs
+            on the unrounded inputs.
+    Returns [N, H, W] float32, differentiable in guidance and blur_depth
+    (gradients in their dtypes).
     """
     if guidance.device.type == "cpu":
         return _reference(guidance, blur_depth, sparse_depth, steps, norm_type,
@@ -315,7 +361,7 @@ def cspn2d_cuda(
     g_cf = (guidance if channel_first else guidance.movedim(-1, 1)).contiguous()
     for_backward = torch.is_grad_enabled() and (g_cf.requires_grad or blur_depth.requires_grad)
     if use_tiled(for_backward):
-        return torch.ops.cspn_tpu_torch.cspn2d_tiled(
-            *_round_io(g_cf, blur_depth, sparse_depth, io_dtype), steps, norm_type)
+        return torch.ops.cspn_tpu_torch.cspn2d_tiled(g_cf, blur_depth, sparse_depth, steps,
+                                                     norm_type, _io_dtype(io_dtype))
     _check_inputs(g_cf, blur_depth, sparse_depth, norm_type)
     return _Cspn2dFwd.apply(g_cf, blur_depth, sparse_depth, steps, norm_type, io_dtype)

@@ -10,8 +10,10 @@ the routes that no backward follows:
   - `probe_2d`: ops/cspn.py:cspn2d on [N, 8, H, W] guidance (the port's
     layout, as CSPNUNet hands it), blur and ~1% sparse samples: the tiled
     kernel `cspn2d_tiled` (PERF.md row 3); with `io_dtype` bfloat16 the
-    inputs are first rounded through bf16 by PyTorch casts, then the same
-    float32 kernel runs (ops/cspn.py:_round_io);
+    row feeds what the bf16 model hands the CSPN, bf16 guidance and blur
+    and the float32 sparse map, which the kernel rounds to bf16 as it
+    loads it (csrc/cspn2d_tiled.cu:cspn2d_tiled_io); the chain's feedback
+    then casts the next blur to bf16 (one plane);
   - `probe_3d`: ops/cspn.py:cspn_nd on a [N, 26, D, H, W] guide: the gate
     normalization in PyTorch, then `cspn3d_fwd` (row 7) on bf16 gates;
   - `decompose_2d`: `probe_2d` at 4 and 24 steps, split into a fixed cost
@@ -25,11 +27,13 @@ Two bounds a probe row, each the bytes over the card's peak memory rate
     4) (scripts/kernel_roofline.py:89); 3D, 26 gates, x0 and the output in
     float32, vx * 4 * 28 (:126);
   - `bytes_read_MB`, `read_sol_us`, `read_sol_fraction`: the bytes the
-    port's kernel reads and writes: 2D, float32 at every `io_dtype`, 44
-    bytes a pixel; 3D, bf16 gates, 60 bytes a voxel (PERF.md row 7).
+    port's kernel reads and writes: 2D, each input at the dtype the row
+    feeds it (`port_2d_bytes`: 44 bytes a pixel all float32, 26 for bf16
+    guidance and blur beside float32 sparse, 24 all bf16) and the float32
+    output; 3D, bf16 gates, 60 bytes a voxel (PERF.md row 7).
 The measured time also holds what the route runs in PyTorch around the
-kernel (the bf16 rounding casts, the 3D gate normalization) and the chain's
-feedback, so each fraction is of the route, not the kernel alone.  On the
+kernel (the 3D gate normalization) and the chain's feedback, so each
+fraction is of the route, not the kernel alone.  On the
 CPU the bounds are None: they are the card's.
 
 Prints one JSON line a row and writes them to
@@ -52,9 +56,16 @@ from cspn_tpu_torch.experiments import device_arg, platform_fields
 from cspn_tpu_torch.timing import default_out, log, slope_seconds, write_jsonl
 
 REPS_LO, REPS_HI, TRIALS = 16, 144, 5
-# bytes a pixel the 2D kernel reads and writes: 10 float32 input planes
-# (8 gates, blur, sparse) and the float32 output, at every io_dtype
-PORT_2D_BYTES = 4 * 10 + 4
+def port_2d_bytes(guidance=torch.float32, blur=torch.float32, sparse=torch.float32) -> int:
+    """Bytes a pixel the 2D kernel reads and writes: its 10 input planes (8
+    gates, blur, sparse), each at the dtype it is fed (bf16 read as it is,
+    float32 read as float32 at either io_dtype), and the float32 output."""
+    size = lambda dt: torch.empty((), dtype=dt).element_size()  # noqa: E731
+    return 8 * size(guidance) + size(blur) + size(sparse) + 4
+
+
+# all float32
+PORT_2D_BYTES = port_2d_bytes()
 # bytes a voxel the 3D kernel reads and writes: 26 bf16 gates, x0 and the
 # output in float32
 PORT_3D_BYTES = 2 * 26 + 4 + 4
@@ -103,10 +114,13 @@ def roofline(t: float, n: int, px: int, steps: int, bytes_min: float, bytes_read
 
 
 def roofline_2d(t: float, n: int, h: int, w: int, steps: int, io_dtype,
-                hbm_bps: float | None) -> dict:
+                hbm_bps: float | None, read_bytes: int = PORT_2D_BYTES) -> dict:
+    """`roofline` of a 2D row: the work-defined bytes at `io_dtype`'s width,
+    the bytes read `read_bytes` a pixel (`port_2d_bytes` of the inputs the
+    row feeds)."""
     io_bytes = 2 if io_dtype is not None else 4
     px = n * h * w
-    return roofline(t, n, h * w, steps, px * (io_bytes * 10 + 4), px * PORT_2D_BYTES, hbm_bps)
+    return roofline(t, n, h * w, steps, px * (io_bytes * 10 + 4), px * read_bytes, hbm_bps)
 
 
 def roofline_3d(t: float, n: int, d: int, h: int, w: int, steps: int,
@@ -138,9 +152,10 @@ def probe_2d(n=16, h=228, w=304, steps=24, io_dtype=None, device=None,
 
     dev = resolve_device(device)
     rng = np.random.default_rng()
+    heads = torch.float32 if io_dtype is None else io_dtype  # the bf16 model's heads
     with torch.inference_mode():
-        g = torch.from_numpy(rng.standard_normal((n, 8, h, w)).astype(np.float32)).to(dev)
-        b = torch.from_numpy(rng.standard_normal((n, h, w)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((n, 8, h, w)).astype(np.float32)).to(dev, heads)
+        b = torch.from_numpy(rng.standard_normal((n, h, w)).astype(np.float32)).to(dev, heads)
         s = torch.from_numpy(((rng.random((n, h, w)) < 0.01)
                               * np.abs(rng.standard_normal((n, h, w)))).astype(np.float32)).to(dev)
 
@@ -149,7 +164,7 @@ def probe_2d(n=16, h=228, w=304, steps=24, io_dtype=None, device=None,
                 bi = b
                 for _ in range(k):
                     y = cspn2d(g, bi, s, steps=steps, io_dtype=io_dtype, channel_first=True)
-                    bi = bi * 0.999 + y * 1e-6
+                    bi = (bi * 0.999 + y * 1e-6).to(b.dtype)
                 return bi
             return run
 
@@ -158,7 +173,9 @@ def probe_2d(n=16, h=228, w=304, steps=24, io_dtype=None, device=None,
         "kernel": "cspn2d_tiled" + ("_bf16io" if io_dtype is not None else ""),
         "shape": f"{n}x{h}x{w}x8g",
         "steps": steps,
-        **roofline_2d(t, n, h, w, steps, io_dtype, hbm_bytes_per_s(dev)),
+        "input_dtypes": [str(t.dtype).removeprefix("torch.") for t in (g, b, s)],
+        **roofline_2d(t, n, h, w, steps, io_dtype, hbm_bytes_per_s(dev),
+                      port_2d_bytes(g.dtype, b.dtype, s.dtype)),
         "timing": timing,
     }
 

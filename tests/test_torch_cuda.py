@@ -13,7 +13,8 @@ one (and without JAX, which tests/conftest.py imports) run:
 Tolerance: 1e-4 x max|plain| (FMA contraction and summation order differ),
 for the output and for each gradient; the depth-to-space kernels move
 values and are held bit for bit, and the tiled 2D forward to the
-states-keeping one's values; the probe's bf16-state pair within 1e-2 x max|plain| (its
+states-keeping one's values and, on bf16 inputs or float32 ones rounded in
+registers, to its own values on `_round_io`'s inputs; the probe's bf16-state pair within 1e-2 x max|plain| (its
 bf16 FMA rounds once where the plain version may round twice).
 """
 
@@ -673,6 +674,113 @@ def test_tiled_failed_build_raises(gen, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
         cspn_cuda.cspn2d_cuda(g, b, s, steps=4, channel_first=True)
     assert cspn_cuda.tiled_launches == before
+
+
+# --- the tiled forward on bf16 inputs (csrc/cspn2d_tiled.cu:cspn2d_tiled_io) ---
+
+
+@pytest.mark.parametrize("norm_type", ["8sum", "8sum_abs"])
+@pytest.mark.parametrize("with_sparse", [True, False])
+@pytest.mark.parametrize("steps", [0, 1, 12, 13, 24])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 13, 17), (2, 75, 101), (8, 228, 304)])
+def test_tiled_kernel_reads_bf16_inputs(gen, shape, steps, with_sparse, norm_type):
+    """bf16 inputs, and float32 inputs rounded in registers at io_dtype
+    bfloat16, give the float32 kernel's values on `_round_io`'s inputs bit
+    for bit; bf16 heads beside a float32 sparse map read it as it is (io
+    None) or rounded (bfloat16)."""
+    from cspn_tpu_torch.ops.cspn import _round_io
+
+    bf = torch.bfloat16
+    g, b, s = _inputs(gen, *shape, with_sparse)
+    g[0, :, :5, :5] = 0.0
+    s16 = None if s is None else s.to(bf)
+    want = cspn_cuda._launch_tiled(*_round_io(g, b, s, bf), steps, norm_type)
+    before = cspn_cuda.tiled_launches
+    routes = [cspn_cuda._launch_tiled(g.to(bf), b.to(bf), s16, steps, norm_type),
+              cspn_cuda._launch_tiled(g, b, s, steps, norm_type, bf),
+              cspn_cuda._launch_tiled(g.to(bf), b.to(bf), s, steps, norm_type, bf)]
+    heads = cspn_cuda._launch_tiled(g.to(bf), b.to(bf), s, steps, norm_type)
+    torch.cuda.synchronize()
+    assert cspn_cuda.tiled_launches == before + 4
+    assert all(r.dtype == torch.float32 and torch.equal(r, want) for r in routes)
+    g16, b16 = g.to(bf).float(), b.to(bf).float()
+    assert torch.equal(heads, cspn_cuda._launch_tiled(g16, b16, s, steps, norm_type))
+    plain = _plain(*_round_io(g, b, s, bf), steps, norm_type)
+    assert (want - plain).abs().max().item() <= TOL * plain.abs().max().item()
+
+
+def test_bf16_route_launches_only_the_kernel(gen):
+    """cspn2d_cuda on bf16 heads at io_dtype bfloat16, no backward
+    following: the tiled kernel's CUDA launches and nothing else (no cast,
+    no copy), by torch.profiler's host records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bf = torch.bfloat16
+    g, b, s = _inputs(gen, 2, 228, 304)
+    g16, b16 = g.to(bf), b.to(bf)
+
+    def call():
+        with torch.no_grad():
+            return cspn_cuda.cspn2d_cuda(g16, b16, s, channel_first=True, io_dtype=bf)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    host = sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunch", "cuLaunch")))
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    assert host == cspn_cuda.cuda_launches_per_call(24)["cspn2d_tiled"]
+    assert all("cspn2d_tiled_kernel" in k for k in kernels), kernels
+
+
+def test_bf16_train_routes_on_the_card(gen):
+    """Under autograd: bf16 inputs without I/O rounding run cspn2d_fwd on
+    their upcast and the backward on its kept states; at io_dtype bfloat16
+    the tiled kernel and the replaying backward on the unrounded inputs.
+    Both give the float32 route's values and gradients, in bf16."""
+    bf = torch.bfloat16
+    g, b, s = _inputs(gen, 2, 40, 56)
+    ct = torch.randn(2, 40, 56, device="cuda", generator=gen)
+    g16, b16 = g.to(bf), b.to(bf)
+
+    def counts():
+        return cspn_cuda.tiled_launches, cspn_cuda.launches, cspn_cuda.bwd_launches
+
+    def run(io_dtype):
+        gk, bk = g16.clone().requires_grad_(True), b16.clone().requires_grad_(True)
+        out = cspn_cuda.cspn2d_cuda(gk, bk, s, channel_first=True, io_dtype=io_dtype)
+        return (out, *torch.autograd.grad((out * ct).sum(), (gk, bk)))
+
+    want = _grads(lambda g_, b_, s_: cspn_cuda.cspn2d_cuda(g_, b_, s_, channel_first=True),
+                  g16.float(), b16.float(), s, ct)
+    before = counts()
+    kept = run(None)
+    assert counts() == (before[0], before[1] + 1, before[2] + 1)
+    replayed = run(bf)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    for got in (kept, replayed):
+        assert got[0].dtype == torch.float32 and got[1].dtype == got[2].dtype == bf
+        assert all(torch.equal(a, x.to(bf)) for a, x in zip(got[1:], want))
+    assert torch.equal(kept[0], cspn_cuda._launch(g16.float(), b16.float(), s, 24, "8sum")[0])
+    assert torch.equal(replayed[0], cspn_cuda._launch_tiled(g16, b16, s, 24, "8sum", bf))
+
+
+def test_bf16_route_refuses_what_the_kernel_does_not_take(gen):
+    bf = torch.bfloat16
+    g, b, s = _inputs(gen, 2, 13, 17)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cspn_cuda.cspn2d_cuda(g.half(), b.to(bf), s, channel_first=True)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cspn_cuda.cspn2d_cuda(g.to(bf), b.to(bf), s.double(), channel_first=True)
+        with pytest.raises(ValueError, match="on cpu"):
+            cspn_cuda.cspn2d_cuda(g.to(bf), b.to(bf).cpu(), s, channel_first=True)
+        with pytest.raises(ValueError, match="I/O dtype"):
+            cspn_cuda.cspn2d_cuda(g, b, s, channel_first=True, io_dtype=torch.float16)
 
 
 # --- the redesigned tile kernels at their edges (csrc/cspn2d_march.cuh) ---
