@@ -33,6 +33,12 @@ the JAX package's v5e crossover (cspn_tpu/serving.py:11-18); the H100's is
 measured by chip_smoke.py phase 13 and written down in PERF.md.  Both
 models hold the same bf16-cast weights (`load_server`).  The 2D CSPN runs
 float32 on both paths.
+
+Tracing (utils/tracing.py): under a torch.profiler session `predict` marks
+`serve.predict`, and inside it `serve.h2d`, one `serve.b<bucket>` a chunk
+and `serve.d2h`.  Always on, the module's `computed_frames` (rows the
+bucket forwards of `predict` ran, padding included) and `padded_frames`
+(the pad rows among them) count the serving work padding costs.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ import numpy as np
 import torch
 
 from cspn_tpu_torch.config import RunConfig
+from cspn_tpu_torch.utils.tracing import span
+
+# `predict`'s padding counters (module docstring), over every server of the process
+computed_frames = 0
+padded_frames = 0
 
 # eager forwards on a side stream before a bucket's capture
 WARMUP_FORWARDS = 3
@@ -166,6 +177,7 @@ class DepthServer:
         self.models = {"bf16": model_bf16, "int8": model_int8}
         self.device = next(model_bf16.parameters()).device
         self.buckets = tuple(int(b) for b in buckets)
+        self._spans = {b: f"serve.b{b}" for b in self.buckets}  # `predict`'s span a bucket
         self.int8_from = int8_from
         self.served = {"bf16": 0, "int8": 0}  # request samples per path (observability)
         on_card = self.device.type == "cuda"
@@ -223,16 +235,24 @@ class DepthServer:
         N is arbitrary: chunked over the top bucket, the remainder
         zero-padded up to its bucket and sliced back.
         """
-        x = torch.as_tensor(rgbd, dtype=torch.float32)
-        if x.ndim != 4:
-            raise ValueError(f"expected NHWC rgbd, got shape {tuple(x.shape)}")
-        x = x.to(self.device)
-        outs = []
-        start = 0
-        for size in chunk_plan(x.shape[0], self.buckets):
-            outs.append(self._run_bucket(x[start : start + size], pick_bucket(size, self.buckets)))
-            start += size
-        return torch.cat(outs).cpu().numpy()
+        global computed_frames, padded_frames
+        with span("serve.predict"):
+            with span("serve.h2d"):
+                x = torch.as_tensor(rgbd, dtype=torch.float32)
+                if x.ndim != 4:
+                    raise ValueError(f"expected NHWC rgbd, got shape {tuple(x.shape)}")
+                x = x.to(self.device)
+            outs = []
+            start = 0
+            for size in chunk_plan(x.shape[0], self.buckets):
+                bucket = pick_bucket(size, self.buckets)
+                with span(self._spans[bucket]):
+                    outs.append(self._run_bucket(x[start : start + size], bucket))
+                computed_frames += bucket
+                padded_frames += bucket - size
+                start += size
+            with span("serve.d2h"):
+                return torch.cat(outs).cpu().numpy()
 
     def warmup(self, height: int, width: int) -> None:
         """Run every bucket once at the serving geometry, capturing its graph

@@ -47,6 +47,7 @@ from cspn_tpu_torch.train.lr_schedule import ReduceLROnPlateau
 from cspn_tpu_torch.train.metrics import METRIC_KEYS, ROOT_KEYS, evaluate_error, metric_counts
 from cspn_tpu_torch.train.state import TrainState, make_optimizer, partial_restore, set_learning_rate
 from cspn_tpu_torch.utils.profiling import StepTimer
+from cspn_tpu_torch.utils.tracing import span
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss_name: str = "l1",
                     data_parallel: Optional[DataParallel] = None):
@@ -55,7 +56,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, lo
     next step.  With `data_parallel` (of `model`), the step runs its
     module and its reduce; loss and metrics come back averaged over the
     ranks.  On the sync-BN route berHu's threshold spans the global batch
-    (train/loss.py), as in the JAX package's GSPMD step."""
+    (train/loss.py), as in the JAX package's GSPMD step.  Under a
+    torch.profiler session each statement of the step lies in one span
+    (utils/tracing.py): `step.optimizer` (train mode and zero_grad),
+    `step.forward`, `step.loss`, `step.backward`, `step.optimizer`
+    (optimizer.step), `step.metrics`."""
     loss_fn = LOSSES[loss_name]
     group = None if data_parallel is None else data_parallel.loss_group
     if loss_name == "berhu" and group is not None:
@@ -63,17 +68,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, lo
     forward = model if data_parallel is None else data_parallel.module
 
     def train_step(rgbd, depth):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        out = forward(rgbd)
-        loss = loss_fn(out, depth)
-        if data_parallel is not None:
-            loss = data_parallel.scale_loss(loss, (depth > VALID_THRESHOLD).sum())
-        loss.backward()
-        if data_parallel is not None:
-            data_parallel.after_backward()
-        optimizer.step()
-        with torch.no_grad():
+        with span("step.optimizer"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+        with span("step.forward"):
+            out = forward(rgbd)
+        with span("step.loss"):
+            loss = loss_fn(out, depth)
+            if data_parallel is not None:
+                loss = data_parallel.scale_loss(loss, (depth > VALID_THRESHOLD).sum())
+        with span("step.backward"):
+            loss.backward()
+            if data_parallel is not None:
+                data_parallel.after_backward()
+        with span("step.optimizer"):
+            optimizer.step()
+        with span("step.metrics"), torch.no_grad():
             loss, error = loss.detach(), evaluate_error(depth, out.detach())
             if data_parallel is not None:
                 loss, error = data_parallel.after_step(loss, error, metric_counts(depth, out),
@@ -175,8 +185,9 @@ class Trainer:
         return ckpt_lib.state_to_tree(self.state, epoch, self.best_rmse, self.scheduler.lr)
 
     def _to_device(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        return (torch.from_numpy(batch["rgbd"]).to(self.device),
-                torch.from_numpy(batch["depth"]).to(self.device))
+        with span("step.h2d"):
+            return (torch.from_numpy(batch["rgbd"]).to(self.device),
+                    torch.from_numpy(batch["depth"]).to(self.device))
 
     def _log(self, msg: str) -> None:
         if self.main:

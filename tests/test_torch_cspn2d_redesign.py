@@ -353,17 +353,3 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
     out, err = capsys.readouterr()
     assert out == "" and "needs an NVIDIA GPU" in err
 
-
-def test_profiler_records_refuses_to_run_without_a_card(monkeypatch, capsys):
-    """utils/profiler_records.py exits non-zero and prints nothing on
-    stdout where torch.cuda.is_available() is false, and names the segment
-    backward's kernels by their CUDA names."""
-    from cspn_tpu_torch.utils import profiler_records
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert profiler_records.main(["--sessions", "1"]) == 1
-    out, err = capsys.readouterr()
-    assert out == "" and "measures the card" in err
-    names = ["(anonymous namespace)::halo_seg_reverse_kernel(float const*, int)",
-             "(anonymous namespace)::keep_epilogue_kernel(float const*, int)"]
-    assert [profiler_records._kernel(n) for n in names] == ["reverse", "epilogue"]
