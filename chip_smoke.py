@@ -301,12 +301,13 @@ def log(msg: str) -> None:
 
 KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d",
                 "cspn2d_tiled", "paddle2d", "step_probe", "cspn2d_halo_seg",
-                "cspn2d_halo_seg_bwd")
+                "cspn2d_halo_seg_bwd", "act_absmax", "int8_taps", "int8_dequant")
 
 
 def reset_launches() -> None:
     """Every kernel's launch count and the sharded CSPN's exchange count to 0."""
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.ops import (cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda,
+                                    d2s, quant_cuda)
     from cspn_tpu_torch.parallel import halo
     from cspn_tpu_torch.utils import step_probe
 
@@ -315,17 +316,21 @@ def reset_launches() -> None:
     d2s.launches = d2s.bwd_launches = 0
     cspn_paddle2d_cuda.launches = step_probe.launches = 0
     cspn_halo_cuda.launches = cspn_halo_cuda.bwd_launches = halo.exchanges = 0
+    quant_cuda.absmax_launches = quant_cuda.taps_launches = quant_cuda.dequant_launches = 0
 
 
 def read_launches() -> dict:
-    from cspn_tpu_torch.ops import cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda, d2s
+    from cspn_tpu_torch.ops import (cspn3d_cuda, cspn_cuda, cspn_halo_cuda, cspn_paddle2d_cuda,
+                                    d2s, quant_cuda)
     from cspn_tpu_torch.utils import step_probe
 
     return dict(zip(KERNEL_NAMES, (cspn_cuda.launches, cspn_cuda.bwd_launches,
                                    cspn3d_cuda.launches, cspn3d_cuda.bwd_launches,
                                    d2s.launches, d2s.bwd_launches, cspn_cuda.tiled_launches,
                                    cspn_paddle2d_cuda.launches, step_probe.launches,
-                                   cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches)))
+                                   cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches,
+                                   quant_cuda.absmax_launches, quant_cuda.taps_launches,
+                                   quant_cuda.dequant_launches)))
 
 
 def d2s_per_forward(model) -> int:
@@ -2062,6 +2067,190 @@ def paddle_inputs(gen, n, h, w, c, channel_first=False):
     return guide, feat
 
 
+# phase 3: the int8 conv's kernels at every QuantConv of the int8 nyu
+# CSPN-UNet (ResNet-50, 228x304): the served int8 buckets and the offline
+# cell's batch
+INT8_BATCHES = (8, 32, 128)
+INT8_KERNELS = ("act_absmax", "int8_taps", "int8_dequant")
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """QuantConv on the PyTorch route on the card within the block (the
+    PyTorch passes around `_int_mm`, utils/quant.py) in place of the int8
+    kernels."""
+    from cspn_tpu_torch.utils import quant
+
+    saved = quant.QuantConv._products_kernels
+    quant.QuantConv._products_kernels = quant.QuantConv._products_plain
+    try:
+        yield
+    finally:
+        quant.QuantConv._products_kernels = saved
+
+
+def _int8_conv_case(qc, x, gen, times: dict | None) -> None:
+    """One QuantConv's input `x` as the forward hands it over: its
+    channels-last copy through act_absmax, each product's int8_taps and
+    int8_dequant, held bit for bit to the PyTorch route's passes on the
+    same card, on the dynamic scale and on a static one calibrated on x;
+    with `times`, each kernel and its PyTorch passes timed queued into it
+    (ms, plain_ms, bytes, summed over the calls)."""
+    import torch.nn.functional as F
+
+    from cspn_tpu_torch.ops import quant_cuda
+    from cspn_tpu_torch.utils import quant
+
+    ops = torch.ops.cspn_tpu_torch
+    xc = x.contiguous(memory_format=torch.channels_last)
+    n = x.shape[0]
+    convs = [((wq, ws, wm), (ph, pw))
+             for (wq, ws, wm), (_, ph, pw) in zip(qc.quantized_weights(), qc._convs(qc.weight))]
+    static = x.abs().amax().float().clamp_min(1e-12) / 127.0
+    xq, xs = quant.quantize_tensor(x)
+    scale = ops.act_absmax(xc)
+    if not torch.equal(scale, xs.reshape(-1)):
+        raise AssertionError(f"act_absmax {tuple(x.shape)}: scales differ from quantize_tensor's")
+
+    def plain_scale():
+        return (x.abs().amax(dim=(1, 2, 3)).clamp_min(1e-12) / 127.0).reshape(-1)
+
+    if times is not None:
+        t = times["act_absmax"]
+        t["ms"] += time_queued_ms(lambda: ops.act_absmax(xc))
+        t["plain_ms"] += time_queued_ms(plain_scale, calls=5, reps=3)
+        t["bytes"] += x.numel() * x.element_size()
+    for route, s, q in (("dynamic", scale, xq), ("static", static, None)):
+        if q is None:
+            q, _ = quant.quantize_tensor_static(x, static)
+        for (wq, ws, wm), (ph, pw) in convs:
+            kh, kw = wq.shape[2:]
+            args = (kh, kw, qc.stride[0], *ph, *pw, wm.shape[1])
+            a = ops.int8_taps(xc, s, *args)
+            taps, ho, wo = quant._taps(q, (kh, kw), qc.stride[0], (ph, pw))
+            m, o = taps.shape[0], wq.shape[0]
+            want_a = F.pad(taps, (0, wm.shape[1] - taps.shape[1], 0,
+                                  max(quant_cuda.MIN_ROWS - m, 0)))
+            if not torch.equal(a, want_a):
+                raise AssertionError(f"int8_taps {tuple(x.shape)} {kh}x{kw} ({route}): A differs "
+                                     "from _taps' padded")
+            acc = torch._int_mm(a, wm.t())
+            y = ops.int8_dequant(acc, s, ws, n, ho, wo, x.dtype)
+            want_y = quant.int8_conv_prequant(q, s, wq, ws, qc.stride[0], (ph, pw), x.dtype, wm)
+            if not torch.equal(y.permute(0, 3, 1, 2), want_y):
+                raise AssertionError(f"int8_dequant {tuple(x.shape)} {kh}x{kw} ({route}): the "
+                                     "output differs from int8_conv_prequant's")
+            if times is None or route != "dynamic":
+                continue
+
+            def plain_taps():
+                qq, _ = quant.quantize_tensor_static(x, xs)
+                tt, _, _ = quant._taps(qq, (kh, kw), qc.stride[0], (ph, pw))
+                return F.pad(tt, (0, wm.shape[1] - tt.shape[1], 0, max(quant_cuda.MIN_ROWS - m, 0)))
+
+            def plain_dequant():
+                yy = acc[:m, :o].view(n, ho, wo, o)
+                return (yy.float() * (xs * ws)).to(x.dtype)
+
+            t = times["int8_taps"]
+            t["ms"] += time_queued_ms(lambda: ops.int8_taps(xc, s, *args))
+            t["plain_ms"] += time_queued_ms(plain_taps, calls=5, reps=3)
+            t["bytes"] += x.numel() * x.element_size() + a.numel()
+            t = times["int8_dequant"]
+            t["ms"] += time_queued_ms(lambda: ops.int8_dequant(acc, s, ws, n, ho, wo, x.dtype))
+            t["plain_ms"] += time_queued_ms(plain_dequant, calls=5, reps=3)
+            t["bytes"] += m * o * (4 + y.element_size())
+
+
+def check_int8_kernels(name: str) -> list[dict]:
+    """Phase 3: the int8 conv's kernels (ops/quant_cuda.py) at every
+    QuantConv of the int8 nyu CSPN-UNet (ResNet-50, 228x304, seeded random
+    weights cast to bf16) at INT8_BATCHES: a forward pre-hook hands each
+    conv's input to _int8_conv_case (every value bit for bit against the
+    PyTorch route's passes, both scale routes; each kernel timed queued
+    beside its passes: the scale's abs / amax / clamp / divide, quantize +
+    `_taps` + padding, slice + dequantization).  Then the whole forward on
+    the kernels against it on the PyTorch route (plain_int8), bit for bit,
+    with its launches (quant.kernel_launches: 64 / 82 / 82).  One row a
+    kernel, its times summed over a forward's calls, `ms` at b128 (the
+    offline cell's batch), every batch under `by_batch`; the bound is the
+    bytes each moves once (the activation read, A or the used product
+    read, the output written) over the card's bandwidth."""
+    import dataclasses
+
+    from cspn_tpu_torch.train import evaluate
+    from cspn_tpu_torch.utils import quant
+    from cspn_tpu_torch.utils.precision import cast_floating
+    from cspn_tpu_torch.utils.profiling import nyu_eval_synthetic
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cfg = nyu_eval_synthetic()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="int8"))
+    model = evaluate.build_model(cfg, device="cuda")
+    model.load_state_dict(cast_floating(model.state_dict()), assign=True)
+    quant.build_weight_qcache(model)
+    per_forward = quant.kernel_launches(model)
+    h, w = cfg.data.crop_hw
+    by_batch, copies = {}, 0
+    for b in INT8_BATCHES:
+        times = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0} for k in INT8_KERNELS}
+        seen = []
+
+        def hook(mod, args):
+            seen.append(args[0].is_contiguous(memory_format=torch.channels_last))
+            _int8_conv_case(mod, args[0], gen, times)
+
+        x = torch.randn(b, h, w, 4, device="cuda", generator=gen)
+        handles = [m.register_forward_pre_hook(hook) for m in quant.quant_convs(model).values()]
+        try:
+            with torch.no_grad():
+                model(x)
+        finally:
+            for handle in handles:
+                handle.remove()
+        copies = len(seen) - sum(seen)
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.no_grad():
+            got = model(x)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_launches().items() if k in INT8_KERNELS}
+            with plain_int8():
+                want = model(x)
+        torch.cuda.synchronize()
+        if launches != per_forward or not torch.equal(got, want):
+            raise AssertionError(f"int8 nyu b{b}: launches {launches} (expected {per_forward}), "
+                                 f"output equal to the PyTorch route's: {torch.equal(got, want)}")
+        for k, t in times.items():
+            t["bound_ms"], t["bound_by"], _, _ = bound(name, t["bytes"], 0)
+        by_batch[b] = times
+        log(f"  int8 conv kernels, nyu b{b} ({len(seen)} QuantConvs, {copies} inputs not "
+            f"channels-last; every scale, A and output bit for bit, both scale routes; the "
+            f"forward equal to the PyTorch route's, launches {launches}), ms a forward, kernel / "
+            f"PyTorch passes / bound: " + "; ".join(
+                f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / {t['bound_ms']:.4f}"
+                for k, t in times.items()) + f" on {name}")
+        del got, want, x
+        torch.cuda.empty_cache()
+    main = by_batch[INT8_BATCHES[-1]]
+    return [{
+        "name": k,
+        "route": "cuda",
+        "source": "cspn_tpu_torch/csrc/int8_conv.cu",
+        "replaces": None,  # the JAX package leaves its int8 conv to XLA
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": main[k]["ms"],
+        "plain_ms": main[k]["plain_ms"],
+        "bound_ms": main[k]["bound_ms"],
+        "bound_by": main[k]["bound_by"],
+        "library_ms": None,  # no single PyTorch call quantizes into an im2col
+        "launches_a_forward": per_forward[k],
+        "inputs_not_channels_last": copies,
+        "by_batch": {f"b{b}": t[k] for b, t in by_batch.items()},
+    } for k in INT8_KERNELS]
+
+
 # the paddle kernel's launch splits (12 steps a launch)
 PADDLE_SPLITS = (0, 1, 11, 12, 13, STEPS)
 
@@ -2424,7 +2613,10 @@ COUNTER_KERNELS = {("cspn_tpu_torch.ops.cspn_cuda", "launches"): "cspn2d_fwd",
                    ("cspn_tpu_torch.ops.d2s", "launches"): "d2s",
                    ("cspn_tpu_torch.ops.d2s", "bwd_launches"): "s2d",
                    ("cspn_tpu_torch.ops.cspn_halo_cuda", "launches"): "cspn2d_halo_seg",
-                   ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"): "cspn2d_halo_seg_bwd"}
+                   ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"): "cspn2d_halo_seg_bwd",
+                   ("cspn_tpu_torch.ops.quant_cuda", "absmax_launches"): "act_absmax",
+                   ("cspn_tpu_torch.ops.quant_cuda", "taps_launches"): "int8_taps",
+                   ("cspn_tpu_torch.ops.quant_cuda", "dequant_launches"): "int8_dequant"}
 GRAPH_WINDOW = 16  # requests of a bucket's served-rate window, graphed and eager in turns
 GRAPH_REPLAYS = 5  # replays a torch.profiler session counts the kernels of
 
@@ -2483,6 +2675,7 @@ def check_graphed(label: str, srv, eager, reqs, frames, name: str, timed: bool =
     (ops/cspn_cuda.py:cuda_launches_per_call, one a `d2s`); then, where
     `timed`, time_graphed."""
     from cspn_tpu_torch.ops.cspn_cuda import cuda_launches_per_call
+    from cspn_tpu_torch.utils.quant import kernel_launches
 
     for r in reqs:
         got, want = srv.predict(r), eager.predict(r)
@@ -2496,8 +2689,10 @@ def check_graphed(label: str, srv, eager, reqs, frames, name: str, timed: bool =
     for (b, h, w), g in sorted(srv.graphs.items()):
         model = srv.models[srv.path_for(b)]
         per = {COUNTER_KERNELS[k]: v for k, v in g.launches.items() if v}
-        if per != want:
-            raise AssertionError(f"{label} bucket {b}: a replay counts {per}, a forward {want}")
+        # and the int8 model's conv kernels (ops/quant_cuda.py) once a QuantConv or product
+        want_b = {**want, **{k: v for k, v in kernel_launches(model).items() if v}}
+        if per != want_b:
+            raise AssertionError(f"{label} bucket {b}: a replay counts {per}, a forward {want_b}")
         cuda = dict(zip(keys, (cuda_launches_per_call(model.cspn_steps)["cspn2d_tiled"],
                                want["d2s"])))
         rec = replay_records(g.graph, keys)
@@ -3582,7 +3777,8 @@ def check_d2s_on_path(label: str, model, x, gen) -> set:
 
 def plain_twin(model):
     """A copy of a served model on the plain 2D CSPN (its bf16 or int8
-    convs, weight cache and activation scales kept)."""
+    convs, weight cache and activation scales kept; run it under
+    plain_int8 for the PyTorch route of the int8 convs)."""
     twin = copy.deepcopy(model)
     twin.cspn_backend = "reference"
     return twin
@@ -3596,9 +3792,12 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
     activation scales: each bucket's warmup with its peak memory, the
     requests' launches and per-path counters, frames/s per bucket (host
     clock) and its forward (events), and the outputs' rel-norms, bf16
-    against float32 and int8 against bf16.  Each request's output is held
-    to a plain twin's (the same models on the plain 2D CSPN and the plain
-    depth-to-space, served through a DepthServer of their own), and each
+    against float32 and int8 against bf16.  The launches include the int8
+    conv's kernels, quant.kernel_launches a forward on the int8 path (64 /
+    82 / 82 for nyu's dynamic scales).  Each request's output is held to a
+    plain twin's (the same models on the plain 2D CSPN, the plain
+    depth-to-space and the int8 convs' PyTorch route, served through a
+    DepthServer of their own), and each
     bucket's depth-to-space calls to the plain versions bit for bit
     (check_d2s_on_path).  Returns the kernels' launches on the served
     requests."""
@@ -3607,6 +3806,7 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
     from cspn_tpu_torch.serving import (WARMUP_FORWARDS, DepthServer, chunk_plan, load_server,
                                         pick_bucket)
     from cspn_tpu_torch.utils.profiling import calibrated_model
+    from cspn_tpu_torch.utils.quant import kernel_launches
 
     h, w = cfg.data.crop_hw
     model32 = calibrated_model(cfg, calib_batch=calib_batch)
@@ -3644,8 +3844,11 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
             outs = [srv.predict(frames[:n]) for n in requests]
             got = read_launches()
             forwards = len(chunks)
+            int8_forwards = sum(srv.path_for(pick_bucket(c, buckets)) == "int8" for c in chunks)
             expected = dict(dict.fromkeys(KERNEL_NAMES, 0), cspn2d_tiled=forwards,
-                            d2s=d2s_per_forward(srv.models["bf16"]) * forwards)
+                            d2s=d2s_per_forward(srv.models["bf16"]) * forwards,
+                            **{k: v * int8_forwards
+                               for k, v in kernel_launches(srv.models["int8"]).items()})
             want_served = {p_: sum(c for c in chunks if srv.path_for(pick_bucket(c, buckets)) == p_)
                            for p_ in ("bf16", "int8")}
             log(f"    requests {requests}: launches {got} (expected {expected}); served "
@@ -3662,7 +3865,7 @@ def precision_serve(name: str, label: str, cfg, buckets, int8_from: int, request
                                plain_twin(srv.models["int8"]), int8_from, cuda_graphs=False)
             torch.cuda.synchronize()
             reset_launches()
-            with decoder_d2s(d2s.depth_to_space2_ref):
+            with decoder_d2s(d2s.depth_to_space2_ref), plain_int8():
                 wants = [twin.predict(frames[:n]) for n in requests]
             torch.cuda.synchronize()
             if any(read_launches().values()) or twin.served != want_served:
@@ -4119,7 +4322,7 @@ DEPLOY_FRAMES = 4
 _SERVE_ARTIFACTS = """
 import sys, torch
 from cspn_tpu_torch import export
-from cspn_tpu_torch.ops import cspn_cuda, d2s
+from cspn_tpu_torch.ops import cspn_cuda, d2s, quant_cuda
 folder, dtypes = sys.argv[1], sys.argv[2:]
 frames = [x.cuda() for x in torch.load(folder + "/frames.pt")]
 served = {}
@@ -4130,10 +4333,13 @@ for dtype in dtypes:
     torch.cuda.synchronize()
     cspn_cuda.tiled_launches = d2s.launches = d2s.bwd_launches = 0
     cspn_cuda.launches = cspn_cuda.bwd_launches = 0
+    quant_cuda.absmax_launches = quant_cuda.taps_launches = quant_cuda.dequant_launches = 0
     outs = [art.call(x).cpu() for x in frames]
     served[dtype] = {"outputs": outs, "launches": {
         "cspn2d_tiled": cspn_cuda.tiled_launches, "d2s": d2s.launches, "s2d": d2s.bwd_launches,
-        "cspn2d_fwd": cspn_cuda.launches, "cspn2d_bwd": cspn_cuda.bwd_launches}}
+        "cspn2d_fwd": cspn_cuda.launches, "cspn2d_bwd": cspn_cuda.bwd_launches,
+        "act_absmax": quant_cuda.absmax_launches, "int8_taps": quant_cuda.taps_launches,
+        "int8_dequant": quant_cuda.dequant_launches}}
 served["models_imported"] = "cspn_tpu_torch.models" in sys.modules
 torch.save(served, folder + "/served.pt")
 """
@@ -4166,6 +4372,7 @@ def deployment_slice(name: str) -> dict:
     from cspn_tpu_torch.train.evaluate import load_eval_state
     from cspn_tpu_torch.utils.images import read_png
     from cspn_tpu_torch.utils.profiling import calibrated_model, nyu_eval_synthetic
+    from cspn_tpu_torch.utils.quant import kernel_launches
 
     cfg = nyu_eval_synthetic()
     h, w = cfg.data.crop_hw
@@ -4173,7 +4380,7 @@ def deployment_slice(name: str) -> dict:
     gen = torch.Generator().manual_seed(14)
     frames = [torch.randn((n, h, w, 4), generator=gen) for n in DEPLOY_REQUESTS]
     per_forward = {"cspn2d_tiled": 1, "d2s": d2s_per_forward(model32)}
-    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    launches, expected = dict.fromkeys(KERNEL_NAMES, 0), dict.fromkeys(KERNEL_NAMES, 0)
     eager, native, report = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as folder:
         pth = os.path.join(folder, "best_model.pth")
@@ -4208,8 +4415,11 @@ def deployment_slice(name: str) -> dict:
                     f"{time.perf_counter() - t2:.1f} s")
             art = export.load_artifact(path)
             ops = export.op_counts(art.program)
-            if ops != per_forward:
-                raise AssertionError(f"{dtype} graph holds ops {ops}, expected {per_forward}")
+            want_ops = {**per_forward, **{k: v for k, v in kernel_launches(model).items() if v}}
+            if ops != want_ops:
+                raise AssertionError(f"{dtype} graph holds ops {ops}, expected {want_ops}")
+            for k, v in ops.items():  # each op of the graph launches once a call
+                expected[k] += v * len(DEPLOY_REQUESTS)
             size = os.path.getsize(path)
             with torch.no_grad():
                 eager[dtype] = [model(x.cuda()).cpu() for x in frames]
@@ -4240,9 +4450,6 @@ def deployment_slice(name: str) -> dict:
                 "eager " + ", ".join(f"b{b} {t:.3f}" for b, t in times["eager"]) + "; exported "
                 + ", ".join(f"b{b} {t:.3f}" for b, t in times["exported"]) + f" on {name}")
             del model, art
-        expected = dict(dict.fromkeys(KERNEL_NAMES, 0),
-                        **{k: v * len(DEPLOY_REQUESTS) * len(DEPLOY_DTYPES)
-                           for k, v in per_forward.items()})
         if launches != expected:
             raise AssertionError(f"exported programs launched {launches}, expected {expected}")
         log(f"  served b {DEPLOY_REQUESTS} on each artifact in this process: launches "
@@ -4258,8 +4465,8 @@ def deployment_slice(name: str) -> dict:
         if served.pop("models_imported"):
             raise AssertionError("loading and serving an artifact imported cspn_tpu_torch.models")
         for dtype, got in served.items():
-            want = {k: v * len(DEPLOY_REQUESTS) for k, v in per_forward.items()}
-            want.update(s2d=0, cspn2d_fwd=0, cspn2d_bwd=0)
+            want = dict(dict.fromkeys(got["launches"], 0),
+                        **{k: v * len(DEPLOY_REQUESTS) for k, v in report[dtype]["ops"].items()})
             if got["launches"] != want:
                 raise AssertionError(f"{dtype} in a fresh process launched {got['launches']}, "
                                      f"expected {want}")
@@ -4935,10 +5142,19 @@ def experiments_slice(name: str) -> dict:
         got = read_launches()
         variants = len(precision_deltas.IO_VARIANTS) + len(precision_deltas.DTYPE_VARIANTS)
         forwards = 4 * 5 * variants  # 8 val frames at b2, 5 runs
+        int8_forwards = 4 * 5 * sum(d == "int8" for d, _, _ in
+                                    precision_deltas.DTYPE_VARIANTS.values())
+        # the int8 variants' conv kernels: taps and dequantize once a product, the
+        # abs-max once a QuantConv on dynamic scales (and in calibration)
         if got["cspn2d_tiled"] < forwards or got["d2s"] < forwards or any(
-                got[k] for k in KERNEL_NAMES if k not in ("cspn2d_tiled", "d2s")):
+                got[k] for k in KERNEL_NAMES
+                if k not in ("cspn2d_tiled", "d2s", "act_absmax", "int8_taps", "int8_dequant")) \
+                or got["int8_taps"] != got["int8_dequant"] or got["int8_taps"] < int8_forwards \
+                or not 0 < got["act_absmax"] < got["int8_taps"]:
             raise AssertionError(f"(c) precision deltas: launches {got}, expected at least "
-                                 f"{forwards} cspn2d_tiled and d2s and nothing else")
+                                 f"{forwards} cspn2d_tiled and d2s, at least {int8_forwards} "
+                                 "int8_taps, as many int8_dequant, fewer act_absmax and "
+                                 "nothing else")
         for variant, rs in prec["per_run"].items():
             for i, r in enumerate(rs):
                 _finite_metrics(f"(c) {variant} run {i}", r)
@@ -5006,11 +5222,13 @@ def timing_slice(name: str) -> dict:
     from cspn_tpu_torch.timing import (kernel_roofline, latency_bench, loader_bench,
                                        loader_profile, missing_keys, stereo_bench,
                                        stereo_train_bench, train_bench)
+    from cspn_tpu_torch.utils.quant import kernel_launches
 
     t_phase = time.perf_counter()
     total = dict.fromkeys(KERNEL_NAMES, 0)
     with torch.device("meta"):
         per_fwd = d2s_per_forward(CSPNUNet(*LAYERS[50], STEPS))
+        int8_fwd = kernel_launches(CSPNUNet(*LAYERS[50], STEPS, dtype=torch.bfloat16, quant=True))
 
     def keys(label: str, rec, schema) -> None:
         missing = missing_keys(rec, schema)
@@ -5037,13 +5255,18 @@ def timing_slice(name: str) -> dict:
 
         # serving latency: every path and batch; a row's forwards are its
         # capture's warmup chain, one warm replay and the trials' replays,
-        # and int8_static calibrates on one b8 forward
-        forwards = (len(latency_bench.PATHS) * len(latency_bench.BATCHES)
-                    * (2 + TIMING_TRIALS) * TIMING_LATENCY_REPEATS + 1)
+        # and int8_static calibrates on one b8 forward (dynamic scales, as
+        # the int8 path's forwards; int8_static's own take no abs-max)
+        path_fwds = len(latency_bench.BATCHES) * (2 + TIMING_TRIALS) * TIMING_LATENCY_REPEATS
+        forwards = len(latency_bench.PATHS) * path_fwds + 1
+        int8_dynamic, int8_all = path_fwds + 1, 2 * path_fwds + 1
         lat = run("latency_bench", lambda: latency_bench.main(
             ["--repeats", str(TIMING_LATENCY_REPEATS), "--trials", str(TIMING_TRIALS)]
             + out("latency_bench.json")),
-            lambda _: dict(cspn2d_tiled=forwards, d2s=forwards * per_fwd))
+            lambda _: dict(cspn2d_tiled=forwards, d2s=forwards * per_fwd,
+                           act_absmax=int8_fwd["act_absmax"] * int8_dynamic,
+                           int8_taps=int8_fwd["int8_taps"] * int8_all,
+                           int8_dequant=int8_fwd["int8_dequant"] * int8_all))
         keys("latency_bench", lat, latency_bench.JAX_KEYS)
         _positive("latency_bench", qcache_build_ms=lat["qcache_build_ms"],
                   **{f"{r['path']} b{r['batch']}": r["latency_ms"] for r in lat["results"]})
@@ -5184,7 +5407,8 @@ def main(argv=None) -> int:
     tiled = check_tiled_kernel(name)
     rows = [check_cspn_kernel(name), check_cspn_bwd_kernel(name), check_cspn3d_kernel(name),
             check_cspn3d_bwd_kernel(name), *check_d2s_kernels(name), tiled,
-            check_paddle2d_kernel(name), check_step_probe(name), *check_halo_seg_kernels(name)]
+            check_paddle2d_kernel(name), check_step_probe(name), *check_halo_seg_kernels(name),
+            *check_int8_kernels(name)]
     check_cspn3d_bf16_gates(name, rows[2], rows[3])
     tiled["fwd_routes"] = time_fwd_routes(name)
     kernel_ms = {r["name"]: r["ms"] for r in rows}

@@ -31,9 +31,11 @@ as the JAX artifact's `call(variables, [qcache,] x)` does.
 Devices.  The ops dispatch when the graph is traced, as JAX's CSPN backend
 resolves at trace time: an artifact exported on the card holds the
 hand-written kernels as the custom ops `cspn_tpu_torch::cspn2d_tiled` (once)
-and `cspn_tpu_torch::d2s` (once per subpixel conv, 9 in the CSPN-UNet) and
-serves on the card only; one exported on the CPU holds the plain CSPN and
-depth-to-space.  The meta records the device and `load_artifact` refuses a
+and `cspn_tpu_torch::d2s` (once per subpixel conv, 9 in the CSPN-UNet), at
+int8 also the int8 conv's `act_absmax` (once per QuantConv with dynamic
+scales), `int8_taps` and `int8_dequant` (once per conv product,
+utils/quant.py:kernel_launches), and serves on the card only; one exported
+on the CPU holds the plain CSPN, depth-to-space and int8 glue.  The meta records the device and `load_artifact` refuses a
 CUDA artifact where no card is visible.
 
 Two faults of the JAX package are not carried over (ADVICE.md r5): the
@@ -54,7 +56,7 @@ import torch
 from torch import nn
 
 from cspn_tpu_torch import set_conv_policy
-from cspn_tpu_torch.ops import cspn_cuda, d2s  # noqa: F401  (registers the graph's custom ops)
+from cspn_tpu_torch.ops import cspn_cuda, d2s, quant_cuda  # noqa: F401  (registers the graph's custom ops)
 
 MAGIC = "cspn_tpu_torch.export/1"
 META_FILE = "cspn_tpu_torch.json"

@@ -90,6 +90,14 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         "step_probe.cu",
         {"step_probe": [_c_void_p] * 3 + [_c_int] * 4 + [_c_void_p]},
     ),
+    "int8_conv": (
+        "int8_conv.cu",
+        {"act_absmax": [_c_void_p, ctypes.c_longlong, _c_int, _c_void_p, _c_void_p, _c_void_p],
+         "int8_taps": [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p] + [_c_int] * 13
+                      + [_c_void_p],
+         "int8_dequant": [_c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_int,
+                          _c_void_p, _c_int, _c_int, _c_int, _c_void_p]},
+    ),
 }
 
 HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-pthread", "-Wall")

@@ -20,9 +20,10 @@ top bucket replays one graph more than once).  A capture that fails
 raises: there is no eager fallback on the card; `cuda_graphs=False` gives
 the eager server that chip_smoke.py holds the graphs against.  On the CPU
 the server runs eagerly.  The kernel wrappers count their launches where
-they launch (ops/cspn_cuda.py, ops/d2s.py), which a capture does once and
-a replay never: the server takes back what a capture counted and adds it
-again at every replay (`LAUNCH_COUNTERS`), so the counts stay exact.
+they launch (ops/cspn_cuda.py, ops/d2s.py, ops/quant_cuda.py), which a
+capture does once and a replay never: the server takes back what a capture
+counted and adds it again at every replay (`LAUNCH_COUNTERS`), so the
+counts stay exact.
 Loading weights into a served model (load_state_dict) drops its graphs,
 which hold the old tensors' addresses.
 
@@ -71,6 +72,9 @@ LAUNCH_COUNTERS = (
     ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"),
     ("cspn_tpu_torch.ops.cspn3d_cuda", "launches"),
     ("cspn_tpu_torch.ops.cspn3d_cuda", "bwd_launches"),
+    ("cspn_tpu_torch.ops.quant_cuda", "absmax_launches"),
+    ("cspn_tpu_torch.ops.quant_cuda", "taps_launches"),
+    ("cspn_tpu_torch.ops.quant_cuda", "dequant_launches"),
 )
 
 

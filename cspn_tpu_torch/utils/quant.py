@@ -18,14 +18,26 @@ so the quantized tensors equal the JAX package's bit for bit
 (tests/test_torch_quant.py).
 
 The int8 conv is no Pallas kernel in the JAX package
-(`lax.conv_general_dilated` with int32 accumulation, quant.py:89-96), so
-here it is a library call: im2col by strided slices of the padded int8
-input (one int8 copy of the taps; `F.unfold` takes no int8 tensor) and
-`torch._int_mm`, int8 x int8 -> int32 on the CPU and, through cuBLASLt, on
-the card.  `_int_mm` on CUDA takes M > 16 rows and K, N multiples of 8;
-`int8_matmul` pads with zero rows and columns where a shape falls short
-(M at a tiny map, K and N never at the models' widths) and refuses nothing
-else: a shape `_int_mm` still refuses raises, no float conv runs instead.
+(`lax.conv_general_dilated` with int32 accumulation, quant.py:89-96, which
+XLA fuses with the quantization), so here the product is a library call,
+`torch._int_mm`: int8 x int8 -> int32 on the CPU and, through cuBLASLt, on
+the card, on an im2col matrix of the quantized input.  `_int_mm` on CUDA
+takes M > 16 rows and K, N multiples of 8; the rows and K are padded with
+zeros where a shape falls short (M at a tiny map, K and N never at the
+models' widths), and a shape `_int_mm` still refuses raises: no float conv
+runs instead.
+
+Around the product, two routes.  On the CPU the plain PyTorch one:
+`quantize_tensor` (or `quantize_tensor_static`), im2col by strided slices
+of the padded int8 input (`_taps`: one int8 copy of the taps; `F.unfold`
+takes no int8 tensor), `int8_matmul`'s padding and the dequantization in
+`int8_conv_prequant`.  On the card three hand-written kernels in their
+place (ops/quant_cuda.py, csrc/int8_conv.cu; `int8_conv_kernels`): the
+per-sample scale (`act_absmax`), the quantization, padding and im2col in
+one pass (`int8_taps`, already padded for `_int_mm`) and the fused
+dequantization (`int8_dequant`), 4 launches a conv product where the
+PyTorch passes took ~14, with the same bits.  A CUDA activation must be
+bf16 (the int8 model's); another dtype raises.
 
 `QuantConv` is an `nn.Conv2d` with the same float `weight`, so state dicts
 stay interchangeable with the float models; `quantize_convs` swaps a
@@ -45,10 +57,11 @@ from torch import nn
 from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from cspn_tpu_torch.models.decoder import SubpixelUnpoolConv, _subpixel_convs
+from cspn_tpu_torch.ops import quant_cuda
 from cspn_tpu_torch.ops.d2s import depth_to_space2
 
 # _int_mm on CUDA: more than 16 rows, K and N multiples of 8
-_MIN_ROWS = 17
+_MIN_ROWS = quant_cuda.MIN_ROWS
 _ALIGN = 8
 
 
@@ -135,6 +148,24 @@ def int8_conv_prequant(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws:
     return (y.float() * scale).to(out_dtype).permute(0, 3, 1, 2)
 
 
+def int8_conv_kernels(x: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                      stride: int, pad, w_mat: torch.Tensor | None = None) -> torch.Tensor:
+    """`int8_conv_prequant` on the card, from the unquantized bf16 input x
+    (channels-last) and its scale xs: the taps quantized and padded by
+    `int8_taps`, `_int_mm`, `int8_dequant`.  The same bits and the same
+    NCHW view of an NHWC-contiguous output."""
+    (ph0, ph1), (pw0, pw1) = pad
+    kh, kw = wq.shape[2:]
+    w_mat = weight_matrix(wq) if w_mat is None else w_mat
+    n, _, h, w = x.shape
+    ho, wo = quant_cuda.out_hw(h, w, kh, kw, stride, ph0, ph1, pw0, pw1)
+    a = torch.ops.cspn_tpu_torch.int8_taps(x, xs, kh, kw, stride, ph0, ph1, pw0, pw1,
+                                           w_mat.shape[1])
+    acc = torch._int_mm(a, w_mat.t())
+    y = torch.ops.cspn_tpu_torch.int8_dequant(acc, xs, ws, n, ho, wo, x.dtype)
+    return y.permute(0, 3, 1, 2)
+
+
 class QuantConv(nn.Conv2d):
     """A bias-free conv with int8 execution: the `nn.Conv2d` parameter
     (OIHW `weight`) it replaces, quantized per output channel.
@@ -202,19 +233,36 @@ class QuantConv(nn.Conv2d):
             return self.qcache
         return [(*q, None) for q in (quantize_weights(k) for k, _, _ in self._convs(self.weight))]
 
-    def _quantize_input(self, x: torch.Tensor):
+    def _static_scale(self, x: torch.Tensor) -> torch.Tensor | None:
+        """The calibrated activation scale, or None for a dynamic one;
+        while calibrating, records x's abs-max first."""
         if self.calibrating:
             amax = x.abs().amax().float()
             self.act_max = amax if self.act_max is None else torch.maximum(self.act_max, amax)
         elif self.act_max is not None:
-            return quantize_tensor_static(x, self.act_max.clamp_min(1e-12) / 127.0)
-        return quantize_tensor(x)
+            return self.act_max.clamp_min(1e-12) / 127.0
+        return None
+
+    def _products_plain(self, x: torch.Tensor, scale: torch.Tensor | None, convs) -> list:
+        """Each conv's output by the PyTorch route, one quantization of x."""
+        xq, xs = quantize_tensor(x) if scale is None else quantize_tensor_static(x, scale)
+        return [int8_conv_prequant(xq, xs, wq, ws, self.stride[0], pad, x.dtype, w_mat)
+                for (wq, ws, w_mat), pad in convs]
+
+    def _products_kernels(self, x: torch.Tensor, scale: torch.Tensor | None, convs) -> list:
+        """Each conv's output by the card's kernels, one scale of x and, where
+        x is not channels-last already, one copy into that layout for all of
+        them."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        xs = torch.ops.cspn_tpu_torch.act_absmax(x) if scale is None else scale
+        return [int8_conv_kernels(x, xs, wq, ws, self.stride[0], pad, w_mat)
+                for (wq, ws, w_mat), pad in convs]
 
     def forward(self, x: torch.Tensor, oheight: int | None = None, owidth: int | None = None):
-        xq, xs = self._quantize_input(x)
+        scale = self._static_scale(x)
         pads = [(ph, pw) for _, ph, pw in self._convs(self.weight)]
-        ys = [int8_conv_prequant(xq, xs, wq, ws, self.stride[0], pad, x.dtype, w_mat)
-              for (wq, ws, w_mat), pad in zip(self.quantized_weights(), pads)]
+        products = self._products_kernels if x.is_cuda else self._products_plain
+        ys = products(x, scale, zip(self.quantized_weights(), pads))
         if not self.subpixel:
             return ys[0]
         return depth_to_space2(ys[0] if len(ys) == 1 else ys, oheight, owidth)
@@ -236,6 +284,17 @@ def quantize_convs(module: nn.Module) -> nn.Module:
 def quant_convs(model: nn.Module) -> dict[str, QuantConv]:
     """The model's QuantConvs by module name."""
     return {k: m for k, m in model.named_modules() if isinstance(m, QuantConv)}
+
+
+def kernel_launches(model: nn.Module) -> dict[str, int]:
+    """The int8 kernels' launches (ops/quant_cuda.py) in one forward of
+    `model` on the card: `act_absmax` a QuantConv with dynamic scales,
+    `int8_taps` and `int8_dequant` a conv product (a subpixel conv's four
+    phases four)."""
+    convs = quant_convs(model).values()
+    products = sum(len(m._convs(m.weight)) for m in convs)
+    return {"act_absmax": sum(m.act_max is None for m in convs), "int8_taps": products,
+            "int8_dequant": products}
 
 
 @torch.no_grad()

@@ -1,9 +1,10 @@
 """The CUDA kernels -- the 2D CSPN forwards (the one keeping its states
 for the backward, and the tiled one) and backward, the sharded 2D CSPN's segment and its backward, the
 paddle-semantics 2D CSPN, the 3D CSPN forward and backward,
-the subpixel decoder's depth-to-space and its adjoint, the step-body probe
--- against their plain versions, on the card; and the serving graphs
-(one CUDA graph a bucket) against the eager server.
+the subpixel decoder's depth-to-space and its adjoint, the step-body probe,
+the int8 conv's abs-max, taps and dequantization -- against their plain
+versions, on the card; and the serving graphs (one CUDA graph a bucket)
+against the eager server.
 
 Marked `cuda`: without a card every test here skips.  On a machine with
 one (and without JAX, which tests/conftest.py imports) run:
@@ -12,7 +13,8 @@ one (and without JAX, which tests/conftest.py imports) run:
 
 Tolerance: 1e-4 x max|plain| (FMA contraction and summation order differ),
 for the output and for each gradient; the depth-to-space kernels move
-values and are held bit for bit, and the tiled 2D forward to the
+values and the int8 conv's kernels equal the PyTorch route's passes on
+the same card, both held bit for bit, and the tiled 2D forward to the
 states-keeping one's values and, on bf16 inputs or float32 ones rounded in
 registers, to its own values on `_round_io`'s inputs; the probe's bf16-state pair within 1e-2 x max|plain| (its
 bf16 FMA rounds once where the plain version may round twice).
@@ -299,6 +301,283 @@ def test_int8_matmul_on_the_card(gen):
     for rows in (100, 5):
         got = quant.int8_matmul(a[:rows], w_mat, 20)
         assert got.dtype == torch.int32 and torch.equal(got.double(), want[:rows])
+
+
+# --- the int8 conv's kernels (ops/quant_cuda.py) against the PyTorch route on the card ---
+
+# (C, O, kernel, stride, padding, subpixel, N, H, W): 1x1 at stride 1 and 2,
+# 3x3 at stride 1 and 2, a subpixel 5x5 (four phase kernels), a map of
+# fewer than 17 output pixels, C = 8 and 24, C = 5 (the scalar path), and
+# two of the nyu CSPN-UNet's own at b8
+INT8_GEOMETRIES = {
+    "1x1": (32, 24, 1, 1, 0, False, 2, 5, 7),
+    "1x1_s2": (16, 40, 1, 2, 0, False, 2, 7, 9),
+    "3x3": (16, 24, 3, 1, 1, False, 2, 5, 7),
+    "3x3_s2": (32, 16, 3, 2, 1, False, 2, 7, 9),
+    "subpixel_5x5": (16, 128, 5, 1, 2, True, 2, 5, 7),
+    "few_rows": (16, 8, 3, 2, 1, False, 1, 4, 5),
+    "c8": (8, 16, 3, 1, 1, False, 2, 5, 7),
+    "c24": (24, 16, 3, 1, 1, False, 2, 5, 7),
+    "c5": (5, 12, 3, 1, 1, False, 2, 5, 7),
+    "layer1_3x3_b8": (64, 64, 3, 1, 1, False, 8, 57, 76),
+    "decoder_subpixel_b8": (1024, 128, 5, 1, 2, True, 8, 15, 19),
+}
+
+
+def _int8_conv(gen, c, o, k, stride, pad, subpixel, static):
+    from cspn_tpu_torch.utils import quant
+
+    conv = torch.nn.Conv2d(c, o, k, stride=stride, padding=pad, bias=False, device="cuda")
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda", generator=gen))
+    qc = quant.QuantConv(conv, subpixel=subpixel).to(torch.bfloat16)
+    quant.build_weight_qcache(qc)
+    if static:
+        qc.act_max = torch.tensor(2.5, device="cuda")
+    return qc
+
+
+def _int8_launches():
+    from cspn_tpu_torch.ops import quant_cuda
+
+    return quant_cuda.absmax_launches, quant_cuda.taps_launches, quant_cuda.dequant_launches
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("channels_last", [True, False], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("geometry", list(INT8_GEOMETRIES))
+def test_int8_kernels_equal_the_pytorch_route(gen, geometry, channels_last, static):
+    """act_absmax, int8_taps and int8_dequant against the PyTorch route's
+    passes on the same card, bit for bit: the scale (quantize_tensor's),
+    A (`_taps` of the quantized input, padded as int8_matmul pads it), each
+    conv's output (int8_conv_prequant's, same strides) and the QuantConv's
+    output; one launch of each a conv product (act_absmax one a QuantConv,
+    none on a static scale).  The ops take the channels-last copy, the
+    QuantConv the input in either layout.  Sample 0 is zero (the clamped
+    scale)."""
+    import torch.nn.functional as F
+
+    from cspn_tpu_torch.utils import quant
+
+    c, o, k, stride, pad, sub, n, h, w = INT8_GEOMETRIES[geometry]
+    qc = _int8_conv(gen, c, o, k, stride, pad, sub, static)
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(torch.bfloat16)
+    if n > 1:
+        x[0] = 0
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    oh, ow = (2 * h - 1, 2 * w) if sub else (None, None)
+    scale = qc._static_scale(x)
+    pads = [(ph, pw) for _, ph, pw in qc._convs(qc.weight)]
+    convs = list(zip(qc.quantized_weights(), pads))
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        xq, xs = quant.quantize_tensor(x) if scale is None else quant.quantize_tensor_static(x, scale)
+        before = _int8_launches()
+        ks = torch.ops.cspn_tpu_torch.act_absmax(x_cl) if scale is None else scale
+        assert torch.equal(ks.reshape(-1), xs.reshape(-1)) and ks.dtype == xs.dtype
+        for (wq, ws, wm), (ph, pw) in convs:
+            a = torch.ops.cspn_tpu_torch.int8_taps(x_cl, ks, *wq.shape[2:], stride, *ph, *pw,
+                                                   wm.shape[1])
+            taps, ho, wo = quant._taps(xq, wq.shape[2:], stride, (ph, pw))
+            rows = taps.shape[0]
+            want_a = F.pad(taps, (0, wm.shape[1] - taps.shape[1], 0, max(17 - rows, 0)))
+            assert a.dtype == torch.int8 and torch.equal(a, want_a)
+            acc = torch._int_mm(a, wm.t())
+            y = torch.ops.cspn_tpu_torch.int8_dequant(acc, ks, ws, n, ho, wo, torch.bfloat16)
+            want_y = quant.int8_conv_prequant(xq, xs, wq, ws, stride, (ph, pw), torch.bfloat16, wm)
+            got_y = y.permute(0, 3, 1, 2)
+            assert torch.equal(got_y, want_y) and got_y.stride() == want_y.stride()
+        dynamic = int(scale is None)
+        assert _int8_launches() == (before[0] + dynamic, before[1] + len(convs),
+                                    before[2] + len(convs))
+        got = qc(x, oh, ow)
+        plain = qc._products_plain(x, scale, convs)
+        want = plain[0] if not sub else quant.depth_to_space2(
+            plain[0] if len(plain) == 1 else plain, oh, ow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_int8_kernels_round_ties_to_even_and_clamp(gen):
+    """Values on the half steps of the scale: a sample whose abs-max is 127
+    has the scale bf16(127 * fl(1/127)) = 1, so x / 1 = x and k + 0.5
+    rounds to the even neighbour, as torch.round does; values past the
+    calibrated range clip to +-127 on the static route."""
+    from cspn_tpu_torch.utils import quant
+
+    x = torch.randint(-254, 255, (2, 16, 6, 8), device="cuda", generator=gen).float() / 2
+    x[:, 0, 0, 0] = 127.0
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xq, xs = quant.quantize_tensor(x)
+    ks = torch.ops.cspn_tpu_torch.act_absmax(x)
+    assert torch.equal(ks, xs.reshape(-1)) and (ks == 1).all()
+    for scale in (ks, torch.tensor(0.25, device="cuda")):  # the static scale saturates
+        want, _ = quant.quantize_tensor_static(x, scale.reshape(-1, 1, 1, 1))
+        a = torch.ops.cspn_tpu_torch.int8_taps(x, scale, 1, 1, 1, 0, 0, 0, 0, 16)
+        assert torch.equal(a, want.permute(0, 2, 3, 1).reshape(-1, 16))
+    assert (a.abs() == 127).any()
+
+
+def test_int8_taps_quantize_every_bf16_value_as_ieee_division(gen):
+    """Every finite bf16 value, divided by 256 bf16 scales (one a sample:
+    abs-maxima over 127 as act_absmax forms them, and bf16 values from
+    2^-40 to 2^40) and by 32 float32 ones (the static route): the taps
+    equal clamp(round(x.float() / scale), -127, 127) bit for bit."""
+    bits = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16)
+    values = bits.view(torch.bfloat16)
+    values = values[torch.isfinite(values)]
+    x = torch.zeros(65536, dtype=torch.bfloat16, device="cuda")
+    x[: values.numel()] = values
+    x = x.view(1, 64, 64, 16).expand(256, -1, -1, -1).permute(0, 3, 1, 2)  # NHWC memory
+    amax = torch.rand(128, device="cuda", generator=gen) * 1e3
+    wide = 2.0 ** (torch.rand(128, device="cuda", generator=gen) * 80 - 40)
+    scales = torch.cat([amax.to(torch.bfloat16) / 127.0, wide.to(torch.bfloat16)])
+    x = x.contiguous(memory_format=torch.channels_last)
+    a = torch.ops.cspn_tpu_torch.int8_taps(x, scales, 1, 1, 1, 0, 0, 0, 0, 16)
+    want = torch.clamp(torch.round(x.float() / scales.view(-1, 1, 1, 1)), -127, 127)
+    assert torch.equal(a, want.to(torch.int8).permute(0, 2, 3, 1).reshape(-1, 16))
+    for scale in 2.0 ** (torch.rand(32, device="cuda", generator=gen) * 60 - 30):
+        a = torch.ops.cspn_tpu_torch.int8_taps(x[:1], scale, 1, 1, 1, 0, 0, 0, 0, 16)
+        want = torch.clamp(torch.round(x[:1].float() / scale), -127, 127).to(torch.int8)
+        assert torch.equal(a, want.permute(0, 2, 3, 1).reshape(-1, 16))
+
+
+def test_int8_kernels_in_a_cuda_graph(gen):
+    """A QuantConv's three ops captured in one CUDA graph (the abs-max's
+    zeroing memset with them) replay on new inputs to the eager PyTorch
+    route's output bit for bit; a replay counts one launch of each."""
+    from cspn_tpu_torch import serving
+
+    qc = _int8_conv(gen, 64, 64, 3, 1, 1, False, False)
+    x = torch.randn(8, 64, 57, 76, device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        graph, out, per_replay = serving.capture_graph(lambda: qc(x), x.device)
+        counts = {a: v for (_, a), v in per_replay.items() if v}
+        assert counts == {"absmax_launches": 1, "taps_launches": 1, "dequant_launches": 1}
+        for seed in range(3):
+            x.copy_(torch.randn(x.shape, device="cuda", generator=gen) * (seed + 1))
+            graph.replay()
+            scale = qc._static_scale(x)
+            convs = list(zip(qc.quantized_weights(), [((1, 1), (1, 1))]))
+            want = qc._products_plain(x, scale, convs)[0]
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("batch, static", [(1, False), (8, False), (8, True)],
+                         ids=["b1", "b8", "b8_static"])
+def test_int8_model_equals_the_pytorch_route(gen, batch, static, monkeypatch):
+    """The whole int8 CSPN-UNet (nyu_eval: ResNet-50, 228x304) on the
+    kernels equals it on the PyTorch route, bit for bit; one forward
+    launches act_absmax 64 times (0 on static scales), int8_taps and
+    int8_dequant 82 (quant.kernel_launches)."""
+    import dataclasses
+
+    from cspn_tpu_torch import config
+    from cspn_tpu_torch.train import evaluate
+    from cspn_tpu_torch.utils import quant
+    from cspn_tpu_torch.utils.precision import cast_floating
+
+    cfg = config.PRESETS["nyu_eval"]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="int8"))
+    model = evaluate.build_model(cfg, device="cuda")
+    model.load_state_dict(cast_floating(model.state_dict()), assign=True)
+    quant.build_weight_qcache(model)
+    x = torch.randn(batch, 228, 304, 4, device="cuda", generator=gen)
+    if static:
+        quant.build_act_calibration(model, [x])
+    want_launches = quant.kernel_launches(model)
+    assert want_launches == {"act_absmax": 0 if static else 64, "int8_taps": 82,
+                             "int8_dequant": 82}
+    with torch.no_grad():
+        before = _int8_launches()
+        got = model(x)
+        after = _int8_launches()
+        monkeypatch.setattr(quant.QuantConv, "_products_kernels", quant.QuantConv._products_plain)
+        want = model(x)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(after, before)] == list(want_launches.values())
+    assert _int8_launches() == after  # the PyTorch route launches none of them
+    assert torch.equal(got, want)
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    """float32 and int32 activations, one in NCHW memory, a CPU scale with a
+    CUDA activation, a float32 product: each raises, and a float32
+    QuantConv input too (a CUDA tensor never reaches the PyTorch glue)."""
+    from cspn_tpu_torch.utils import quant
+
+    x = torch.randn(2, 16, 5, 7, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        torch.ops.cspn_tpu_torch.act_absmax(x)
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = torch.ops.cspn_tpu_torch.act_absmax(x)
+    with pytest.raises(TypeError, match="bf16"):
+        torch.ops.cspn_tpu_torch.act_absmax(x.float())
+    with pytest.raises(TypeError, match="bf16"):
+        torch.ops.cspn_tpu_torch.int8_taps(x.int(), scale, 3, 3, 1, 1, 1, 1, 1, 144)
+    with pytest.raises(ValueError, match="the scale is on cpu"):
+        torch.ops.cspn_tpu_torch.int8_taps(x, scale.cpu(), 3, 3, 1, 1, 1, 1, 1, 144)
+    acc = torch.zeros(70, 24, dtype=torch.int32, device="cuda")
+    ws = torch.ones(24, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        torch.ops.cspn_tpu_torch.int8_dequant(acc.float(), scale, ws, 2, 5, 7, torch.bfloat16)
+    qc = _int8_conv(gen, 16, 24, 3, 1, 1, False, False)
+    with pytest.raises(TypeError, match="bf16"), torch.no_grad():
+        qc(x.float())
+
+
+@pytest.mark.parametrize("op", ["act_absmax", "int8_taps", "int8_dequant"])
+def test_int8_ops_opcheck(gen, op):
+    """torch.library.opcheck on the card: schema, fake implementation and
+    the CUDA implementation agree."""
+    x = torch.randn(2, 16, 5, 7, device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = torch.ops.cspn_tpu_torch.act_absmax(x)
+    a = torch.ops.cspn_tpu_torch.int8_taps(x, scale, 3, 3, 1, 1, 1, 1, 1, 144)
+    w = torch.randint(-127, 128, (24, 144), dtype=torch.int8, device="cuda", generator=gen)
+    acc = torch._int_mm(a, w.t())
+    ws = torch.rand(24, device="cuda", generator=gen).to(torch.bfloat16)
+    args = {"act_absmax": (x,), "int8_taps": (x, scale, 3, 3, 1, 1, 1, 1, 1, 144),
+            "int8_dequant": (acc, scale, ws, 2, 5, 7, torch.bfloat16)}[op]
+    torch.library.opcheck(getattr(torch.ops.cspn_tpu_torch, op), args)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_int8_conv_exports_with_a_symbolic_batch(gen, static, tmp_path):
+    """One QuantConv exported on the card with a symbolic batch, saved and
+    loaded, serves batches of 1 (a map below 17 rows) and 3 as the eager
+    PyTorch route does, bit for bit, launching one of each kernel a call
+    (no act_absmax on a static scale)."""
+    from cspn_tpu_torch import export
+    from cspn_tpu_torch.utils import quant
+
+    qc = _int8_conv(gen, 16, 24, 3, 2, 1, False, static)
+
+    def batch(n):
+        x = torch.randn(n, 16, 5, 7, device="cuda", generator=gen).to(torch.bfloat16)
+        return x.contiguous(memory_format=torch.channels_last)
+
+    dims = ({0: torch.export.Dim("b", min=1, max=64)},)
+    with torch.no_grad():
+        program = torch.export.export(qc, (batch(2),), dynamic_shapes=dims)
+    want_ops = {"int8_taps": 1, "int8_dequant": 1, **({} if static else {"act_absmax": 1})}
+    assert export.op_counts(program) == want_ops
+    torch.export.save(program, tmp_path / "conv.pt2")
+    loaded = torch.export.load(tmp_path / "conv.pt2").module()
+    convs = list(zip(qc.quantized_weights(), [((1, 1), (1, 1))]))
+    for n in (1, 3):
+        x = batch(n)
+        with torch.no_grad():
+            before = _int8_launches()
+            got = loaded(x)
+            after = _int8_launches()
+            want = qc._products_plain(x, qc._static_scale(x), convs)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert [a - b for a, b in zip(after, before)] == [int(not static), 1, 1]
 
 
 @pytest.mark.parametrize("case", ["stereo", "stereo zero-gates corner", "sharded segment"])
@@ -1190,7 +1469,12 @@ def test_export_on_the_card_launches_the_kernels(gen, dtype, tmp_path):
                               best_model_dir=str(tmp_path))
     model = load_eval_state(cfg, device="cuda")
     program = export.export_serving(model, 64, 96)
-    assert export.op_counts(program) == {"cspn2d_tiled": 1, "d2s": 9}
+    int8_ops = {}
+    if dtype == "int8":  # the int8 conv's kernels (ops/quant_cuda.py)
+        from cspn_tpu_torch.utils import quant
+
+        int8_ops = {k: v for k, v in quant.kernel_launches(model).items() if v}
+    assert export.op_counts(program) == {"cspn2d_tiled": 1, "d2s": 9, **int8_ops}
     export.save_artifact(program, str(tmp_path / "m.pt2"), {"arch": "resnet18", "dtype": dtype,
                                                            "cspn_steps": 4, "height": 64,
                                                            "width": 96, "batch": None})
