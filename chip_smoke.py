@@ -301,7 +301,7 @@ def log(msg: str) -> None:
 
 KERNEL_NAMES = ("cspn2d_fwd", "cspn2d_bwd", "cspn3d_fwd", "cspn3d_bwd", "d2s", "s2d",
                 "cspn2d_tiled", "paddle2d", "step_probe", "cspn2d_halo_seg",
-                "cspn2d_halo_seg_bwd", "act_absmax", "int8_taps", "int8_dequant")
+                "cspn2d_halo_seg_bwd", "act_absmax", "int8_taps", "int8_dequant", "int8_dequant_bn")
 
 
 def reset_launches() -> None:
@@ -317,6 +317,7 @@ def reset_launches() -> None:
     cspn_paddle2d_cuda.launches = step_probe.launches = 0
     cspn_halo_cuda.launches = cspn_halo_cuda.bwd_launches = halo.exchanges = 0
     quant_cuda.absmax_launches = quant_cuda.taps_launches = quant_cuda.dequant_launches = 0
+    quant_cuda.dequant_bn_launches = 0
 
 
 def read_launches() -> dict:
@@ -330,7 +331,7 @@ def read_launches() -> dict:
                                    cspn_paddle2d_cuda.launches, step_probe.launches,
                                    cspn_halo_cuda.launches, cspn_halo_cuda.bwd_launches,
                                    quant_cuda.absmax_launches, quant_cuda.taps_launches,
-                                   quant_cuda.dequant_launches)))
+                                   quant_cuda.dequant_launches, quant_cuda.dequant_bn_launches)))
 
 
 def d2s_per_forward(model) -> int:
@@ -2071,7 +2072,7 @@ def paddle_inputs(gen, n, h, w, c, channel_first=False):
 # CSPN-UNet (ResNet-50, 228x304): the served int8 buckets and the offline
 # cell's batch
 INT8_BATCHES = (8, 32, 128)
-INT8_KERNELS = ("act_absmax", "int8_taps", "int8_dequant")
+INT8_KERNELS = ("act_absmax", "int8_taps", "int8_dequant", "int8_dequant_bn")
 
 
 @contextlib.contextmanager
@@ -2089,13 +2090,32 @@ def plain_int8():
         quant.QuantConv._products_kernels = saved
 
 
-def _int8_conv_case(qc, x, gen, times: dict | None) -> None:
+@contextlib.contextmanager
+def unfused_bn():
+    """Every block's BN, residual add and ReLU as PyTorch ops after the
+    conv within the block (models/resnet.py:conv_bn finds no epilogue), in
+    place of int8_dequant's epilogue."""
+    from cspn_tpu_torch.models import resnet
+
+    saved = resnet.bn_epilogue
+    resnet.bn_epilogue = lambda conv, bn, x: None
+    try:
+        yield
+    finally:
+        resnet.bn_epilogue = saved
+
+
+def _int8_conv_case(qc, x, gen, times: dict | None, epilogue: dict) -> None:
     """One QuantConv's input `x` as the forward hands it over: its
     channels-last copy through act_absmax, each product's int8_taps and
     int8_dequant, held bit for bit to the PyTorch route's passes on the
     same card, on the dynamic scale and on a static one calibrated on x;
-    with `times`, each kernel and its PyTorch passes timed queued into it
-    (ms, plain_ms, bytes, summed over the calls)."""
+    where the forward gives it an `epilogue` (QuantConv.forward's bn,
+    residual and relu), int8_dequant with it held to int8_dequant followed
+    by the BN, the add and the ReLU as PyTorch ops (utils/quant.py:
+    apply_epilogue); with `times`, each kernel and its PyTorch passes (the
+    epilogue: int8_dequant and those ops) timed queued into it (ms,
+    plain_ms, bytes, summed over the calls)."""
     import torch.nn.functional as F
 
     from cspn_tpu_torch.ops import quant_cuda
@@ -2140,6 +2160,23 @@ def _int8_conv_case(qc, x, gen, times: dict | None) -> None:
             if not torch.equal(y.permute(0, 3, 1, 2), want_y):
                 raise AssertionError(f"int8_dequant {tuple(x.shape)} {kh}x{kw} ({route}): the "
                                      "output differs from int8_conv_prequant's")
+            bn = quant._tiled(tuple(epilogue.get("bn", ())), o)
+            res, relu = epilogue.get("residual"), epilogue.get("relu", False)
+
+            def fused():
+                return ops.int8_dequant(acc, s, ws, n, ho, wo, x.dtype, *bn, residual=res,
+                                        relu=relu)
+
+            def unfused():
+                yy = ops.int8_dequant(acc, s, ws, n, ho, wo, x.dtype).permute(0, 3, 1, 2)
+                return quant.apply_epilogue(yy, bn, res, relu)
+
+            if bn:
+                got_e, want_e = fused().permute(0, 3, 1, 2), unfused()
+                if not torch.equal(got_e.view(torch.int16), want_e.view(torch.int16)):
+                    raise AssertionError(f"int8_dequant_bn {tuple(x.shape)} {kh}x{kw} ({route}, "
+                                         f"residual {res is not None}, relu {relu}): the output "
+                                         "differs from int8_dequant + the BN, add and ReLU ops'")
             if times is None or route != "dynamic":
                 continue
 
@@ -2160,6 +2197,11 @@ def _int8_conv_case(qc, x, gen, times: dict | None) -> None:
             t["ms"] += time_queued_ms(lambda: ops.int8_dequant(acc, s, ws, n, ho, wo, x.dtype))
             t["plain_ms"] += time_queued_ms(plain_dequant, calls=5, reps=3)
             t["bytes"] += m * o * (4 + y.element_size())
+            if bn:
+                t = times["int8_dequant_bn"]
+                t["ms"] += time_queued_ms(fused)
+                t["plain_ms"] += time_queued_ms(unfused, calls=5, reps=3)
+                t["bytes"] += m * o * (4 + y.element_size() * (1 if res is None else 2))
 
 
 def check_int8_kernels(name: str) -> list[dict]:
@@ -2169,15 +2211,20 @@ def check_int8_kernels(name: str) -> list[dict]:
     conv's input to _int8_conv_case (every value bit for bit against the
     PyTorch route's passes, both scale routes; each kernel timed queued
     beside its passes: the scale's abs / amax / clamp / divide, quantize +
-    `_taps` + padding, slice + dequantization).  Then the whole forward on
-    the kernels against it on the PyTorch route (plain_int8), bit for bit,
-    with its launches (quant.kernel_launches: 64 / 82 / 82).  One row a
-    kernel, its times summed over a forward's calls, `ms` at b128 (the
-    offline cell's batch), every batch under `by_batch`; the bound is the
-    bytes each moves once (the activation read, A or the used product
-    read, the output written) over the card's bandwidth."""
+    `_taps` + padding, slice + dequantization; `int8_dequant_bn`, the
+    dequantization with the BN epilogue where the forward asks for it,
+    beside `int8_dequant` + the BN, residual add and ReLU ops it
+    replaces).  Then the whole forward on the kernels against it on the
+    PyTorch route (plain_int8), bit for bit, with its launches
+    (quant.kernel_launches: 64 / 82 / 82, all 82 with the epilogue).  One
+    row a kernel, its times summed over a forward's calls, `ms` at b128
+    (the offline cell's batch), every batch under `by_batch`; the bound is
+    the bytes each moves once (the activation read, A or the used product
+    read, the residual read, the output written) over the card's
+    bandwidth."""
     import dataclasses
 
+    from cspn_tpu_torch import serving
     from cspn_tpu_torch.train import evaluate
     from cspn_tpu_torch.utils import quant
     from cspn_tpu_torch.utils.precision import cast_floating
@@ -2196,12 +2243,13 @@ def check_int8_kernels(name: str) -> list[dict]:
         times = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0} for k in INT8_KERNELS}
         seen = []
 
-        def hook(mod, args):
+        def hook(mod, args, kwargs):
             seen.append(args[0].is_contiguous(memory_format=torch.channels_last))
-            _int8_conv_case(mod, args[0], gen, times)
+            _int8_conv_case(mod, args[0], gen, times, kwargs)
 
         x = torch.randn(b, h, w, 4, device="cuda", generator=gen)
-        handles = [m.register_forward_pre_hook(hook) for m in quant.quant_convs(model).values()]
+        handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+                   for m in quant.quant_convs(model).values()]
         try:
             with torch.no_grad():
                 model(x)
@@ -2217,19 +2265,34 @@ def check_int8_kernels(name: str) -> list[dict]:
             launches = {k: v for k, v in read_launches().items() if k in INT8_KERNELS}
             with plain_int8():
                 want = model(x)
+            with unfused_bn():
+                unfused = model(x)
         torch.cuda.synchronize()
-        if launches != per_forward or not torch.equal(got, want):
+        if launches != per_forward or not torch.equal(got, want) or not torch.equal(got, unfused):
             raise AssertionError(f"int8 nyu b{b}: launches {launches} (expected {per_forward}), "
-                                 f"output equal to the PyTorch route's: {torch.equal(got, want)}")
+                                 f"output equal to the PyTorch route's: {torch.equal(got, want)}, "
+                                 f"to the unfused BN's: {torch.equal(got, unfused)}")
         for k, t in times.items():
             t["bound_ms"], t["bound_by"], _, _ = bound(name, t["bytes"], 0)
+        forward_ms = {}  # the whole forward, graphed, with the epilogue and without, in turns
+        for label in ("epilogue", "unfused", "unfused", "epilogue"):
+            with torch.no_grad(), (unfused_bn() if label == "unfused" else contextlib.nullcontext()):
+                graph, _, _ = serving.capture_graph(lambda: model(x), x.device)
+                forward_ms.setdefault(label, []).append(time_ms(graph.replay, reps=15))
+            del graph
+        times["forward_ms"] = forward_ms
         by_batch[b] = times
         log(f"  int8 conv kernels, nyu b{b} ({len(seen)} QuantConvs, {copies} inputs not "
-            f"channels-last; every scale, A and output bit for bit, both scale routes; the "
+            f"channels-last; every scale, A and output bit for bit, both scale routes, the BN "
+            f"epilogue's against int8_dequant + the BN, add and ReLU ops; the "
             f"forward equal to the PyTorch route's, launches {launches}), ms a forward, kernel / "
             f"PyTorch passes / bound: " + "; ".join(
-                f"{k} {t['ms']:.4f} / {t['plain_ms']:.4f} / {t['bound_ms']:.4f}"
-                for k, t in times.items()) + f" on {name}")
+                f"{k} {times[k]['ms']:.4f} / {times[k]['plain_ms']:.4f} / "
+                f"{times[k]['bound_ms']:.4f}" for k in INT8_KERNELS) + "; the whole forward, "
+            "graphed, with the BN epilogue / unfused / unfused / with it: " + " / ".join(
+                f"{forward_ms[k][i]:.3f}" for k, i in (("epilogue", 0), ("unfused", 0),
+                                                       ("unfused", 1), ("epilogue", 1)))
+            + f" ms on {name}")
         del got, want, x
         torch.cuda.empty_cache()
     main = by_batch[INT8_BATCHES[-1]]
@@ -2248,6 +2311,8 @@ def check_int8_kernels(name: str) -> list[dict]:
         "launches_a_forward": per_forward[k],
         "inputs_not_channels_last": copies,
         "by_batch": {f"b{b}": t[k] for b, t in by_batch.items()},
+        **({"forward_ms_by_batch": {f"b{b}": t["forward_ms"] for b, t in by_batch.items()}}
+           if k == "int8_dequant_bn" else {}),
     } for k in INT8_KERNELS]
 
 
@@ -2616,7 +2681,8 @@ COUNTER_KERNELS = {("cspn_tpu_torch.ops.cspn_cuda", "launches"): "cspn2d_fwd",
                    ("cspn_tpu_torch.ops.cspn_halo_cuda", "bwd_launches"): "cspn2d_halo_seg_bwd",
                    ("cspn_tpu_torch.ops.quant_cuda", "absmax_launches"): "act_absmax",
                    ("cspn_tpu_torch.ops.quant_cuda", "taps_launches"): "int8_taps",
-                   ("cspn_tpu_torch.ops.quant_cuda", "dequant_launches"): "int8_dequant"}
+                   ("cspn_tpu_torch.ops.quant_cuda", "dequant_launches"): "int8_dequant",
+                   ("cspn_tpu_torch.ops.quant_cuda", "dequant_bn_launches"): "int8_dequant_bn"}
 GRAPH_WINDOW = 16  # requests of a bucket's served-rate window, graphed and eager in turns
 GRAPH_REPLAYS = 5  # replays a torch.profiler session counts the kernels of
 
@@ -4415,10 +4481,12 @@ def deployment_slice(name: str) -> dict:
                     f"{time.perf_counter() - t2:.1f} s")
             art = export.load_artifact(path)
             ops = export.op_counts(art.program)
-            want_ops = {**per_forward, **{k: v for k, v in kernel_launches(model).items() if v}}
+            int8_ops = kernel_launches(model)
+            fused = int8_ops.pop("int8_dequant_bn")  # the int8_dequant nodes with the BN epilogue
+            want_ops = {**per_forward, **{k: v for k, v in int8_ops.items() if v}}
             if ops != want_ops:
                 raise AssertionError(f"{dtype} graph holds ops {ops}, expected {want_ops}")
-            for k, v in ops.items():  # each op of the graph launches once a call
+            for k, v in {**ops, "int8_dequant_bn": fused}.items():  # each once a call
                 expected[k] += v * len(DEPLOY_REQUESTS)
             size = os.path.getsize(path)
             with torch.no_grad():
@@ -5148,13 +5216,15 @@ def experiments_slice(name: str) -> dict:
         # abs-max once a QuantConv on dynamic scales (and in calibration)
         if got["cspn2d_tiled"] < forwards or got["d2s"] < forwards or any(
                 got[k] for k in KERNEL_NAMES
-                if k not in ("cspn2d_tiled", "d2s", "act_absmax", "int8_taps", "int8_dequant")) \
-                or got["int8_taps"] != got["int8_dequant"] or got["int8_taps"] < int8_forwards \
+                if k not in ("cspn2d_tiled", "d2s", "act_absmax", "int8_taps", "int8_dequant",
+                             "int8_dequant_bn")) \
+                or not got["int8_taps"] == got["int8_dequant"] == got["int8_dequant_bn"] \
+                or got["int8_taps"] < int8_forwards \
                 or not 0 < got["act_absmax"] < got["int8_taps"]:
             raise AssertionError(f"(c) precision deltas: launches {got}, expected at least "
                                  f"{forwards} cspn2d_tiled and d2s, at least {int8_forwards} "
-                                 "int8_taps, as many int8_dequant, fewer act_absmax and "
-                                 "nothing else")
+                                 "int8_taps, as many int8_dequant, each with the BN epilogue, "
+                                 "fewer act_absmax and nothing else")
         for variant, rs in prec["per_run"].items():
             for i, r in enumerate(rs):
                 _finite_metrics(f"(c) {variant} run {i}", r)
@@ -5228,7 +5298,9 @@ def timing_slice(name: str) -> dict:
     total = dict.fromkeys(KERNEL_NAMES, 0)
     with torch.device("meta"):
         per_fwd = d2s_per_forward(CSPNUNet(*LAYERS[50], STEPS))
-        int8_fwd = kernel_launches(CSPNUNet(*LAYERS[50], STEPS, dtype=torch.bfloat16, quant=True))
+        # the served int8 model: eval, its parameters cast to bf16 (the BN epilogue's)
+        int8_fwd = kernel_launches(CSPNUNet(*LAYERS[50], STEPS, dtype=torch.bfloat16, quant=True)
+                                   .to(torch.bfloat16).eval())
 
     def keys(label: str, rec, schema) -> None:
         missing = missing_keys(rec, schema)
@@ -5266,7 +5338,8 @@ def timing_slice(name: str) -> dict:
             lambda _: dict(cspn2d_tiled=forwards, d2s=forwards * per_fwd,
                            act_absmax=int8_fwd["act_absmax"] * int8_dynamic,
                            int8_taps=int8_fwd["int8_taps"] * int8_all,
-                           int8_dequant=int8_fwd["int8_dequant"] * int8_all))
+                           int8_dequant=int8_fwd["int8_dequant"] * int8_all,
+                           int8_dequant_bn=int8_fwd["int8_dequant_bn"] * int8_all))
         keys("latency_bench", lat, latency_bench.JAX_KEYS)
         _positive("latency_bench", qcache_build_ms=lat["qcache_build_ms"],
                   **{f"{r['path']} b{r['batch']}": r["latency_ms"] for r in lat["results"]})

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cspn_tpu_torch.models.resnet import BatchNorm2d, conv
+from cspn_tpu_torch.models.resnet import BatchNorm2d, conv, conv_bn
 from cspn_tpu_torch.ops.d2s import depth_to_space2
 
 
@@ -150,11 +150,14 @@ class _UnpoolBlock(nn.Module):
 
     subpixel: bool
 
-    def _up(self, x, oheight: int, owidth: int, *convs: nn.Conv2d) -> list[torch.Tensor]:
-        if self.subpixel:
-            return [c(x, oheight, owidth) for c in convs]
-        x = unpool2x(x, oheight, owidth)
-        return [c(x) for c in convs]
+    def _up(self, x, oheight: int, owidth: int, *convs: tuple) -> list[torch.Tensor]:
+        """relu?(bn(conv(unpool2x(x)))) of each (conv, bn, relu); no BN where
+        bn is None (models/resnet.py:conv_bn)."""
+        args = (oheight, owidth) if self.subpixel else ()
+        if not self.subpixel:
+            x = unpool2x(x, oheight, owidth)
+        return [c(x, *args) if bn is None else conv_bn(c, bn, x, *args, relu=relu)
+                for c, bn, relu in convs]
 
 
 class UpProj(nn.Module):
@@ -175,9 +178,9 @@ class UpProj(nn.Module):
 
     def forward(self, x, oheight: int = 0, owidth: int = 0):
         x = unpool2x(x, oheight or 2 * x.shape[2], owidth or 2 * x.shape[3])
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + self.sc_bn1(self.sc_conv1(x)))
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        sc = conv_bn(self.sc_conv1, self.sc_bn1, x)
+        return conv_bn(self.conv2, self.bn2, out, residual=sc, relu=True)
 
 
 class GudiUpProj(_UnpoolBlock):
@@ -194,10 +197,9 @@ class GudiUpProj(_UnpoolBlock):
         self.sc_bn1 = BatchNorm2d(features)
 
     def forward(self, x, oheight: int, owidth: int):
-        out, sc = self._up(x, oheight, owidth, self.conv1, self.sc_conv1)
-        out = torch.relu(self.bn1(out))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + self.sc_bn1(sc))
+        out, sc = self._up(x, oheight, owidth, (self.conv1, self.bn1, True),
+                           (self.sc_conv1, self.sc_bn1, False))
+        return conv_bn(self.conv2, self.bn2, out, residual=sc, relu=True)
 
 
 class GudiUpProjCat(_UnpoolBlock):
@@ -216,12 +218,11 @@ class GudiUpProjCat(_UnpoolBlock):
         self.sc_bn1 = BatchNorm2d(features)
 
     def forward(self, x, side_input, oheight: int, owidth: int):
-        out, sc = self._up(x, oheight, owidth, self.conv1, self.sc_conv1)
-        out = torch.relu(self.bn1(out))
+        out, sc = self._up(x, oheight, owidth, (self.conv1, self.bn1, True),
+                           (self.sc_conv1, self.sc_bn1, False))
         out = torch.cat([out, side_input], dim=1)
-        out = torch.relu(self.bn1_1(self.conv1_1(out)))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + self.sc_bn1(sc))
+        out = conv_bn(self.conv1_1, self.bn1_1, out, relu=True)
+        return conv_bn(self.conv2, self.bn2, out, residual=sc, relu=True)
 
 
 class GudiUpConv(_UnpoolBlock):
@@ -236,8 +237,8 @@ class GudiUpConv(_UnpoolBlock):
         self.bn1 = BatchNorm2d(features)
 
     def forward(self, x, oheight: int, owidth: int):
-        (out,) = self._up(x, oheight, owidth, self.conv1)
-        return torch.relu(self.bn1(out))
+        (out,) = self._up(x, oheight, owidth, (self.conv1, self.bn1, True))
+        return out
 
 
 class GudiUpConvLast(_UnpoolBlock):
@@ -249,5 +250,5 @@ class GudiUpConvLast(_UnpoolBlock):
         self.conv1 = _unpool_conv(cin, features, 3, subpixel)
 
     def forward(self, x, oheight: int, owidth: int):
-        (out,) = self._up(x, oheight, owidth, self.conv1)
+        (out,) = self._up(x, oheight, owidth, (self.conv1, None, False))
         return out

@@ -28,6 +28,12 @@ input, statistics and parameters, as JAX's does (resnet.py:96-112): float32
 rounded once on float32 parameters, and on the serving weights in bf16,
 each of x - mean, rsqrt(var + eps) * scale, the product and + bias rounded
 in turn.
+
+Every conv-BN(-add)(-ReLU) of the blocks goes through `conv_bn`: where the
+conv is an int8 QuantConv on the card and the BN normalizes in bf16, the
+conv's dequantize kernel applies the BN, the residual add and the ReLU in
+its epilogue (utils/quant.py, csrc/int8_conv.cu), with the same bits;
+everywhere else they run op by op as written.
 """
 
 from __future__ import annotations
@@ -90,14 +96,29 @@ class NormInPromotedDtype:
     bf16 in JAX's order; elsewhere torch's batch norm, which normalizes in
     float32 and rounds once."""
 
-    def forward(self, x):
+    def bf16_params(self, dtype: torch.dtype) -> tuple | None:
+        """(mean, mul, bias) [C] of the bf16 normalization of a `dtype`
+        input, mul = rsqrt(var + eps) * weight; None where this BN
+        normalizes otherwise (training, no running statistics, a promoted
+        dtype other than bf16)."""
         if self.training or self.running_mean is None or torch.promote_types(
-                torch.promote_types(x.dtype, self.running_mean.dtype),
+                torch.promote_types(dtype, self.running_mean.dtype),
                 self.weight.dtype) != torch.bfloat16:
+            return None
+        return self.running_mean, torch.rsqrt(self.running_var + self.eps) * self.weight, self.bias
+
+    def forward(self, x):
+        params = self.bf16_params(x.dtype)
+        if params is None:
             return super().forward(x)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return norm_bf16(x, *params)
+
+
+def norm_bf16(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """(x - mean) * mul + bias over dim 1, each op rounded to x's dtype."""
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean.view(shape)) * mul.view(shape) + bias.view(shape)
 
 
 class BatchNorm2d(NormInPromotedDtype, nn.BatchNorm2d):
@@ -111,6 +132,44 @@ class BatchNorm3d(NormInPromotedDtype, nn.BatchNorm3d):
 def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
     """Bias-free conv with torch-style symmetric padding."""
     return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
+
+
+def bn_epilogue(conv: nn.Module, bn: nn.Module, x: torch.Tensor) -> tuple | None:
+    """The BN's bf16 (mean, mul, bias) where `conv` takes it into its own
+    epilogue: a conv that has one (`fuses_bn`: utils/quant.py:QuantConv,
+    whose `int8_dequant` applies it on the card) on a CUDA input, and an
+    eval BN normalizing in bf16.  None: the BN runs op by op."""
+    if not (x.is_cuda and getattr(conv, "fuses_bn", False) and isinstance(bn, NormInPromotedDtype)):
+        return None
+    return bn.bf16_params(x.dtype)
+
+
+def conv_bn(conv: nn.Module, bn: nn.Module, x: torch.Tensor, *args,
+            residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """relu?(bn(conv(x, *args)) [+ residual]): every block's conv-BN(-add)
+    (-ReLU).  Where `bn_epilogue` finds one, the conv's epilogue computes
+    it, with the same bits; elsewhere (the CPU, training, float BNs, convs
+    without one) the ops run one by one."""
+    params = bn_epilogue(conv, bn, x)
+    if params is not None:
+        return conv(x, *args, bn=params, residual=residual, relu=relu)
+    out = bn(conv(x, *args))
+    if residual is not None:
+        out = out + residual
+    return torch.relu(out) if relu else out
+
+
+def conv_bn_pairs(model: nn.Module):
+    """Each (conv, BN) the blocks hand to `conv_bn`, by the reference's
+    module names: a conv `<p>conv<s>` and its sibling `<p>bn<s>` (conv1 /
+    bn1, conv1_1 / bn1_1, sc_conv1 / sc_bn1, the trunk's conv2 / bn2), a
+    downsample's `0` and `1`."""
+    for parent in model.modules():
+        children = dict(parent.named_children())
+        for name, m in children.items():
+            bn = children.get("1" if name == "0" else name.replace("conv", "bn", 1))
+            if isinstance(m, nn.Conv2d) and isinstance(bn, nn.BatchNorm2d):
+                yield m, bn
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -130,10 +189,10 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(inplanes, planes, stride) if downsample else None
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + residual)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        residual = x if self.downsample is None else conv_bn(self.downsample[0],
+                                                             self.downsample[1], x)
+        return conv_bn(self.conv2, self.bn2, out, residual=residual, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -150,11 +209,11 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(inplanes, planes * 4, stride) if downsample else None
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + residual)
+        out = conv_bn(self.conv1, self.bn1, x, relu=True)
+        out = conv_bn(self.conv2, self.bn2, out, relu=True)
+        residual = x if self.downsample is None else conv_bn(self.downsample[0],
+                                                             self.downsample[1], x)
+        return conv_bn(self.conv3, self.bn3, out, residual=residual, relu=True)
 
 
 BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
@@ -195,4 +254,4 @@ class ResNetEncoder(nn.Module):
         x = self.layer2(x)
         skips["skip2"] = x
         x = self.layer4(self.layer3(x))
-        return self.bn2(self.conv2(x)), skips
+        return conv_bn(self.conv2, self.bn2, x), skips

@@ -95,8 +95,9 @@ KERNELS: dict[str, tuple[str, dict[str, list]]] = {
         {"act_absmax": [_c_void_p, ctypes.c_longlong, _c_int, _c_void_p, _c_void_p, _c_void_p],
          "int8_taps": [_c_void_p, _c_void_p, _c_int, _c_int, _c_void_p] + [_c_int] * 13
                       + [_c_void_p],
-         "int8_dequant": [_c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_int,
-                          _c_void_p, _c_int, _c_int, _c_int, _c_void_p]},
+         "int8_dequant": [_c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_void_p, _c_int]
+                         + [_c_void_p] * 4 + [_c_int, _c_void_p, _c_int, _c_int, _c_int,
+                                              _c_void_p]},
     ),
 }
 

@@ -7,7 +7,8 @@ A QuantConv on a CUDA tensor runs, per conv:
                                             skips it)
     int8_taps(x, scale, ..) -> A [M', K']  int8: quantize, pad and im2col
     torch._int_mm(A, W^T)   -> [M', O']    int32 (cuBLASLt)
-    int8_dequant(acc, ..)   -> y [N, Ho, Wo, O] in x's dtype (bf16)
+    int8_dequant(acc, ..)   -> y [N, Ho, Wo, O] in x's dtype (bf16), or
+                               with its epilogue relu?(bn(y) [+ residual])
 
 where the PyTorch route (quantize_tensor, _taps, int8_matmul,
 int8_conv_prequant's dequantization) runs ~14 passes a conv.  Every value
@@ -15,6 +16,14 @@ equals the PyTorch route's on the card bit for bit: the scales, the taps
 and the output (csrc/int8_conv.cu gives the arithmetic).  M' = max(N * Ho
 * Wo, 17) and K' = the weight matrix's padded K, so that `_int_mm` takes A
 as it is; the dequantization drops the pad rows and columns.
+
+The epilogue is the eval BN that follows the conv in the serving model,
+its residual add and its ReLU (models/resnet.py:conv_bn): the BN's bf16
+(mean, mul, bias) [O], mul = rsqrt(var + eps) * weight as the BN forms
+it, and a bf16 residual [N, O, Ho, Wo], copied into channels-last memory
+where it is not; each step is rounded to bf16 as the BN's, the add's and
+torch.relu's own passes round it (csrc/int8_conv.cu), so the output is
+theirs bit for bit.
 
 The kernels take a bf16 activation in channels-last memory (the layout
 the previous QuantConv's output keeps through the BN and ReLU;
@@ -29,7 +38,8 @@ implementation that gives the shapes, the rows of A as `torch.sym_max(N *
 Ho * Wo, 17)` where `torch.export` keeps the batch symbolic.  CPU tensors
 never reach them: QuantConv takes the PyTorch route there.
 `absmax_launches`, `taps_launches` and `dequant_launches` count the
-kernels' runs where they launch (serving.py adds a graph replay's).
+kernels' runs where they launch (serving.py adds a graph replay's), and
+`dequant_bn_launches` those of `dequant_launches` with the epilogue.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ MIN_ROWS = 17  # `_int_mm` on the card takes more than 16 rows
 absmax_launches = 0
 taps_launches = 0
 dequant_launches = 0
+dequant_bn_launches = 0
 
 _SCALE_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -121,10 +132,32 @@ def _launch_taps(x: torch.Tensor, scale: torch.Tensor, kh: int, kw: int, stride:
     return a
 
 
+def _check_epilogue(bn: list | None, residual: torch.Tensor | None, relu: bool,
+                    acc: torch.Tensor, shape: tuple[int, int, int, int]) -> None:
+    """Raise on an epilogue the kernel does not take: BN parameters other
+    than three bf16 [O] on the product's card, a residual or a ReLU without
+    them, a residual other than the output's bf16 [N, O, Ho, Wo]."""
+    if bn is None:
+        if residual is not None or relu:
+            raise ValueError("int8_dequant: the residual and the ReLU follow the BN, given none")
+        return
+    o = shape[1]
+    got = [None if t is None else (t.dtype, tuple(t.shape), str(t.device)) for t in bn]
+    if any(g != (torch.bfloat16, (o,), str(acc.device)) for g in got):
+        raise ValueError(f"int8_dequant: the BN's (mean, mul, bias) are bf16 [{o}] on "
+                         f"{acc.device}, got {got}")
+    if residual is not None and (residual.dtype, tuple(residual.shape), residual.device) != (
+            torch.bfloat16, shape, acc.device):
+        raise ValueError(f"int8_dequant: the residual is bf16 {list(shape)} on {acc.device}, got "
+                         f"{residual.dtype} {tuple(residual.shape)} on {residual.device}")
+
+
 def _launch_dequant(acc: torch.Tensor, scale: torch.Tensor, ws: torch.Tensor, n: int, ho: int,
-                    wo: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """The `int8_dequant` kernel; returns [n, ho, wo, O] bf16, contiguous."""
-    global dequant_launches
+                    wo: int, out_dtype: torch.dtype, bn: list | None = None,
+                    residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """The `int8_dequant` kernel, with the epilogue where `bn` gives the
+    BN's (mean, mul, bias); returns [n, ho, wo, O] bf16, contiguous."""
+    global dequant_launches, dequant_bn_launches
     from cspn_tpu_torch.ops import _build
 
     if acc.dtype != torch.int32 or acc.ndim != 2:
@@ -138,15 +171,28 @@ def _launch_dequant(acc: torch.Tensor, scale: torch.Tensor, ws: torch.Tensor, n:
                          f"{tuple(ws.shape)} channels")
     xs_f32, per_sample = _scale_code(scale, acc, n, "int8_dequant")
     ws_f32, _ = _scale_code(ws, acc, o, "int8_dequant")
+    _check_epilogue(bn, residual, relu, acc, (n, o, ho, wo))
     acc, scale, ws = acc.contiguous(), scale.contiguous(), ws.contiguous()
+    mean, mul, bias = (None,) * 3 if bn is None else (t.contiguous() for t in bn)
+    if residual is not None:  # NHWC memory on a 16-byte boundary, as the output's
+        residual = residual.contiguous(memory_format=torch.channels_last)
+        if residual.data_ptr() % 16:
+            residual = residual.clone(memory_format=torch.channels_last)
     out = torch.empty(n, ho, wo, o, dtype=torch.bfloat16, device=acc.device)
     lib = _build.load("int8_conv")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(acc.device):
         err = lib.int8_dequant(acc.data_ptr(), acc.shape[1], scale.data_ptr(), xs_f32, per_sample,
-                               ws.data_ptr(), ws_f32, out.data_ptr(), m, ho * wo, o, _stream(acc))
+                               ws.data_ptr(), ws_f32, ptr(mean), ptr(mul), ptr(bias),
+                               ptr(residual), int(relu), out.data_ptr(), m, ho * wo, o,
+                               _stream(acc))
     if err != 0:
         raise RuntimeError(f"int8_dequant launch failed: cudaError_t {err}")
     dequant_launches += 1
+    dequant_bn_launches += int(bn is not None)
     return out
 
 
@@ -181,14 +227,20 @@ def _(x, scale, kh, kw, stride, ph0, ph1, pw0, pw1, k_pad):
 
 @torch.library.custom_op("cspn_tpu_torch::int8_dequant", mutates_args=(), device_types="cuda")
 def int8_dequant(acc: torch.Tensor, scale: torch.Tensor, ws: torch.Tensor, n: int, ho: int,
-                 wo: int, out_dtype: torch.dtype) -> torch.Tensor:
+                 wo: int, out_dtype: torch.dtype, mean: torch.Tensor | None = None,
+                 mul: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                 residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """The int32 product [M', O'] of `int8_taps`' A, dequantized by the
     activation `scale` times the weight scales `ws` [O]: [n, ho, wo, O] in
     out_dtype, contiguous (NHWC; the conv's NCHW output is its permuted
-    view)."""
-    return _launch_dequant(acc, scale, ws, n, ho, wo, out_dtype)
+    view).  With the eval BN's bf16 `mean`, `mul` and `bias` [O], its
+    epilogue writes relu?(bn(y) [+ residual]) in their place, `residual`
+    [n, O, ho, wo] bf16 in any layout."""
+    bn = None if mean is None and mul is None and bias is None else [mean, mul, bias]
+    return _launch_dequant(acc, scale, ws, n, ho, wo, out_dtype, bn, residual, relu)
 
 
 @int8_dequant.register_fake
-def _(acc, scale, ws, n, ho, wo, out_dtype):
+def _(acc, scale, ws, n, ho, wo, out_dtype, mean=None, mul=None, bias=None, residual=None,
+      relu=False):
     return acc.new_empty((n, ho, wo, ws.shape[0]), dtype=out_dtype)

@@ -75,6 +75,7 @@ LAUNCH_COUNTERS = (
     ("cspn_tpu_torch.ops.quant_cuda", "absmax_launches"),
     ("cspn_tpu_torch.ops.quant_cuda", "taps_launches"),
     ("cspn_tpu_torch.ops.quant_cuda", "dequant_launches"),
+    ("cspn_tpu_torch.ops.quant_cuda", "dequant_bn_launches"),
 )
 
 

@@ -57,6 +57,7 @@ from torch import nn
 from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from cspn_tpu_torch.models.decoder import SubpixelUnpoolConv, _subpixel_convs
+from cspn_tpu_torch.models.resnet import NormInPromotedDtype, conv_bn_pairs, norm_bf16
 from cspn_tpu_torch.ops import quant_cuda
 from cspn_tpu_torch.ops.d2s import depth_to_space2
 
@@ -149,11 +150,14 @@ def int8_conv_prequant(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws:
 
 
 def int8_conv_kernels(x: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                      stride: int, pad, w_mat: torch.Tensor | None = None) -> torch.Tensor:
+                      stride: int, pad, w_mat: torch.Tensor | None = None, bn: tuple = (),
+                      residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """`int8_conv_prequant` on the card, from the unquantized bf16 input x
     (channels-last) and its scale xs: the taps quantized and padded by
     `int8_taps`, `_int_mm`, `int8_dequant`.  The same bits and the same
-    NCHW view of an NHWC-contiguous output."""
+    NCHW view of an NHWC-contiguous output.  With `bn`, an eval BN's bf16
+    (mean, mul, bias), `int8_dequant`'s epilogue writes relu?(norm_bf16(y,
+    *bn) [+ residual]) in y's place."""
     (ph0, ph1), (pw0, pw1) = pad
     kh, kw = wq.shape[2:]
     w_mat = weight_matrix(wq) if w_mat is None else w_mat
@@ -162,8 +166,26 @@ def int8_conv_kernels(x: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor, ws: t
     a = torch.ops.cspn_tpu_torch.int8_taps(x, xs, kh, kw, stride, ph0, ph1, pw0, pw1,
                                            w_mat.shape[1])
     acc = torch._int_mm(a, w_mat.t())
-    y = torch.ops.cspn_tpu_torch.int8_dequant(acc, xs, ws, n, ho, wo, x.dtype)
+    y = torch.ops.cspn_tpu_torch.int8_dequant(acc, xs, ws, n, ho, wo, x.dtype, *bn,
+                                              residual=residual, relu=relu)
     return y.permute(0, 3, 1, 2)
+
+
+def apply_epilogue(y: torch.Tensor, bn: tuple, residual: torch.Tensor | None,
+                   relu: bool) -> torch.Tensor:
+    """relu?(norm_bf16(y, *bn) [+ residual]) op by op: the PyTorch route's
+    form of `int8_dequant`'s epilogue."""
+    y = norm_bf16(y, *bn)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def _tiled(bn: tuple, channels: int) -> tuple:
+    """A BN's [C] parameters for a product of `channels` outputs: as they
+    are, or repeated for the reindexed subpixel conv's four phase groups,
+    px-major (models/decoder.py:_subpixel_weights)."""
+    return tuple(t if t.shape[0] == channels else t.repeat(channels // t.shape[0]) for t in bn)
 
 
 class QuantConv(nn.Conv2d):
@@ -178,6 +200,12 @@ class QuantConv(nn.Conv2d):
     activation quantization shared by them, and `depth_to_space2` of the
     dequantized phases.
 
+    `bn`, `residual` and `relu` (models/resnet.py:conv_bn) make forward
+    return relu?(bn(conv) [+ residual]), `bn` an eval BN's bf16 (mean, mul,
+    bias): on the card in `int8_dequant`'s epilogue, a subpixel conv's on
+    each phase before `depth_to_space2` (per channel and per value, the BN
+    and ReLU commute with it; no residual reaches one).
+
     `qcache` holds the load-time weight cache (`build_weight_qcache`):
     [(wq, ws, weight_matrix(wq))] a conv; without it the weight is
     quantized at every call.  `act_max` holds the calibrated abs-max of the
@@ -188,6 +216,8 @@ class QuantConv(nn.Conv2d):
     `torch.func.functional_call` and `torch.export` see them as the
     module's tensors (export.py embeds them with the weights or takes them
     as inputs), not as constants baked into a graph."""
+
+    fuses_bn = True  # models/resnet.py:bn_epilogue
 
     def __init__(self, conv: nn.Conv2d, subpixel: bool = False):
         super().__init__(conv.in_channels, conv.out_channels, conv.kernel_size,
@@ -243,26 +273,40 @@ class QuantConv(nn.Conv2d):
             return self.act_max.clamp_min(1e-12) / 127.0
         return None
 
-    def _products_plain(self, x: torch.Tensor, scale: torch.Tensor | None, convs) -> list:
-        """Each conv's output by the PyTorch route, one quantization of x."""
+    def _products_plain(self, x: torch.Tensor, scale: torch.Tensor | None, convs, bn: tuple = (),
+                        residual: torch.Tensor | None = None, relu: bool = False) -> list:
+        """Each conv's output by the PyTorch route, one quantization of x,
+        then the epilogue where `bn` gives one, op by op."""
         xq, xs = quantize_tensor(x) if scale is None else quantize_tensor_static(x, scale)
-        return [int8_conv_prequant(xq, xs, wq, ws, self.stride[0], pad, x.dtype, w_mat)
-                for (wq, ws, w_mat), pad in convs]
+        ys = [int8_conv_prequant(xq, xs, wq, ws, self.stride[0], pad, x.dtype, w_mat)
+              for (wq, ws, w_mat), pad in convs]
+        return [apply_epilogue(y, _tiled(bn, y.shape[1]), residual, relu) if bn else y
+                for y in ys]
 
-    def _products_kernels(self, x: torch.Tensor, scale: torch.Tensor | None, convs) -> list:
+    def _products_kernels(self, x: torch.Tensor, scale: torch.Tensor | None, convs,
+                          bn: tuple = (), residual: torch.Tensor | None = None,
+                          relu: bool = False) -> list:
         """Each conv's output by the card's kernels, one scale of x and, where
         x is not channels-last already, one copy into that layout for all of
-        them."""
+        them; the epilogue where `bn` gives one in `int8_dequant`, the
+        residual copied into channels-last where it is not."""
         x = x.contiguous(memory_format=torch.channels_last)
+        if residual is not None:
+            residual = residual.contiguous(memory_format=torch.channels_last)
         xs = torch.ops.cspn_tpu_torch.act_absmax(x) if scale is None else scale
-        return [int8_conv_kernels(x, xs, wq, ws, self.stride[0], pad, w_mat)
+        return [int8_conv_kernels(x, xs, wq, ws, self.stride[0], pad, w_mat,
+                                  _tiled(bn, wq.shape[0]), residual, relu)
                 for (wq, ws, w_mat), pad in convs]
 
-    def forward(self, x: torch.Tensor, oheight: int | None = None, owidth: int | None = None):
+    def forward(self, x: torch.Tensor, oheight: int | None = None, owidth: int | None = None,
+                bn: tuple = (), residual: torch.Tensor | None = None, relu: bool = False):
+        if (residual is not None or relu) and not bn or residual is not None and self.subpixel:
+            raise ValueError("a QuantConv's residual and ReLU follow its BN, and no residual "
+                             "follows a subpixel one")
         scale = self._static_scale(x)
         pads = [(ph, pw) for _, ph, pw in self._convs(self.weight)]
         products = self._products_kernels if x.is_cuda else self._products_plain
-        ys = products(x, scale, zip(self.quantized_weights(), pads))
+        ys = products(x, scale, zip(self.quantized_weights(), pads), tuple(bn), residual, relu)
         if not self.subpixel:
             return ys[0]
         return depth_to_space2(ys[0] if len(ys) == 1 else ys, oheight, owidth)
@@ -290,11 +334,16 @@ def kernel_launches(model: nn.Module) -> dict[str, int]:
     """The int8 kernels' launches (ops/quant_cuda.py) in one forward of
     `model` on the card: `act_absmax` a QuantConv with dynamic scales,
     `int8_taps` and `int8_dequant` a conv product (a subpixel conv's four
-    phases four)."""
+    phases four), and `int8_dequant_bn` the products of `int8_dequant`
+    with the BN epilogue: those of each QuantConv that a block pairs with
+    an eval BN normalizing bf16 (models/resnet.py:conv_bn)."""
     convs = quant_convs(model).values()
     products = sum(len(m._convs(m.weight)) for m in convs)
+    fused = sum(len(c._convs(c.weight)) for c, bn in conv_bn_pairs(model)
+                if isinstance(c, QuantConv) and isinstance(bn, NormInPromotedDtype)
+                and bn.bf16_params(torch.bfloat16) is not None)
     return {"act_absmax": sum(m.act_max is None for m in convs), "int8_taps": products,
-            "int8_dequant": products}
+            "int8_dequant": products, "int8_dequant_bn": fused}
 
 
 @torch.no_grad()

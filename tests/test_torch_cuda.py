@@ -321,6 +321,7 @@ INT8_GEOMETRIES = {
     "c5": (5, 12, 3, 1, 1, False, 2, 5, 7),
     "layer1_3x3_b8": (64, 64, 3, 1, 1, False, 8, 57, 76),
     "decoder_subpixel_b8": (1024, 128, 5, 1, 2, True, 8, 15, 19),
+    "subpixel_5x5_joined": (16, 64, 5, 1, 2, True, 2, 5, 7),  # one reindexed kernel
 }
 
 
@@ -340,7 +341,8 @@ def _int8_conv(gen, c, o, k, stride, pad, subpixel, static):
 def _int8_launches():
     from cspn_tpu_torch.ops import quant_cuda
 
-    return quant_cuda.absmax_launches, quant_cuda.taps_launches, quant_cuda.dequant_launches
+    return (quant_cuda.absmax_launches, quant_cuda.taps_launches, quant_cuda.dequant_launches,
+            quant_cuda.dequant_bn_launches)
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
@@ -390,7 +392,7 @@ def test_int8_kernels_equal_the_pytorch_route(gen, geometry, channels_last, stat
             assert torch.equal(got_y, want_y) and got_y.stride() == want_y.stride()
         dynamic = int(scale is None)
         assert _int8_launches() == (before[0] + dynamic, before[1] + len(convs),
-                                    before[2] + len(convs))
+                                    before[2] + len(convs), before[3])
         got = qc(x, oh, ow)
         plain = qc._products_plain(x, scale, convs)
         want = plain[0] if not sub else quant.depth_to_space2(
@@ -472,7 +474,8 @@ def test_int8_model_equals_the_pytorch_route(gen, batch, static, monkeypatch):
     """The whole int8 CSPN-UNet (nyu_eval: ResNet-50, 228x304) on the
     kernels equals it on the PyTorch route, bit for bit; one forward
     launches act_absmax 64 times (0 on static scales), int8_taps and
-    int8_dequant 82 (quant.kernel_launches)."""
+    int8_dequant 82, each with the BN epilogue (quant.kernel_launches),
+    where the PyTorch route runs the BNs, adds and ReLUs as ops."""
     import dataclasses
 
     from cspn_tpu_torch import config
@@ -490,7 +493,7 @@ def test_int8_model_equals_the_pytorch_route(gen, batch, static, monkeypatch):
         quant.build_act_calibration(model, [x])
     want_launches = quant.kernel_launches(model)
     assert want_launches == {"act_absmax": 0 if static else 64, "int8_taps": 82,
-                             "int8_dequant": 82}
+                             "int8_dequant": 82, "int8_dequant_bn": 82}
     with torch.no_grad():
         before = _int8_launches()
         got = model(x)
@@ -500,6 +503,188 @@ def test_int8_model_equals_the_pytorch_route(gen, batch, static, monkeypatch):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(after, before)] == list(want_launches.values())
     assert _int8_launches() == after  # the PyTorch route launches none of them
+    assert torch.equal(got, want)
+
+
+# the epilogue's residual (None, or its layout) and ReLU
+INT8_EPILOGUES = {"bn": (None, False), "bn_relu": (None, True),
+                  "bn_residual_nhwc": ("nhwc", False), "bn_residual_nchw_relu": ("nchw", True),
+                  "bn_residual_nhwc_relu": ("nhwc", True)}
+
+
+def _serving_bn(gen, c, special=True):
+    """An eval BatchNorm2d [c] holding bf16 serving weights with seeded
+    statistics; with `special`, channels whose parameters are NaN, +-inf,
+    -0 and a negative weight over a zero mean and a -0 bias (a zero input
+    gives -0 before the ReLU)."""
+    from cspn_tpu_torch.models.resnet import BatchNorm2d
+
+    bn = BatchNorm2d(c, device="cuda")
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(c, device="cuda", generator=gen) * 0.1)
+        bn.running_var.copy_(torch.rand(c, device="cuda", generator=gen) + 0.5)
+        bn.weight.copy_(torch.randn(c, device="cuda", generator=gen))
+        bn.bias.copy_(torch.randn(c, device="cuda", generator=gen) * 0.1)
+        if special:
+            bn.running_mean[0] = float("nan")
+            bn.weight[1] = float("inf")
+            bn.bias[2] = float("-inf")
+            bn.running_mean[3], bn.weight[3], bn.bias[3] = 0.0, -1.5, -0.0
+            bn.running_mean[4], bn.bias[4] = -0.0, -0.0
+    return bn.to(torch.bfloat16).eval()
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit, NaNs included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("epilogue", list(INT8_EPILOGUES))
+@pytest.mark.parametrize("geometry", list(INT8_GEOMETRIES))
+def test_int8_dequant_epilogue_equals_the_unfused_route(gen, geometry, epilogue, static,
+                                                        monkeypatch):
+    """int8_dequant's BN epilogue through models/resnet.py:conv_bn against
+    the route without it (conv_bn finding no epilogue: the unfused
+    int8_dequant, then NormInPromotedDtype, + residual and torch.relu as
+    PyTorch ops), bit for bit, NaNs' bits too: every geometry (O a
+    multiple of 8 and not; a subpixel conv's BN on each phase, the
+    reindexed kernel's tiled), both scale routes, a residual in
+    channels-last or NCHW memory (none reaches a subpixel conv), with and
+    without the ReLU.  Sample 0 is zero; the BN's parameters and the
+    residual hold NaN, +-inf and -0.  One int8_dequant a product, each
+    with the epilogue."""
+    from cspn_tpu_torch.models import resnet
+
+    c, o, k, stride, pad, sub, n, h, w = INT8_GEOMETRIES[geometry]
+    layout, relu = INT8_EPILOGUES[epilogue]
+    if sub and layout:
+        pytest.skip("no residual reaches a subpixel conv")
+    qc = _int8_conv(gen, c, o, k, stride, pad, sub, static)
+    bn = _serving_bn(gen, o)
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(torch.bfloat16)
+    x[0] = 0
+    x = x.contiguous(memory_format=torch.channels_last)
+    args = (2 * h - 1, 2 * w) if sub else ()
+    residual = None
+    if layout:
+        ho, wo = qc(x).shape[2:]
+        residual = torch.randn(n, o, ho, wo, device="cuda", generator=gen).to(torch.bfloat16)
+        residual.view(-1)[:4] = torch.tensor([-0.0, float("inf"), float("-inf"), float("nan")])
+        residual[0] = -0.0
+        if layout == "nhwc":
+            residual = residual.contiguous(memory_format=torch.channels_last)
+    products = len(qc._convs(qc.weight))
+    with torch.no_grad():
+        before = _int8_launches()
+        got = resnet.conv_bn(qc, bn, x, *args, residual=residual, relu=relu)
+        after = _int8_launches()
+        monkeypatch.setattr(resnet, "bn_epilogue", lambda conv, bn, x: None)
+        want = resnet.conv_bn(qc, bn, x, *args, residual=residual, relu=relu)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(after, before)] == [int(not static), products, products,
+                                                      products]
+    assert got.is_contiguous(memory_format=torch.channels_last) or sub
+    assert _bits_equal(got, want)
+    assert got.isnan().any() and (relu or (got.view(torch.int16) == -32768).any())  # NaN, -0
+
+
+def test_int8_dequant_relu_keeps_torch_relus_zero_and_nan(gen):
+    """The epilogue's ReLU at -0, +0, NaN, +-inf and finite values (a zero
+    product after a BN of mean 0, mul -1, bias -0 gives -0, and the
+    residual adds the value) against the same ops in PyTorch on the card,
+    torch.relu's own -0 and NaN included: the same bits."""
+    acc = torch.zeros(24, 8, dtype=torch.int32, device="cuda")
+    scale = torch.ones(1, dtype=torch.bfloat16, device="cuda")
+    ones = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+    mean, mul, bias = ones * 0, -ones, ones * -0.0
+    vals = torch.tensor([-0.0, 0.0, float("nan"), float("inf"), float("-inf"), -1.0, 2.0, -0.0],
+                        device="cuda").to(torch.bfloat16)
+    r = vals.repeat(24).view(1, 4, 6, 8).permute(0, 3, 1, 2)
+    got = torch.ops.cspn_tpu_torch.int8_dequant(acc, scale, ones, 1, 4, 6, torch.bfloat16, mean,
+                                                mul, bias, residual=r, relu=True)
+
+    def per_channel(t):
+        return t.view(1, -1, 1, 1)
+
+    y = torch.zeros_like(r)
+    want = torch.relu((y - per_channel(mean)) * per_channel(mul) + per_channel(bias) + r)
+    torch.cuda.synchronize()
+    assert _bits_equal(got.permute(0, 3, 1, 2), want)
+
+
+@pytest.mark.parametrize("epilogue", list(INT8_EPILOGUES))
+def test_int8_dequant_epilogue_opcheck(gen, epilogue):
+    """torch.library.opcheck on the card with the epilogue's arguments:
+    schema, fake implementation and the CUDA implementation agree."""
+    layout, relu = INT8_EPILOGUES[epilogue]
+    x = torch.randn(2, 16, 5, 7, device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = torch.ops.cspn_tpu_torch.act_absmax(x)
+    a = torch.ops.cspn_tpu_torch.int8_taps(x, scale, 3, 3, 1, 1, 1, 1, 1, 144)
+    w = torch.randint(-127, 128, (24, 144), dtype=torch.int8, device="cuda", generator=gen)
+    acc = torch._int_mm(a, w.t())
+    ws = torch.rand(24, device="cuda", generator=gen).to(torch.bfloat16)
+    bn = [torch.randn(24, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3)]
+    r = None
+    if layout:
+        r = torch.randn(2, 24, 5, 7, device="cuda", generator=gen).to(torch.bfloat16)
+        if layout == "nhwc":
+            r = r.contiguous(memory_format=torch.channels_last)
+    torch.library.opcheck(torch.ops.cspn_tpu_torch.int8_dequant,
+                          (acc, scale, ws, 2, 5, 7, torch.bfloat16, *bn, r, relu))
+
+
+def _serving_int8_model(preset: str, gen):
+    """The preset's int8 CSPN-UNet on the card as served: bf16 weights,
+    seeded BN statistics (no special values), the weight cache."""
+    import dataclasses
+
+    from cspn_tpu_torch import config
+    from cspn_tpu_torch.models.resnet import BatchNorm2d
+    from cspn_tpu_torch.train import evaluate
+    from cspn_tpu_torch.utils import quant
+    from cspn_tpu_torch.utils.precision import cast_floating
+
+    cfg = config.PRESETS[preset]
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="int8"))
+    model = evaluate.build_model(cfg, device="cuda")
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.load_state_dict(_serving_bn(gen, m.num_features, special=False).float().state_dict())
+    model.load_state_dict(cast_floating(model.state_dict()), assign=True)
+    quant.build_weight_qcache(model)
+    return model
+
+
+@pytest.mark.parametrize("preset, batch", [("nyu_eval", 8), ("nyu_eval", 32), ("nyu_eval", 128),
+                                           ("kitti_benchmark", 4)],
+                         ids=["nyu_b8", "nyu_b32", "nyu_b128", "kitti_b4"])
+def test_int8_model_with_the_epilogue_equals_the_unfused_route(gen, preset, batch, monkeypatch):
+    """The whole int8 CSPN-UNet, nyu_eval's ResNet-50 at 228x304 at the
+    served int8 buckets and the offline batch, kitti_benchmark's ResNet-18
+    at 352x1216: with the BN epilogue (82 and 43 of the dequantizations a
+    forward) equal to the same model whose blocks run the BNs, adds and
+    ReLUs as ops (conv_bn finding no epilogue), bit for bit."""
+    from cspn_tpu_torch.models import resnet
+    from cspn_tpu_torch.utils import quant
+
+    model = _serving_int8_model(preset, gen)
+    h, w = {"nyu_eval": (228, 304), "kitti_benchmark": (352, 1216)}[preset]
+    launches = quant.kernel_launches(model)
+    assert launches["int8_dequant_bn"] == launches["int8_dequant"] == {
+        "nyu_eval": 82, "kitti_benchmark": 43}[preset]
+    x = torch.randn(batch, h, w, 4, device="cuda", generator=gen)
+    with torch.no_grad():
+        before = _int8_launches()
+        got = model(x)
+        after = _int8_launches()
+        monkeypatch.setattr(resnet, "bn_epilogue", lambda conv, bn, x: None)
+        want = model(x)
+        unfused = _int8_launches()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(after, before)] == list(launches.values())
+    assert unfused[3] == after[3] and unfused[2] - after[2] == launches["int8_dequant"]
     assert torch.equal(got, want)
 
 
@@ -577,7 +762,7 @@ def test_int8_conv_exports_with_a_symbolic_batch(gen, static, tmp_path):
             want = qc._products_plain(x, qc._static_scale(x), convs)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        assert [a - b for a, b in zip(after, before)] == [int(not static), 1, 1]
+        assert [a - b for a, b in zip(after, before)] == [int(not static), 1, 1, 0]
 
 
 @pytest.mark.parametrize("case", ["stereo", "stereo zero-gates corner", "sharded segment"])
@@ -1474,6 +1659,7 @@ def test_export_on_the_card_launches_the_kernels(gen, dtype, tmp_path):
         from cspn_tpu_torch.utils import quant
 
         int8_ops = {k: v for k, v in quant.kernel_launches(model).items() if v}
+        assert int8_ops.pop("int8_dequant_bn") == int8_ops["int8_dequant"]  # in the same op
     assert export.op_counts(program) == {"cspn2d_tiled": 1, "d2s": 9, **int8_ops}
     export.save_artifact(program, str(tmp_path / "m.pt2"), {"arch": "resnet18", "dtype": dtype,
                                                            "cspn_steps": 4, "height": 64,
